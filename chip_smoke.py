@@ -4,12 +4,16 @@
 
 Run from the repository root. Phases (each one raises on failure, so the
 exit code is not 0):
-1. the card: name and power limit from nvidia-smi; CUDA required; TF32 off;
+1. CUDA required; the card: name and power limit from nvidia-smi; TF32 off;
 2. build both CUDA kernels from the sources in the checkout (timed);
-3. each kernel against its plain torch version on the card, at the main
-   path's shapes (ring: 36 anchors x a 4096-pixel pool of a real scan;
-   tile-min: a bf16 (6, 10, 49152) store with zero rows, duplicated keys, a
-   searchable cutoff and an invalid query anchor), timed with CUDA events;
+3. each kernel against its plain torch version on the card at the edge
+   shapes, naming the path each took, then at the main path's shapes (ring:
+   36 anchors x a 4096-pixel pool of a real scan; tile-min: a bf16
+   (6, 10, 49152) store with zero rows, duplicated keys and an invalid query
+   anchor, at searchable_n 7000 and 246) with its device time warm and cold
+   from torch.profiler, its bound and share, its call time (host + launch)
+   and its plain version's time (contour_context_tpu_torch/kernel_times.py);
+   the key search on the card equals the CPU's;
 4. the fused stream at the default PipelineConfig (131072-point scans) with
    ContourDB(capacity=8192, device="cuda"): two lanes of 132 scans, then a
    revisit of lane 0 at 1.5 m lateral offset, 10 Hz timestamps; the launch
@@ -26,7 +30,6 @@ from __future__ import annotations
 
 import json
 import os
-import subprocess
 import sys
 import tempfile
 import time
@@ -38,34 +41,10 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 LANE_SCANS = 132
 WARMUP = 8
-REPS = 20
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def card() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    return out.stdout.strip().splitlines()[0]
-
-
-def time_ms(fn) -> float:
-    """Median of REPS CUDA-event timings of fn() after 3 warm-up calls."""
-    for _ in range(3):
-        fn()
-    times = []
-    for _ in range(REPS):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        torch.cuda.synchronize()
-        times.append(a.elapsed_time(b))
-    return float(np.median(times))
 
 
 def lm_witness(cfg, r_g, r_c, row: int) -> None:
@@ -113,27 +92,31 @@ def lm_witness(cfg, r_g, r_c, row: int) -> None:
 
 
 def main() -> None:
-    smi = card()
-    log(f"card: {smi}")
     if not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    assert not torch.backends.cuda.matmul.allow_tf32
-    assert not torch.backends.cudnn.allow_tf32
     sys.path.insert(0, os.path.join(ROOT, "tests"))
 
     from synth import make_world, render_scan, se3_from_xyt
 
     from contour_context_tpu_torch import PipelineConfig, pad_points
     from contour_context_tpu_torch import db as tdb
+    from contour_context_tpu_torch import kernel_times as kt
     from contour_context_tpu_torch.ops import descriptor as td
     from contour_context_tpu_torch.ops import kernels
     from contour_context_tpu_torch.profile_step import lane_poses
 
+    smi = kt.card()
+    log(f"card: {smi}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert not torch.backends.cudnn.allow_tf32
+
     dev = torch.device("cuda", 0)
     cfg = PipelineConfig()
     cm = cfg.cm
+    rng = np.random.default_rng(0)
+    world = make_world(1, n_structs=300, extent=400.0)
 
     # ---- 2. build -------------------------------------------------------
     t0 = time.perf_counter()
@@ -141,51 +124,23 @@ def main() -> None:
     build_s = time.perf_counter() - t0
     log(f"kernel build: {build_s:.2f} s ({smi})")
 
-    # ---- 3. kernels vs plain on the card --------------------------------
-    rng = np.random.default_rng(0)
-    world = make_world(1, n_structs=300, extent=400.0)
-    pts0 = torch.from_numpy(pad_points(
-        render_scan(world, lane_poses(0, 1)[0], seed=1),
-        cm.max_points)).to(dev)
-    bev, rowf, colf = td.rasterize_bev(pts0, cm)
-    masks = bev.reshape(cm.n_row, cm.n_col)[None] > \
-        torch.tensor(cm.lv_grads, device=dev)[:, None, None]
-    tab = td.component_tables(td.cc_labels(masks),
-                              masks.reshape(cm.n_levels, -1), bev, rowf,
-                              colf, cm)
-    anchors, pool, centers, _ = td.ring_inputs(tab, bev, rowf, colf, cm)
-    assert anchors.shape == (36, 8) and pool.shape == (4096, 8)
-    d_k, c_k = kernels.ring_key_divs(anchors, pool, centers, cm.roi_radius)
-    d_p, c_p = kernels.ring_key_divs_plain(anchors, pool, centers,
-                                           cm.roi_radius)
-    torch.cuda.synchronize()
-    torch.testing.assert_close(d_k, d_p, rtol=1e-5, atol=1e-5)
-    assert torch.equal(c_k, c_p) and float(c_p.sum()) > 0
-    ring_err = float((d_k - d_p).abs().max())
-    ring_ms = time_ms(lambda: kernels.ring_key_divs(anchors, pool, centers,
-                                                    cm.roi_radius))
-    ring_plain_ms = time_ms(lambda: kernels.ring_key_divs_plain(
-        anchors, pool, centers, cm.roi_radius))
-    log(f"ring_key_divs: max_abs_err {ring_err:.3g}, kernel {ring_ms:.4f} ms,"
-        f" plain {ring_plain_ms:.4f} ms ({smi})")
-
-    N, L, A, D = 8192, cm.n_levels, cm.piv_firsts, 10
-    kb = rng.uniform(0.1, 5.0, (N, L, A, D)).astype(np.float32)
-    kb[::7] = 0.0                       # zero rows
-    kb[100:200] = kb[300:400]           # duplicated keys -> distance ties
-    qk = rng.uniform(0.1, 5.0, (L, A, D)).astype(np.float32)
-    qk[2, 3] = 0.0                      # an invalid query anchor
-    kq = tdb.keys_to_q_layout(torch.from_numpy(kb), torch.bfloat16) \
-        .contiguous().to(dev)
+    # ---- 3. kernels vs plain on the card, device times and bounds -------
+    for line in kt.edge_cases(dev, cfg):
+        log(line)
+    rows = kt.measure(dev, cfg)
+    for r in [rows[0], rows[1], rows[1]["stream"]]:
+        log(f"{r.get('name', 'search_tilemin (stream)')}: {r['shape']}: "
+            f"device {r['device_us_warm']:.3f} us warm, "
+            f"{r['device_us_cold']:.3f} us cold (torch.profiler, mean of "
+            f"200); bound {r['bound_us']:.4f} us by {r['bound_by']}, share "
+            f"{r['share_of_bound']:.4f} cold; call {r['ms']:.4f} ms "
+            f"(host + launch), plain {r['plain_ms']:.4f} ms ({smi})")
+    log(f"launch floor: {kt.launch_floor_us(dev):.3f} us device time of a "
+        f"one-element fill ({smi})")
+    kb, qk = kt.tile_store(8192)
+    kq = kt.q_layout(kb, torch.bfloat16, dev)
     ql = tuple(cfg.db.q_levels)
-    q = torch.from_numpy(qk[list(ql)]).to(dev)
-    state = torch.tensor([N, 7000], dtype=torch.int32, device=dev)
-    t_k = kernels.search_tilemin(kq, ql, q, state)
-    t_p = kernels.search_tilemin_plain(kq, ql, q, state)
-    torch.cuda.synchronize()
-    assert t_k.shape == (3, A, -(-N * A // 128))
-    assert torch.equal(t_k, t_p), "tile minima differ"
-    tile_err = float((t_k - t_p).abs().max())
+    state = torch.tensor([8192, 7000], dtype=torch.int32, device=dev)
     s_gpu = tdb.search(kq, torch.from_numpy(qk).to(dev), state, ql,
                        cfg.db.nnk)
     s_cpu = tdb.search(kq.cpu(), torch.from_numpy(qk), state.cpu(), ql,
@@ -193,11 +148,7 @@ def main() -> None:
     for a, b in zip(s_gpu, s_cpu):
         assert torch.equal(a.cpu(), b), "search output differs"
     assert int(s_cpu[3].sum()) > 30
-    tile_ms = time_ms(lambda: kernels.search_tilemin(kq, ql, q, state))
-    tile_plain_ms = time_ms(lambda: kernels.search_tilemin_plain(
-        kq, ql, q, state))
-    log(f"search_tilemin: bit-equal tile minima, equal search output, "
-        f"kernel {tile_ms:.4f} ms, plain {tile_plain_ms:.4f} ms ({smi})")
+    log("search: the card's output equals the CPU's")
 
     # ---- 4. the stream --------------------------------------------------
     t0 = time.perf_counter()
@@ -345,18 +296,10 @@ def main() -> None:
         assert len(lines) == 24, len(lines)
     log("cli: 24 outcome lines")
 
-    here = "contour_context_tpu/ops/pallas_kernels.py"
-    print(json.dumps({"kernels": [
-        {"name": "ring_key_divs", "route": "cuda",
-         "source": "contour_context_tpu_torch/csrc/ring_key.cu",
-         "replaces": here + ":40", "launches": launches["ring_key_divs"],
-         "max_abs_err": ring_err, "ms": ring_ms, "plain_ms": ring_plain_ms},
-        {"name": "search_tilemin", "route": "cuda",
-         "source": "contour_context_tpu_torch/csrc/search_tilemin.cu",
-         "replaces": here + ":112", "launches": launches["search_tilemin"],
-         "max_abs_err": tile_err, "ms": tile_ms,
-         "plain_ms": tile_plain_ms}]}), flush=True)
-    print(card(), flush=True)
+    for r in rows:
+        r["launches"] = launches[r["name"]]
+    print(json.dumps({"kernels": rows}), flush=True)
+    print(kt.card(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

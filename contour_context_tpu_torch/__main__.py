@@ -13,7 +13,7 @@ from __future__ import annotations
 import argparse
 from typing import Optional, Sequence
 
-from contour_context_tpu.config import PipelineConfig, load_pipeline_config_yaml
+from contour_context_tpu_torch.config import PipelineConfig, load_pipeline_config_yaml
 
 
 def main(argv: Optional[Sequence[str]] = None) -> None:

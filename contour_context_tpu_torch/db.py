@@ -22,7 +22,7 @@ from typing import List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from contour_context_tpu.config import PipelineConfig
+from contour_context_tpu_torch.config import PipelineConfig
 from contour_context_tpu_torch.ops.candidate import (
     CandidateState,
     merge_proposals,

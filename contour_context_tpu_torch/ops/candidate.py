@@ -15,7 +15,7 @@ from typing import NamedTuple
 
 import torch
 
-from contour_context_tpu.config import DIST_BIN_LAYERS, LAYER_AREA_WEIGHTS
+from contour_context_tpu_torch.config import DIST_BIN_LAYERS, LAYER_AREA_WEIGHTS
 from contour_context_tpu_torch.ops.cascade import clamp_ang
 from contour_context_tpu_torch.types import device_const
 

@@ -14,7 +14,7 @@ from typing import NamedTuple
 
 import torch
 
-from contour_context_tpu.config import (
+from contour_context_tpu_torch.config import (
     CandidateScoreEnsemble,
     ContourSimThresConfig,
 )

@@ -13,7 +13,7 @@ import math
 
 import torch
 
-from contour_context_tpu.config import (
+from contour_context_tpu_torch.config import (
     BITS_PER_LAYER,
     DIST_BIN_LAYERS,
     NUM_BIN_KEY_LAYER,

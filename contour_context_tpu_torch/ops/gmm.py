@@ -12,7 +12,7 @@ from typing import NamedTuple
 
 import torch
 
-from contour_context_tpu.config import GMMOptConfig
+from contour_context_tpu_torch.config import GMMOptConfig
 from contour_context_tpu_torch.types import device_const
 
 

@@ -25,6 +25,7 @@ import math
 import os
 import subprocess
 from pathlib import Path
+from typing import Optional
 
 import torch
 
@@ -34,7 +35,7 @@ MAX_DIST_SQ = 1e6        # contour_db.h:30, the masked-distance sentinel
 TILE = 128               # tile width of the min-cover search (db.TOPK_TILE)
 N_DIV = 35               # ring divisions: (RET_KEY_DIM - 3) bins x 5
 KEY_DIM = 10             # RET_KEY_DIM
-MAX_ANCHORS = 16         # anchors per level the search kernel holds per thread
+MAX_ANCHORS = 16         # query anchors per level the search kernel stages
 INV_SQRT_2PI = 1.0 / math.sqrt(2.0 * math.pi)
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -43,12 +44,15 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 _lib = None
 
 
-def build() -> ctypes.CDLL:
-    """Compile (once per source hash) and load the kernel library."""
+def build(csrc: Optional[Path] = None) -> ctypes.CDLL:
+    """Compile (once per source hash) and load the kernel library, from the
+    package's csrc/ or from `csrc`, a directory of sources with the same C
+    interface (kernel_times.py compares two versions that way). The first
+    library loaded in a process serves the wrappers."""
     global _lib
     if _lib is not None:
         return _lib
-    srcs = [_CSRC / s for s in _SOURCES]
+    srcs = [(csrc or _CSRC) / s for s in _SOURCES]
     tag = hashlib.sha1(b"".join(p.read_bytes() for p in srcs)).hexdigest()[:12]
     so = BUILD_DIR / f"libcc_kernels_{tag}.so"
     if not so.exists():
@@ -71,6 +75,9 @@ def build() -> ctypes.CDLL:
     lib.cc_search_tilemin.restype = ci
     lib.cc_search_tilemin.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci,
                                       ctypes.c_uint, ci, vp]
+    if hasattr(lib, "cc_search_tilemin_vector"):
+        lib.cc_search_tilemin_vector.restype = ci
+        lib.cc_search_tilemin_vector.argtypes = [vp, ci]
     _lib = lib
     return lib
 
@@ -130,6 +137,9 @@ def ring_key_divs(anchors, pool, centers, roi_radius: float):
     _check("centers", centers, torch.float32, (N_DIV,))
     if pool.device != anchors.device or centers.device != anchors.device:
         raise ValueError("ring_key_divs: inputs on different devices")
+    if pool.data_ptr() % 16:
+        raise ValueError("ring_key_divs: pool is not 16-byte aligned (the "
+                         "kernel loads each row as two float4s)")
     lib = build()
     divs = torch.empty((A8, N_DIV), dtype=torch.float32, device=anchors.device)
     counts = torch.empty((A8,), dtype=torch.float32, device=anchors.device)
@@ -229,6 +239,17 @@ def search_tilemin(keys_q, q_levels, q, state):
 
 
 search_tilemin.launches = 0
+
+
+def search_tilemin_path(keys_q) -> str:
+    """The path the C launcher takes for this store: "vector" (one 8-byte
+    load of 4 bf16 columns, or 16 bytes of 4 f32 columns, a key dimension)
+    or "scalar" (NA % 8 != 0, or a base off 16-byte alignment)."""
+    lib = build()
+    if not hasattr(lib, "cc_search_tilemin_vector"):
+        return "one thread per column"     # a library with one path
+    vec = lib.cc_search_tilemin_vector(keys_q.data_ptr(), keys_q.shape[2])
+    return "vector" if vec else "scalar"
 
 
 def reset_launches() -> None:

@@ -4,7 +4,7 @@ Replays a sequence (test/batch_bin_test.cpp:105-248): per scan, one
 `ContourDB.step_async` (build -> query -> append -> window) on the DB's
 device. Records stay on the device and are drained once at the end of the
 stream; TP/FP/FN classification then happens in scan order and the outcome
-file is written by the JAX package's evaluator.
+file is written by the evaluator (eval/evaluator.py).
 """
 
 from __future__ import annotations
@@ -12,12 +12,12 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import List, Optional
 
-from contour_context_tpu.config import PipelineConfig
-from contour_context_tpu.eval.evaluator import ContLCDEvaluator
-from contour_context_tpu.utils.native_loader import read_bin_padded
-from contour_context_tpu.utils.profiling import SequentialTimeProfiler
-from contour_context_tpu.utils.se2 import se2_mat
+from contour_context_tpu_torch.config import PipelineConfig
 from contour_context_tpu_torch.db import ContourDB
+from contour_context_tpu_torch.eval.evaluator import ContLCDEvaluator
+from contour_context_tpu_torch.utils.io import pad_points, read_kitti_bin
+from contour_context_tpu_torch.utils.profiling import SequentialTimeProfiler
+from contour_context_tpu_torch.utils.se2 import se2_mat
 
 
 @dataclass
@@ -48,7 +48,8 @@ class LoopClosurePipeline:
         info = ev.curr_scan
         self.stp.lap()
         self.stp.start()
-        pts = read_bin_padded(info.fpath, self.cfg.cm.max_points)
+        max_points = self.cfg.cm.max_points
+        pts = pad_points(read_kitti_bin(info.fpath, max_points), max_points)
         handle = self.db.step_async(pts, info.seq, info.ts)
         self.stp.record("scan step (fused)")
         self._pending.append((info, handle))

@@ -1,7 +1,7 @@
 """Stage split and device profile of the fused scan step.
 
     python -m contour_context_tpu_torch.profile_step [--device cuda]
-        [--lane-scans 132] [--reps 20] [--profile-scans 8] [--out FILE]
+        [--lane-scans 132] [--reps 20] [--profile-scans 100] [--out FILE]
 
 Run from the repository root (it renders scans with `tests/synth.py`). It
 drives the stream of `chip_smoke.py` (bench.py's world and lane geometry:
@@ -15,7 +15,10 @@ up to the revisits, then on revisit scans 4.. it reports:
   BCIs and GMM summary + packing), the key search, search -> hints ->
   check 1 -> cascade -> merge, the whole query, and the whole step;
 - `torch.profiler` over `--profile-scans` scans: device-busy ms and kernel
-  launches per scan, and the top operators (CUDA only);
+  launches per scan, the top operators, and each CUDA kernel of the port
+  (`ring_key_divs_kernel`, `search_tilemin_kernel`) with its launches and
+  mean device time per launch, beside the window's searchable_n (CUDA
+  only);
 - the host synchronisations per scan by call site, from torch's sync debug
   mode (CUDA only).
 
@@ -40,8 +43,8 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from contour_context_tpu.config import ContourManagerConfig, PipelineConfig
-from contour_context_tpu.utils.io import pad_points
+from contour_context_tpu_torch.config import ContourManagerConfig, PipelineConfig
+from contour_context_tpu_torch.utils.io import pad_points
 from contour_context_tpu_torch import db as tdb
 from contour_context_tpu_torch.ops import descriptor as td
 from contour_context_tpu_torch.types import device_const
@@ -108,6 +111,22 @@ def _device_busy(prof, n_scans: int):
     return busy_us / 1e3 / n_scans, kernels / n_scans
 
 
+KERNEL_NAMES = ("ring_key_divs_kernel", "search_tilemin_kernel")
+
+
+def _kernel_us(prof) -> dict:
+    """{kernel: {launches, mean device us per launch}} of the port's CUDA
+    kernels in a profile, by name."""
+    out = {}
+    for name in KERNEL_NAMES:
+        durs = [e.time_range.elapsed_us() for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and name in e.name]
+        out[name] = {"launches": len(durs),
+                     "mean_us": float(np.mean(durs)) if durs else None}
+    return out
+
+
 def _sync_sites(step, n_scans: int) -> Counter:
     """Host synchronisations per scan by call site (innermost port frame
     and its caller in the port), from torch's sync debug mode."""
@@ -139,7 +158,7 @@ def _sync_sites(step, n_scans: int) -> Counter:
 
 
 def run(device: str = "cuda", lane_scans: int = 132, reps: int = 20,
-        profile_scans: int = 8, sync_scans: int = 4,
+        profile_scans: int = 100, sync_scans: int = 4,
         max_points: Optional[int] = None, capacity: int = 8192) -> dict:
     """Drive the stream and measure it; returns the numbers as a dict."""
     sys.path.insert(0, os.path.join(ROOT, "tests"))
@@ -214,10 +233,12 @@ def run(device: str = "cuda", lane_scans: int = 132, reps: int = 20,
     acts = [torch.profiler.ProfilerActivity.CPU]
     if cuda:
         acts.append(torch.profiler.ProfilerActivity.CUDA)
+    sn0 = db.searchable_n
     with torch.profiler.profile(activities=acts) as prof:
         for _ in range(profile_scans):
             step()
         sync()
+    res["profile_searchable_n"] = [sn0, db.searchable_n]
     sort = "self_cuda_time_total" if cuda else "self_cpu_time_total"
     res["profile_table"] = prof.key_averages().table(sort_by=sort,
                                                      row_limit=25)
@@ -225,6 +246,7 @@ def run(device: str = "cuda", lane_scans: int = 132, reps: int = 20,
         busy, launches = _device_busy(prof, profile_scans)
         res["device_busy_ms_per_scan"] = busy
         res["kernel_launches_per_scan"] = launches
+        res["kernel_device_us"] = _kernel_us(prof)
         res["host_syncs_per_scan"] = dict(_sync_sites(step, sync_scans))
     return res
 
@@ -236,7 +258,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--lane-scans", type=int, default=132)
     ap.add_argument("--reps", type=int, default=20)
-    ap.add_argument("--profile-scans", type=int, default=8)
+    ap.add_argument("--profile-scans", type=int, default=100)
     ap.add_argument("--max-points", type=int, default=None,
                     help="scan width (default: PipelineConfig's)")
     ap.add_argument("--capacity", type=int, default=8192)
@@ -252,6 +274,10 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     if "device_busy_ms_per_scan" in res:
         print(f"device busy per scan ms: {res['device_busy_ms_per_scan']} "
               f"kernel launches per scan: {res['kernel_launches_per_scan']}")
+        for name, kd in res["kernel_device_us"].items():
+            print(f"{name}: {kd['launches']} launches, mean {kd['mean_us']} "
+                  f"us device time (searchable_n "
+                  f"{res['profile_searchable_n']})")
         print(f"host syncs per scan: "
               f"{sum(res['host_syncs_per_scan'].values()):g}")
         for site, n in sorted(res["host_syncs_per_scan"].items()):

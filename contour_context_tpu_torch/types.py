@@ -14,7 +14,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from contour_context_tpu.config import (
+from contour_context_tpu_torch.config import (
     NUM_BIN_KEY_LAYER,
     RET_KEY_DIM,
     ContourManagerConfig,

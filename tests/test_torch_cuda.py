@@ -5,7 +5,9 @@ This file imports no jax, so it runs where only torch is installed:
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
 - both kernels against their plain versions (ring divs to 1e-5 and counts
-  exact; tile minima bit-equal);
+  exact; tile minima bit-equal), at the main path's shapes and at the edge
+  shapes (a ragged pool, an empty anchor box; searchable_n 0, 1, mid-store
+  and full, NA % 8 != 0 and an unaligned store on the scalar path);
 - a short revisit stream on the card against the same stream on the CPU:
   records equal (found, gidx and counters exactly, corr to rtol and atol
   1e-4, T to rtol 1e-4 and atol 2e-3 cells), and the kernels launched once
@@ -21,8 +23,8 @@ import torch
 
 from synth import make_world, render_scan
 
-from contour_context_tpu.config import ContourManagerConfig, PipelineConfig
-from contour_context_tpu.utils.io import pad_points
+from contour_context_tpu_torch.config import ContourManagerConfig, PipelineConfig
+from contour_context_tpu_torch.utils.io import pad_points
 from contour_context_tpu_torch import db as tdb
 from contour_context_tpu_torch.ops import descriptor as td
 from contour_context_tpu_torch.ops import kernels
@@ -72,6 +74,49 @@ def test_kernels_match_plain_on_card(cuda):
         state = torch.tensor([8192, 7000], dtype=torch.int32, device=cuda)
         assert torch.equal(kernels.search_tilemin(kq, QL, q, state),
                            kernels.search_tilemin_plain(kq, QL, q, state))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_pool", [4096, 4001, 37])
+def test_ring_edge_shapes_on_card(cuda, n_pool):
+    """A pool length that is no multiple of the block (or of the cluster's
+    slices), and an anchor whose box is empty: counts exact, divs 1e-5."""
+    anchors, pool, centers = _ring_inputs(cuda)
+    anchors = anchors.clone()
+    anchors[0, 2], anchors[0, 3] = 1.0, 0.0        # r_min > r_max
+    pool = pool[:n_pool].clone()
+    d0, n0 = kernels.ring_key_divs(anchors, pool, centers, 10.0)
+    d1, n1 = kernels.ring_key_divs_plain(anchors, pool, centers, 10.0)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(d0, d1, rtol=1e-5, atol=1e-5)
+    assert torch.equal(n0, n1) and float(n0[0]) == 0.0
+    with pytest.raises(ValueError):                # float4 rows need 16 B
+        kernels.ring_key_divs(anchors, pool.reshape(-1)[1:1 + 8 * 30]
+                              .view(30, 8), centers, 10.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bf16", "f32"])
+@pytest.mark.parametrize("capacity,sn,offset,path", [
+    (8192, 0, 0, "vector"), (8192, 1, 0, "vector"),
+    (8192, 7000, 0, "vector"), (8192, 8192, 0, "vector"),
+    (65, 0, 0, "scalar"), (65, 1, 0, "scalar"), (65, 33, 0, "scalar"),
+    (65, 65, 0, "scalar"), (8192, 7000, 1, "scalar")])
+def test_tilemin_edge_shapes_on_card(cuda, dtype, capacity, sn, offset,
+                                     path):
+    """searchable_n 0, 1, mid-store and full; NA = 390 (not a multiple of
+    8) and a base off 16-byte alignment take the scalar path: tile minima
+    bit-equal to the plain version on both paths."""
+    from contour_context_tpu_torch import kernel_times as kt
+
+    kb, qk = kt.tile_store(capacity, seed=capacity)
+    kq = kt.q_layout(kb, torch.bfloat16 if dtype == "bf16" else
+                     torch.float32, cuda, offset)
+    q = torch.from_numpy(qk[list(QL)]).to(cuda)
+    state = torch.tensor([capacity, sn], dtype=torch.int32, device=cuda)
+    assert kernels.search_tilemin_path(kq) == path
+    out = kernels.search_tilemin(kq, QL, q, state)
+    assert torch.equal(out, kernels.search_tilemin_plain(kq, QL, q, state))
 
 
 @pytest.mark.cuda

@@ -22,13 +22,18 @@ import torch
 from synth import make_world, render_scan
 
 from contour_context_tpu.config import ContourManagerConfig
+from contour_context_tpu_torch import config as tconfig
 from contour_context_tpu.utils.io import pad_points, quantize_points_q16
 from contour_context_tpu_torch.ops import descriptor as td
 from contour_context_tpu_torch.types import ScanDesc, scan_desc_to_numpy
 
 torch.set_num_threads(2)
 
+# one config per package, from the same arguments: neither package's
+# functions see the other's config (tests/test_torch_config.py holds the
+# two classes together)
 CFG = ContourManagerConfig(max_points=16384)
+TCFG = tconfig.ContourManagerConfig(max_points=16384)
 SCENES = {
     "world0": (0, 40, 120.0, (0.0, 0.0, 0.0), 1),
     "world11_revisit": (11, 220, 160.0, (10.5, 0.8, 0.2), 508),
@@ -82,7 +87,7 @@ def jax_build():
 def test_build_descriptor_matches_jax(jax_build, scene):
     pts = _points(scene)
     dj = jax_build(pts)
-    dt = td.build_descriptor(torch.from_numpy(pts), CFG)
+    dt = td.build_descriptor(torch.from_numpy(pts), TCFG)
     assert_desc_close(dj, dt)
     assert int(dj.n_cont.sum()) > 20 and np.asarray(dj.nei_valid).any()
 
@@ -90,7 +95,7 @@ def test_build_descriptor_matches_jax(jax_build, scene):
 def test_q16_wire_format_matches_jax(jax_build):
     q = quantize_points_q16(_points("world0"))
     dj = jax_build(q)
-    dt = td.build_descriptor(torch.from_numpy(q), CFG)
+    dt = td.build_descriptor(torch.from_numpy(q), TCFG)
     assert dt.keys.dtype == torch.float32
     assert_desc_close(dj, dt)
 
@@ -104,7 +109,7 @@ def test_rasterize_and_cc_labels_match_jax(scene):
     pts[200:260] = pts[100:160]
     bev_j, rowf_j, colf_j = [np.asarray(x) for x in rasterize_bev(
         jnp.asarray(pts), CFG)]
-    bev_t, rowf_t, colf_t = td.rasterize_bev(torch.from_numpy(pts), CFG)
+    bev_t, rowf_t, colf_t = td.rasterize_bev(torch.from_numpy(pts), TCFG)
     np.testing.assert_array_equal(bev_t.numpy(), bev_j)
     np.testing.assert_array_equal(rowf_t.numpy(), rowf_j)
     np.testing.assert_array_equal(colf_t.numpy(), colf_j)

@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from contour_context_tpu.config import GMMOptConfig
+from contour_context_tpu_torch.config import GMMOptConfig
 from contour_context_tpu_torch.ops import gmm as tg
 
 torch.set_num_threads(2)

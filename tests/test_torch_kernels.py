@@ -9,6 +9,8 @@
   invalid query anchor), and at a small store against JAX's single-stage
   top_k: gidx, seq_src and valid exact, dist within 1e-5.
 - Hit sets vs the Pallas tile-min search kernel (interpret mode).
+- The plain tile-min's masking past searchable_n, which the kernel's early
+  exit relies on.
 The kernels themselves run on the card in test_torch_cuda.py.
 """
 
@@ -20,8 +22,8 @@ import torch
 
 from synth import make_world, render_scan
 
-from contour_context_tpu.config import ContourManagerConfig
-from contour_context_tpu.utils.io import pad_points
+from contour_context_tpu_torch.config import ContourManagerConfig
+from contour_context_tpu_torch.utils.io import pad_points
 from contour_context_tpu_torch.db import keys_to_q_layout, search
 from contour_context_tpu_torch.ops import kernels
 
@@ -110,6 +112,31 @@ def test_wrappers_take_plain_version_on_cpu():
     assert t0.shape == (3, 6, 8)
     assert kernels.ring_key_divs.launches == 0
     assert kernels.search_tilemin.launches == 0
+
+
+@pytest.mark.parametrize("capacity", [65, 300])
+@pytest.mark.parametrize("where", ["none", "one", "mid_tile", "all"])
+def test_tilemin_plain_is_max_past_searchable(capacity, where):
+    """The contract the kernel's early exit relies on: every tile wholly at
+    or past searchable_n * A is exactly MAX_DIST_SQ, whatever the keys past
+    that column hold, and the tiles before it do not change when those keys
+    do. NA = 6 * capacity: 390 (not a multiple of 8) and 1800."""
+    A = 6
+    sn = {"none": 0, "one": 1, "mid_tile": 30, "all": capacity}[where]
+    kb, qk = _search_fixture(400)
+    kq = keys_to_q_layout(torch.from_numpy(kb[1:capacity + 1]),
+                          torch.bfloat16).contiguous()
+    NA = kq.shape[2]
+    q = torch.from_numpy(qk[list(QL)])
+    state = torch.tensor([capacity, sn], dtype=torch.int32)
+    out = kernels.search_tilemin_plain(kq, QL, q, state)
+    assert out.shape == (3, A, -(-NA // kernels.TILE))
+    past = torch.arange(out.shape[2]) * kernels.TILE >= sn * A
+    assert (out[..., past] == kernels.MAX_DIST_SQ).all()
+    assert bool((out[..., ~past] < kernels.MAX_DIST_SQ).any()) == (sn > 0)
+    noisy = kq.clone()
+    noisy[:, :, sn * A:] = torch.rand(noisy[:, :, sn * A:].shape) * 9.0
+    assert torch.equal(kernels.search_tilemin_plain(noisy, QL, q, state), out)
 
 
 def _search_fixture(N):

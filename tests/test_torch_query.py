@@ -10,8 +10,6 @@ floats (T_delta, pair/proposal percentages, prop_T, corr, T) to rtol 1e-4
 and atol 1e-4, the record band of PARITY.md (T is in BEV cells and radians).
 """
 
-import dataclasses
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -20,14 +18,25 @@ import torch
 
 from synth import make_world, render_scan
 
-from contour_context_tpu.config import ContourManagerConfig, PipelineConfig
+from contour_context_tpu import config as jconfig
 from contour_context_tpu.utils.io import pad_points
+from contour_context_tpu_torch import config as tconfig
 from contour_context_tpu_torch import db as tdb
 from contour_context_tpu_torch.types import scan_desc_from_numpy
 
 torch.set_num_threads(2)
 
-CFG = PipelineConfig(cm=ContourManagerConfig(max_points=16384))
+
+
+def _configs(**db):
+    """(JAX config, port config), each from its own package and the same
+    arguments: neither package's functions see the other's config."""
+    return tuple(m.PipelineConfig(cm=m.ContourManagerConfig(max_points=16384),
+                                  db=m.ContourDBConfig(**db))
+                 for m in (jconfig, tconfig))
+
+
+CFG, TCFG = _configs()
 POSES = [(10.0 * i, 0.0, 0.0) for i in range(8)] + [
     (30.0, -1.0, -0.15), (110.0, 40.0, 0.6), (50.2, 0.7, 0.1)]
 QUERY_POSE = (10.5, 0.8, 0.2)      # revisits scan 1
@@ -101,28 +110,27 @@ def carried():
 # run: 96 hints in chunks of 40 (the last chunk's start is clamped), a
 # 16-hint merge budget, 2 candidate rows and an 8-pair angular window
 CASES = {
-    "default": CFG,
-    "squeezed": dataclasses.replace(CFG, db=dataclasses.replace(
-        CFG.db, max_check_cands=96, cascade_chunk=40, max_pass_hints=16,
-        max_cand_poses=2, p_pot=8)),
+    "default": (CFG, TCFG),
+    "squeezed": _configs(max_check_cands=96, cascade_chunk=40,
+                         max_pass_hints=16, max_cand_poses=2, p_pot=8),
 }
 
 
 @pytest.fixture(scope="module", params=sorted(CASES))
 def case(request, carried):
-    """(config, JAX record, JAX intermediates) of the one query."""
+    """(port config, JAX record, JAX intermediates) of the one query."""
     from contour_context_tpu.db import _query_step
 
-    cfg = CASES[request.param]
+    cfg, tcfg = CASES[request.param]
     _, qdesc, jdb = carried
     rec_j = np.asarray(_query_step(jdb.store, qdesc, jdb.state, cfg,
                                    jdb.keys_q))
     stages_j = jax.device_get(jax.jit(_jax_stages, static_argnums=4)(
         jdb.store, qdesc, jdb.keys_q, jdb.state, cfg))
-    return request.param, cfg, rec_j, stages_j
+    return request.param, tcfg, rec_j, stages_j
 
 
-def _port_db(host, derive_keys_q=False, cfg=CFG):
+def _port_db(host, derive_keys_q=False, cfg=TCFG):
     h = dict(host)
     if derive_keys_q:
         h["keys_q"] = None
@@ -191,22 +199,21 @@ def test_grow_keeps_the_query(carried):
     host, qdesc, _ = carried
     db = _port_db(host)
     q = scan_desc_from_numpy(jax.device_get(qdesc))
-    rec0 = tdb.query_step(db.store, db.keys_q, q, db.state, CFG)
+    rec0 = tdb.query_step(db.store, db.keys_q, q, db.state, TCFG)
     kq0 = db.keys_q.clone()
     db._grow(40)
     assert db.capacity == 40 and db.store.keys.shape[0] == 40
     assert db.keys_q.shape == (6, 10, 40 * 6)
     assert torch.equal(db.keys_q[:, :, :kq0.shape[2]], kq0)
     assert db.searchable_n == int(host["state"][1])
-    rec1 = tdb.query_step(db.store, db.keys_q, q, db.state, CFG)
+    rec1 = tdb.query_step(db.store, db.keys_q, q, db.state, TCFG)
     assert torch.equal(rec0, rec1)
 
 
 def test_device_and_unported_options_raise():
     if not torch.cuda.is_available():       # no silent CPU carry-on
         with pytest.raises(RuntimeError):
-            tdb.ContourDB(CFG, capacity=8, device="cuda")
-    dyn = dataclasses.replace(CFG, db=dataclasses.replace(CFG.db,
-                                                          dynamic_thres=True))
+            tdb.ContourDB(TCFG, capacity=8, device="cuda")
+    dyn = _configs(dynamic_thres=True)[1]
     with pytest.raises(NotImplementedError):
         tdb.ContourDB(dyn, capacity=8, device="cpu")

@@ -6,8 +6,8 @@ run_batch(device="cpu"): the outcome files match line by line (ids and
 TP/FP/FN exactly, correlation to 1e-4), and so do the per-scan records in
 both DBs' record rings (found, gidx and counters exactly, corr and T to rtol
 and atol 1e-4, PARITY.md's record band). The port's CLI writes the same outcome
-file, and a process that cannot import jax imports every port module and
-builds a descriptor.
+file, and a process that can import neither jax nor the JAX package
+imports every port module and builds a descriptor.
 """
 
 import os
@@ -20,11 +20,14 @@ import torch
 
 from synth import make_world, render_scan, se3_from_xyt
 
-from contour_context_tpu.config import ContourManagerConfig, PipelineConfig
+from contour_context_tpu import config as jconfig
+from contour_context_tpu_torch import config as tconfig
 
 torch.set_num_threads(2)
 
-CFG = PipelineConfig(cm=ContourManagerConfig(max_points=16384))
+# one config per package, from the same arguments
+JCFG = jconfig.PipelineConfig(cm=jconfig.ContourManagerConfig(max_points=16384))
+CFG = tconfig.PipelineConfig(cm=tconfig.ContourManagerConfig(max_points=16384))
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -55,7 +58,7 @@ def runs(dataset):
     from contour_context_tpu_torch.pipeline import run_batch
 
     f_pose, f_laser, d = dataset
-    pj = jax_run_batch(f_pose, f_laser, str(d / "out_jax.txt"), cfg=CFG,
+    pj = jax_run_batch(f_pose, f_laser, str(d / "out_jax.txt"), cfg=JCFG,
                        fused_step=True)
     pt = run_batch(f_pose, f_laser, str(d / "out_torch.txt"), cfg=CFG,
                    device="cpu")
@@ -119,21 +122,25 @@ def test_cli_writes_the_same_outcome(dataset, runs):
 
 
 def test_port_never_imports_jax():
+    """A process where neither jax nor the JAX package can be imported
+    imports every port module, builds its config from the port's copy and a
+    descriptor, and ends with no module of either loaded."""
+    mods = ["config", "types", "utils.io", "utils.se2", "utils.profiling",
+            "eval.evaluator", "ops.kernels", "ops.cascade", "ops.candidate",
+            "ops.gmm", "ops.descriptor", "db", "pipeline", "__main__",
+            "profile_step", "kernel_times"]
     code = (
-        "import sys; sys.modules['jax'] = None\n"
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['contour_context_tpu'] = None\n"
+        "import importlib\n"
         "import numpy as np, torch\n"
-        "import contour_context_tpu_torch, contour_context_tpu_torch.types\n"
-        "import contour_context_tpu_torch.ops.kernels\n"
-        "import contour_context_tpu_torch.ops.cascade\n"
-        "import contour_context_tpu_torch.ops.candidate\n"
-        "import contour_context_tpu_torch.ops.gmm\n"
-        "import contour_context_tpu_torch.db\n"
-        "import contour_context_tpu_torch.pipeline\n"
-        "import contour_context_tpu_torch.__main__\n"
-        "import contour_context_tpu_torch.profile_step\n"
+        "import contour_context_tpu_torch\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module('contour_context_tpu_torch.' + m)\n"
         "from contour_context_tpu_torch.ops.descriptor import "
         "build_descriptor\n"
-        "from contour_context_tpu.config import ContourManagerConfig\n"
+        "from contour_context_tpu_torch.config import ContourManagerConfig\n"
         "torch.set_num_threads(2)\n"
         "cfg = ContourManagerConfig(max_points=4096)\n"
         "rng = np.random.default_rng(0)\n"
@@ -142,8 +149,9 @@ def test_port_never_imports_jax():
         "pts[:, 2] = rng.uniform(-2, 6, 4096)\n"
         "pts[:, 3] = 1\n"
         "d = build_descriptor(torch.from_numpy(pts), cfg)\n"
-        "assert 'jax' not in [m.split('.')[0] for m in sys.modules "
-        "if sys.modules[m] is not None]\n"
+        "loaded = {m.split('.')[0] for m in sys.modules "
+        "if sys.modules[m] is not None}\n"
+        "assert not loaded & {'jax', 'contour_context_tpu'}, loaded\n"
         "print('ok', int(d.n_cont.sum()))\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
