@@ -23,7 +23,8 @@ exit code is not 0):
    inputs equal on both devices and the float32 LM held against a float64
    one on the same inputs;
 5. the CLI on 24 scans written in the KITTI two-file format.
-The last two lines are the kernel JSON and {"ok": true, "device": ...}.
+The last three lines are the kernel JSON, the card's nvidia-smi name and
+power limit, and {"ok": true, "device": ...}.
 """
 
 from __future__ import annotations

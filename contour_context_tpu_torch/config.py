@@ -3,7 +3,7 @@
 The port's own copy of `contour_context_tpu/config.py`: the same classes,
 fields, defaults and checks, so a config built here equals, field by field,
 the JAX package's config built from the same arguments
-(tests/test_torch_config.py holds the two together). The reference scatters
+(tests/test_torch_copies.py holds the two together). The reference scatters
 these knobs over a YAML file (`config/batch_bin_test_config.yaml`),
 compile-time macros (`CMakeLists.txt:15-21`) and hardcoded constants
 (`contour_mng.h:112-115`, `correlation.h:17-18`, `contour_db.h:160-163`).

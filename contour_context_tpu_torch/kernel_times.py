@@ -1,7 +1,7 @@
 """Device times of the port's two CUDA kernels beside their bounds.
 
-    python -m contour_context_tpu_torch.kernel_times [--csrc DIR]
-        [--reps 200] [--out FILE]
+    python -m contour_context_tpu_torch.kernel_times [--reps 200]
+        [--out FILE]
 
 Run from the repository root on a machine with a CUDA card (it renders a
 scan with `tests/synth.py`). `chip_smoke.py` runs the same measurement in
@@ -30,10 +30,6 @@ Tile-min: a bf16 (6, 10, 49152) store (capacity 8192) at searchable_n 7000
 (the fixture, a long drive) and 246 (the smoke stream's last scans, 3% of
 capacity). `edge_cases` holds each kernel against its plain version at the
 edge shapes and names the path each took.
-
-`--csrc DIR` builds the kernels from another directory of sources with the
-same C interface (a parent commit's, say), so two versions can be compared
-on one card in one call.
 """
 
 from __future__ import annotations
@@ -43,7 +39,6 @@ import json
 import os
 import subprocess
 import sys
-from pathlib import Path
 from typing import Optional, Sequence
 
 import numpy as np
@@ -97,11 +92,20 @@ def call_ms(fn, reps: int = 20) -> float:
     return float(np.median(times))
 
 
+def kernel_durations_us(prof, name: str) -> list:
+    """Device durations (us) of the CUDA kernels whose name holds *name* in
+    a torch.profiler profile, one per launch the profiler recorded."""
+    return [e.time_range.elapsed_us() for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and name in e.name]
+
+
 def device_us(fn, name: str, reps: int, cold: bool) -> float:
     """Mean device duration (us) of the kernels named *name* over reps calls
     of fn, from torch.profiler's kernel records; cold writes 64 MB between
     calls. The profiler can lose records (seen on the H100: 199 or 10 of
-    200): a window that lost any is profiled again, at most three times."""
+    200 kept): a window that lost any is reported on stderr and profiled
+    again, at most three times, and never averaged."""
     flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.int32, device="cuda") \
         if cold else None
     for _ in range(5):
@@ -116,11 +120,11 @@ def device_us(fn, name: str, reps: int, cold: bool) -> float:
                     flush.fill_(i)
                 fn()
             torch.cuda.synchronize()
-        durs = [e.time_range.elapsed_us() for e in prof.events()
-                if e.device_type == torch.autograd.DeviceType.CUDA
-                and name in e.name]
+        durs = kernel_durations_us(prof, name)
         if len(durs) == reps:
             return float(np.mean(durs))
+        print(f"torch.profiler kept {len(durs)} of {reps} records of {name}: "
+              "profiling again", file=sys.stderr, flush=True)
     raise RuntimeError(f"profiler saw {len(durs)} launches of {name}, "
                        f"expected {reps}")
 
@@ -331,14 +335,13 @@ def main(argv: Optional[Sequence[str]] = None) -> list:
     ap = argparse.ArgumentParser(
         prog="python -m contour_context_tpu_torch.kernel_times",
         description=__doc__, formatter_class=argparse.RawTextHelpFormatter)
-    ap.add_argument("--csrc", help="build the kernels from this directory")
     ap.add_argument("--reps", type=int, default=200)
     ap.add_argument("--out", help="also write the rows here as JSON")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available")
     smi = card()
-    kernels.build(Path(args.csrc) if args.csrc else None)
+    kernels.build()
     dev = torch.device("cuda", 0)
     cfg = PipelineConfig()
     for line in edge_cases(dev, cfg):
@@ -351,7 +354,7 @@ def main(argv: Optional[Sequence[str]] = None) -> list:
     print(f"card: {smi}", flush=True)
     if args.out:
         with open(args.out, "w") as f:
-            json.dump({"card": smi, "csrc": args.csrc, "rows": rows,
+            json.dump({"card": smi, "rows": rows,
                        "launch_floor_us": floor}, f, indent=1)
     return rows
 

@@ -25,8 +25,6 @@ import math
 import os
 import subprocess
 from pathlib import Path
-from typing import Optional
-
 import torch
 
 from contour_context_tpu_torch.types import device_const
@@ -44,15 +42,13 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 _lib = None
 
 
-def build(csrc: Optional[Path] = None) -> ctypes.CDLL:
-    """Compile (once per source hash) and load the kernel library, from the
-    package's csrc/ or from `csrc`, a directory of sources with the same C
-    interface (kernel_times.py compares two versions that way). The first
-    library loaded in a process serves the wrappers."""
+def build() -> ctypes.CDLL:
+    """Compile (once per source hash) and load the kernel library from the
+    package's csrc/."""
     global _lib
     if _lib is not None:
         return _lib
-    srcs = [(csrc or _CSRC) / s for s in _SOURCES]
+    srcs = [_CSRC / s for s in _SOURCES]
     tag = hashlib.sha1(b"".join(p.read_bytes() for p in srcs)).hexdigest()[:12]
     so = BUILD_DIR / f"libcc_kernels_{tag}.so"
     if not so.exists():
@@ -75,9 +71,8 @@ def build(csrc: Optional[Path] = None) -> ctypes.CDLL:
     lib.cc_search_tilemin.restype = ci
     lib.cc_search_tilemin.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci,
                                       ctypes.c_uint, ci, vp]
-    if hasattr(lib, "cc_search_tilemin_vector"):
-        lib.cc_search_tilemin_vector.restype = ci
-        lib.cc_search_tilemin_vector.argtypes = [vp, ci]
+    lib.cc_search_tilemin_vector.restype = ci
+    lib.cc_search_tilemin_vector.argtypes = [vp, ci]
     _lib = lib
     return lib
 
@@ -245,10 +240,7 @@ def search_tilemin_path(keys_q) -> str:
     """The path the C launcher takes for this store: "vector" (one 8-byte
     load of 4 bf16 columns, or 16 bytes of 4 f32 columns, a key dimension)
     or "scalar" (NA % 8 != 0, or a base off 16-byte alignment)."""
-    lib = build()
-    if not hasattr(lib, "cc_search_tilemin_vector"):
-        return "one thread per column"     # a library with one path
-    vec = lib.cc_search_tilemin_vector(keys_q.data_ptr(), keys_q.shape[2])
+    vec = build().cc_search_tilemin_vector(keys_q.data_ptr(), keys_q.shape[2])
     return "vector" if vec else "scalar"
 
 

@@ -46,7 +46,9 @@ import torch
 from contour_context_tpu_torch.config import ContourManagerConfig, PipelineConfig
 from contour_context_tpu_torch.utils.io import pad_points
 from contour_context_tpu_torch import db as tdb
+from contour_context_tpu_torch.kernel_times import kernel_durations_us
 from contour_context_tpu_torch.ops import descriptor as td
+from contour_context_tpu_torch.ops import kernels
 from contour_context_tpu_torch.types import device_const
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -111,19 +113,21 @@ def _device_busy(prof, n_scans: int):
     return busy_us / 1e3 / n_scans, kernels / n_scans
 
 
-KERNEL_NAMES = ("ring_key_divs_kernel", "search_tilemin_kernel")
-
-
-def _kernel_us(prof) -> dict:
+def _kernel_us(prof, n_scans: int) -> dict:
     """{kernel: {launches, mean device us per launch}} of the port's CUDA
-    kernels in a profile, by name."""
+    kernels in a profile of n_scans scans. Each wrapper must have launched
+    its kernel once a scan (its own count) and the profile must hold a
+    record of every launch; raises otherwise."""
+    wrappers = {"ring_key_divs_kernel": kernels.ring_key_divs,
+                "search_tilemin_kernel": kernels.search_tilemin}
     out = {}
-    for name in KERNEL_NAMES:
-        durs = [e.time_range.elapsed_us() for e in prof.events()
-                if e.device_type == torch.autograd.DeviceType.CUDA
-                and name in e.name]
-        out[name] = {"launches": len(durs),
-                     "mean_us": float(np.mean(durs)) if durs else None}
+    for name, wrapper in wrappers.items():
+        durs = kernel_durations_us(prof, name)
+        if wrapper.launches != n_scans or len(durs) != n_scans:
+            raise RuntimeError(
+                f"{name}: {wrapper.launches} launches counted and {len(durs)} "
+                f"profiled in {n_scans} scans, expected one a scan")
+        out[name] = {"launches": len(durs), "mean_us": float(np.mean(durs))}
     return out
 
 
@@ -234,6 +238,7 @@ def run(device: str = "cuda", lane_scans: int = 132, reps: int = 20,
     if cuda:
         acts.append(torch.profiler.ProfilerActivity.CUDA)
     sn0 = db.searchable_n
+    kernels.reset_launches()
     with torch.profiler.profile(activities=acts) as prof:
         for _ in range(profile_scans):
             step()
@@ -246,7 +251,7 @@ def run(device: str = "cuda", lane_scans: int = 132, reps: int = 20,
         busy, launches = _device_busy(prof, profile_scans)
         res["device_busy_ms_per_scan"] = busy
         res["kernel_launches_per_scan"] = launches
-        res["kernel_device_us"] = _kernel_us(prof)
+        res["kernel_device_us"] = _kernel_us(prof, profile_scans)
         res["host_syncs_per_scan"] = dict(_sync_sites(step, sync_scans))
     return res
 

@@ -30,7 +30,7 @@ from contour_context_tpu_torch.types import ScanDesc, scan_desc_to_numpy
 torch.set_num_threads(2)
 
 # one config per package, from the same arguments: neither package's
-# functions see the other's config (tests/test_torch_config.py holds the
+# functions see the other's config (tests/test_torch_copies.py holds the
 # two classes together)
 CFG = ContourManagerConfig(max_points=16384)
 TCFG = tconfig.ContourManagerConfig(max_points=16384)
