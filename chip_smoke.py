@@ -22,7 +22,29 @@ exit code is not 0):
    must match the same queries on a CPU copy of the store, with the LM's
    inputs equal on both devices and the float32 LM held against a float64
    one on the same inputs;
-5. the CLI on 24 scans written in the KITTI two-file format.
+5. the CLI on 24 scans written in the KITTI two-file format;
+3b. (after 3) the batched tile-min against its plain version on the card:
+   bf16 and f32, the vector and the scalar path, B = 1 equal to the
+   single-query kernel; its device time at B = 16 beside its bound and the
+   16 single launches that answer the same queries;
+6. a map built in blocks: the stream's first 264 clouds through
+   `block_chain_pts_async` in 16 blocks of 16 and an 8-scan tail through
+   `step_async`; records, store, keys_q and window state must equal the
+   stream's first 264 rows, with one batched tile-min launch a block; its
+   ms/scan is printed between the stream's over the same scans before and
+   after it, and one block step is split into build, batched search and
+   the per-query tails;
+7. checkpoints: the block-built map saved and loaded on the card, the
+   stream DB as a base + a delta of 16 more scans through `load_chain`, each
+   equal to its original bit for bit; the block-built map merged with its
+   reloaded copy into a serving map of 528 rows;
+8. serving: the 132 revisit clouds through `localize_block_async` in chunks
+   of 16 (the 4-cloud tail padded) against the merged map: one batched
+   launch a chunk, at least half found at the right place, two records equal
+   to `query_async` on the card and on a CPU copy of the map, one
+   `range_search` equal on both;
+9. a 64-scan stream with `dynamic_thres=True` on the card equal to the same
+   stream on the CPU, and the launches and host syncs the option adds.
 The last three lines are the kernel JSON, the card's nvidia-smi name and
 power limit, and {"ok": true, "device": ...}.
 """
@@ -92,6 +114,61 @@ def lm_witness(cfg, r_g, r_c, row: int) -> None:
     assert dev(T_g, T_c) < 2e-3 and dev(c_g, c_c) < 1e-4
 
 
+EXACT = [0, 1] + list(range(6, 18))      # found, gidx, counters of a record
+
+
+def assert_records_close(a, b, what: str) -> None:
+    """Two (n, 18) record arrays in the stream's bands: found, gidx and
+    counters exactly, corr to 1e-4, the pose of found rows to rtol 1e-4 and
+    atol 2e-3 cells (the LM amplifies last-ulp differences)."""
+    a, b = np.asarray(a), np.asarray(b)
+    np.testing.assert_array_equal(a[:, EXACT], b[:, EXACT], err_msg=what)
+    np.testing.assert_allclose(a[:, 2], b[:, 2], rtol=1e-4, atol=1e-4,
+                               err_msg=what)
+    found = b[:, 0] > 0.5
+    np.testing.assert_allclose(a[found, 3:6], b[found, 3:6], rtol=1e-4,
+                               atol=2e-3, err_msg=what)
+
+
+def assert_dbs_equal(a, b, n: int, what: str) -> None:
+    """The first n rows of two DBs' stores, keys_q and timestamps, bit for
+    bit (the DBs may live on different devices)."""
+    for name, x, y in zip(a.store._fields, a.store, b.store):
+        assert torch.equal(x[:n].cpu(), y[:n].cpu()), f"{what}: {name}"
+    A = a.store.keys.shape[2]
+    assert torch.equal(a.keys_q[:, :, :n * A].cpu().view(torch.int16),
+                       b.keys_q[:, :, :n * A].cpu().view(torch.int16)), \
+        f"{what}: keys_q"
+    assert torch.equal(a.ts_store[:n].cpu(), b.ts_store[:n].cpu()), \
+        f"{what}: ts_store"
+
+
+def count_device_ops(fn) -> int:
+    """Kernel launches and copies fn puts on the card (torch.profiler)."""
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+def count_syncs(fn) -> int:
+    """Host syncs inside fn, by torch's sync debug mode."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        caught.clear()   # switching the mode on warns of a sync of its own
+        try:
+            fn()
+            torch.cuda.synchronize()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available")
@@ -99,7 +176,8 @@ def main() -> None:
 
     from synth import make_world, render_scan, se3_from_xyt
 
-    from contour_context_tpu_torch import PipelineConfig, pad_points
+    from contour_context_tpu_torch import (ContourDBConfig, PipelineConfig,
+                                           pad_points)
     from contour_context_tpu_torch import db as tdb
     from contour_context_tpu_torch import kernel_times as kt
     from contour_context_tpu_torch.ops import descriptor as td
@@ -138,6 +216,20 @@ def main() -> None:
             f"(host + launch), plain {r['plain_ms']:.4f} ms ({smi})")
     log(f"launch floor: {kt.launch_floor_us(dev):.3f} us device time of a "
         f"one-element fill ({smi})")
+    # ---- 3b. the batched tile-min ---------------------------------------
+    for line in kt.batch_edge_cases(dev, cfg):
+        log(line)
+    brow = kt.measure_batch(dev, cfg)
+    rows.append(brow)
+    log(f"search_tilemin_batch: {brow['shape']}: device "
+        f"{brow['device_us_warm']:.3f} us warm, {brow['device_us_cold']:.3f} "
+        f"us cold (torch.profiler, mean of 200); bound {brow['bound_us']:.4f} "
+        f"us by {brow['bound_by']} ({brow['bytes']} B, {brow['flops']} flop), "
+        f"share {brow['share_of_bound']:.4f} cold; the 16 single launches of "
+        f"the same queries {brow['singles_us_warm']:.3f} us warm, "
+        f"{brow['singles_us_cold']:.3f} us cold in all; call {brow['ms']:.4f} "
+        f"ms against {brow['singles_ms']:.4f} ms for the 16 (host + launch), "
+        f"plain {brow['plain_ms']:.4f} ms ({smi})")
     kb, qk = kt.tile_store(8192)
     kq = kt.q_layout(kb, torch.bfloat16, dev)
     ql = tuple(cfg.db.q_levels)
@@ -164,12 +256,15 @@ def main() -> None:
     handles = []
     ev0 = torch.cuda.Event(enable_timing=True)
     ev1 = torch.cuda.Event(enable_timing=True)
+    ev_map = torch.cuda.Event(enable_timing=True)   # behind the two lanes
     t0 = time.perf_counter()
     for k, pts in enumerate(clouds):
         if k == WARMUP:
             torch.cuda.synchronize()
             t_warm = time.perf_counter()
             ev0.record()
+        if k == 2 * LANE_SCANS:
+            ev_map.record()
         handles.append(db.step_async(pts, k, 0.1 * k))
     ev1.record()
     torch.cuda.synchronize()
@@ -180,6 +275,7 @@ def main() -> None:
     assert launches["ring_key_divs"] == n_scans, launches
     assert launches["search_tilemin"] == n_scans, launches
     ms_scan = ev0.elapsed_time(ev1) / (n_scans - WARMUP)
+    ms_scan_map = ev0.elapsed_time(ev_map) / (2 * LANE_SCANS - WARMUP)
     wall_ms = 1e3 * (t_end - t_warm) / (n_scans - WARMUP)
     peak = torch.cuda.max_memory_allocated()
     store_b = db.store_bytes()
@@ -258,18 +354,11 @@ def main() -> None:
                    tdb.refine_inputs(store_c, kq_c, desc_gc, state, cfg), row)
 
     # host syncs of the step, counted by torch's sync debug mode
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        caught.clear()   # switching the mode on warns of a sync of its own
-        try:
-            for i in range(4):
-                db.step_async(clouds[rev0 + i], n_scans + i,
-                              0.1 * (n_scans + i))
-            torch.cuda.synchronize()
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-    syncs = sum("synchroniz" in str(w.message) for w in caught) / 4
+    def four_more():
+        for i in range(4):
+            db.step_async(clouds[rev0 + i], n_scans + i, 0.1 * (n_scans + i))
+
+    syncs = count_syncs(four_more) / 4
     log(f"host syncs per scan: {syncs:g} (torch sync debug mode, 4 scans)")
 
     # ---- 5. the CLI -----------------------------------------------------
@@ -297,8 +386,206 @@ def main() -> None:
         assert len(lines) == 24, len(lines)
     log("cli: 24 outcome lines")
 
+    # ---- 6. a map built in blocks ----------------------------------------
+    BLOCK, N_MAP = 16, 2 * LANE_SCANS
+    n_full = N_MAP // BLOCK * BLOCK
+    db_b = tdb.ContourDB(cfg, capacity=8192, device="cuda")
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    ev0.record()
+    block_handles = []
+    for k in range(0, n_full, BLOCK):
+        block_handles.append(db_b.block_chain_pts_async(
+            torch.from_numpy(np.stack(clouds[k:k + BLOCK]))[None],
+            list(range(k, k + BLOCK)),
+            [[0.1 * i for i in range(k, k + BLOCK)]]))
+    tail = [db_b.step_async(clouds[i], i, 0.1 * i)
+            for i in range(n_full, N_MAP)]
+    ev1.record()
+    torch.cuda.synchronize()
+    block_ms = ev0.elapsed_time(ev1) / N_MAP
+    launches_block = {
+        "ring_key_divs": kernels.ring_key_divs.launches,
+        "search_tilemin": kernels.search_tilemin.launches,
+        "search_tilemin_batch": kernels.search_tilemin_batch.launches}
+    assert launches_block == {"ring_key_divs": N_MAP,
+                              "search_tilemin": N_MAP - n_full,
+                              "search_tilemin_batch": n_full // BLOCK}, \
+        launches_block
+    ring_b = db_b.recs_store[:N_MAP].cpu().numpy()
+    assert_records_close(ring_b, ring[:N_MAP], "block-built ring")
+    assert_dbs_equal(db_b, db, N_MAP, "block-built map vs the stream")
+    state = torch.zeros(2, dtype=torch.int32)
+    for j in range(N_MAP):
+        state[0] = j + 1
+        tdb.update_window(state, ts_c, ts_c[j], tb.min_elapse, tb.max_elapse)
+    assert torch.equal(db_b.state.cpu(), state), (db_b.state, state)
+    tdb.drain_block_handles(block_handles)
+    db_b.drain(tail)
+    assert db_b.n == N_MAP and db_b.ts == [0.1 * i for i in range(N_MAP)]
+    # the same scans through the stream once more, behind the block build:
+    # the step is host-bound and the host's speed drifts within a call, so
+    # the block build is read between a stream before it and one after it
+    db_s = tdb.ContourDB(cfg, capacity=8192, device="cuda")
+    torch.cuda.synchronize()
+    ev0.record()
+    for i in range(N_MAP):
+        db_s.step_async(clouds[i], i, 0.1 * i)
+    ev1.record()
+    torch.cuda.synchronize()
+    ms_scan_after = ev0.elapsed_time(ev1) / N_MAP
+    assert torch.equal(db_s.state, db_b.state)
+    del db_s
+    log(f"block build: {N_MAP} scans in {n_full // BLOCK} blocks of {BLOCK} "
+        f"and a tail of {N_MAP - n_full}: launches {launches_block}; "
+        f"records, store, keys_q and window state {state.tolist()} equal "
+        f"the stream's first {N_MAP} rows; {block_ms:.3f} ms/scan (CUDA "
+        f"events); the stream over the same scans in this call: "
+        f"{ms_scan_map:.3f} ms/scan before it (after its {WARMUP}-scan "
+        f"warm-up), {ms_scan_after:.3f} ms/scan after it ({smi})")
+    from contour_context_tpu_torch.profile_step import block_split
+
+    split = block_split(db_b, np.stack(clouds[rev0:rev0 + BLOCK]), cfg)
+    log(f"block step split, {BLOCK} revisit queries on the block-built map, "
+        f"a sync around each part: build {split['build_ms']:.2f} ms, batched "
+        f"search {split['search_ms']:.2f} ms, the {BLOCK} per-query tails "
+        f"{split['tails_ms']:.2f} ms ({smi})")
+
+    # ---- 7. checkpoint, reload, merge ------------------------------------
+    def assert_restored(back, orig, what):
+        assert_dbs_equal(back, orig, orig.n, what)
+        assert torch.equal(back.state.cpu(), orig.state.cpu()), what
+        assert back.n == orig.n and back.seq_of_gidx == orig.seq_of_gidx
+        assert back.ts == orig.ts and back.counters == orig.counters, what
+
+    with tempfile.TemporaryDirectory() as d:
+        f_map, f_base, f_delta, f_merged = (
+            os.path.join(d, f) for f in ("map.npz", "base.npz", "delta.npz",
+                                         "merged.npz"))
+        t0 = time.perf_counter()
+        db_b.save(f_map)
+        t_save = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        db_l = tdb.ContourDB.load(f_map, cfg, device="cuda")
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+        assert_restored(db_l, db_b, "reloaded block-built map")
+        db.save(f_base)
+        n_base = db.n
+        more = [db.step_async(clouds[rev0 + 4 + i], n_base + i,
+                              0.1 * (n_base + i)) for i in range(16)]
+        db.drain(more)
+        db.save(f_delta, since=n_base)
+        db_chain = tdb.ContourDB.load_chain([f_base, f_delta], cfg,
+                                            device="cuda")
+        assert_restored(db_chain, db, "base + delta chain")
+        assert db_chain.n == n_base + 16 and db.counters["n_hints"] > 0
+        sizes = {os.path.basename(f): os.path.getsize(f)
+                 for f in (f_map, f_base, f_delta)}
+        served = tdb.ContourDB.merge([db_b, db_l])
+        served.save(f_merged)
+        served_c = tdb.ContourDB.load(f_merged, cfg, device="cpu")
+    assert served.n == 2 * N_MAP and served.state.tolist() == [2 * N_MAP] * 2
+    assert served.session_of_gidx[N_MAP + 5] == (1, 5)
+    log(f"checkpoints: block-built map ({N_MAP} rows) saved in {t_save:.2f} s "
+        f"and loaded in {t_load:.2f} s; base ({n_base} rows) + delta (16 "
+        f"rows) chain restored; every store leaf, keys_q, ts_store, state, "
+        f"seq_of_gidx, ts and counters equal their originals; file bytes "
+        f"{sizes}; merged serving map {served.n} rows, all searchable ({smi})")
+
+    # ---- 8. serving ------------------------------------------------------
+    revisit = np.stack(clouds[rev0:])
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()     # the DBs of the phases above
+    torch.cuda.reset_peak_memory_stats()
+    ev0.record()
+    h_serve = served.localize_block_async(revisit, chunk=BLOCK)
+    ev1.record()
+    torch.cuda.synchronize()
+    serve_ms = ev0.elapsed_time(ev1) / LANE_SCANS
+    peak_serve = torch.cuda.max_memory_allocated()
+    n_chunks = -(-LANE_SCANS // BLOCK)
+    launches_serve = kernels.search_tilemin_batch.launches
+    assert launches_serve == n_chunks and kernels.search_tilemin.launches == 0
+    ring_serve = kernels.ring_key_divs.launches   # the pad clouds build too
+    assert LANE_SCANS <= ring_serve <= n_chunks * BLOCK, ring_serve
+    res = h_serve.get()
+    assert len(res) == LANE_SCANS and served.n == 2 * N_MAP
+    assert served.counters == tdb.ContourDB._zero_counters()
+    assert served.serving_counters["n_hints"] > 0
+    right = sum(1 for i, r in enumerate(res) if r is not None
+                and abs(served.session_of_gidx[r[0]][1] - i) <= 3)
+    assert right >= LANE_SCANS // 2, right
+    recs_serve = h_serve.recs.cpu()
+    found_rows = [i for i, r in enumerate(res) if r is not None]
+    for i in (found_rows[len(found_rows) // 3],
+              found_rows[3 * len(found_rows) // 4]):
+        desc_g = td.build_descriptor(torch.from_numpy(revisit[i]).to(dev),
+                                     cm, cfg.gmm)
+        desc_c = type(desc_g)(*[x.cpu() for x in desc_g])
+        for m, q in ((served, desc_g), (served_c, desc_c)):
+            rec = m.query_async(q).rec.cpu()
+            assert_records_close(rec[None], recs_serve[i][None],
+                                 f"serving record {i}")
+    hits_g, n_g = served.range_search(desc_g, 60.0, cap=64)
+    hits_c, n_c = served_c.range_search(desc_c, 60.0, cap=64)
+    assert n_g == n_c > 0 and [h[:4] for h in hits_g] == [h[:4] for h in hits_c]
+    np.testing.assert_allclose([h[4] for h in hits_g], [h[4] for h in hits_c],
+                               rtol=1e-6, atol=0)
+    log(f"serving: {LANE_SCANS} revisit clouds in {n_chunks} chunks of "
+        f"{BLOCK} (tail padded): {launches_serve} batched tile-min launches, "
+        f"found at the right place {right}/{LANE_SCANS}; two records equal "
+        f"query_async on the card and on a CPU copy of the map; "
+        f"range_search {n_g} in range, equal on both; {serve_ms:.3f} "
+        f"ms/query (CUDA events), peak allocated {peak_serve} bytes, of "
+        f"which {held} held before by this script's DBs ({smi})")
+    log(f"serving counters: {served.serving_counters}")
+
+    # ---- 9. dynamic_thres -------------------------------------------------
+    dyn = PipelineConfig(db=ContourDBConfig(dynamic_thres=True))
+    n_dyn = 32
+    dyn_clouds = clouds[:n_dyn] + clouds[rev0:rev0 + n_dyn]
+    dyn_recs = {}
+    for device in ("cuda", "cpu"):
+        db_d = tdb.ContourDB(dyn, capacity=128, device=device)
+        t0 = time.perf_counter()
+        for k, pts in enumerate(dyn_clouds):
+            db_d.step_async(pts, k, 1.0 * k)
+        dyn_recs[device] = db_d.recs_store[:2 * n_dyn].cpu().numpy()
+        if device == "cuda":
+            torch.cuda.synchronize()
+            db_dg = db_d
+        log(f"dynamic_thres stream on {device}: {2 * n_dyn} scans in "
+            f"{time.perf_counter() - t0:.1f} s")
+    assert_records_close(dyn_recs["cuda"], dyn_recs["cpu"], "dynamic stream")
+    n_found = int((dyn_recs["cpu"][n_dyn:, 0] > 0.5).sum())
+    assert n_found >= n_dyn // 2, n_found
+    q_d = td.build_descriptor(torch.from_numpy(dyn_clouds[-1]).to(dev), cm,
+                              cfg.gmm)
+
+    def one_query(c):
+        return lambda: tdb.query_step(db_dg.store, db_dg.keys_q, q_d,
+                                      db_dg.state, c)
+
+    ops = {name: count_device_ops(one_query(c))
+           for name, c in (("static", cfg), ("dynamic", dyn))}
+    sy = {name: count_syncs(one_query(c))
+          for name, c in (("static", cfg), ("dynamic", dyn))}
+    log(f"dynamic_thres: card records equal the CPU's over {2 * n_dyn} scans "
+        f"({n_found}/{n_dyn} revisits found); one revisit query: "
+        f"{ops['dynamic']} device ops and {sy['dynamic']} host syncs with "
+        f"the option, {ops['static']} and {sy['static']} without ({smi})")
+
     for r in rows:
-        r["launches"] = launches[r["name"]]
+        # the stream launches the first two, the block build the batched one
+        r["launches"] = launches.get(r["name"], launches_block[r["name"]])
+        r["launches_by_path"] = {
+            "stream": launches.get(r["name"], 0),
+            "block_build": launches_block[r["name"]],
+            "serving": {"ring_key_divs": ring_serve,
+                        "search_tilemin": 0,
+                        "search_tilemin_batch": launches_serve}[r["name"]]}
     print(json.dumps({"kernels": rows}), flush=True)
     print(kt.card(), flush=True)
     print(json.dumps({"ok": True, "device": {

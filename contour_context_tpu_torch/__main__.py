@@ -2,10 +2,13 @@
 
     python -m contour_context_tpu_torch --pose ts-sens_pose.txt \\
         --laser ts-lidar_bins.txt --outcome outcome.txt [--max-scans N] \\
-        [--device cuda] [--config batch_bin_test_config.yaml]
+        [--device cuda] [--config batch_bin_test_config.yaml] \\
+        [--fused-step] [--chain K]
 
-Same inputs and outcome-file format as `python -m contour_context_tpu`; the
-replay is the fused per-scan step on `--device`.
+Same inputs, flags and outcome-file format as `python -m contour_context_tpu`.
+The replay runs on `--device`: per scan through the unfused API (build,
+query, add, push; a per-stage timing report), with `--fused-step` through
+one `step_async` a scan, with `--chain K` staged K scans at a time.
 """
 
 from __future__ import annotations
@@ -26,6 +29,13 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     ap.add_argument("--max-scans", type=int, default=None)
     ap.add_argument("--device", default="cuda",
                     help="torch device of the DB and the step (default cuda)")
+    ap.add_argument("--fused-step", action="store_true",
+                    help="one step_async per scan (collapses the per-stage "
+                         "timing report into one row)")
+    ap.add_argument("--chain", type=int, default=None, metavar="K",
+                    help="stage K scans per host-to-device copy and step "
+                         "them one by one (exact per-scan semantics at any "
+                         "timestamp spacing, unlike the batched block mode)")
     args = ap.parse_args(argv)
 
     cfg = PipelineConfig()
@@ -42,7 +52,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     from contour_context_tpu_torch.pipeline import run_batch
 
     pipe = run_batch(fpath_pose, fpath_laser, fpath_outcome, cfg,
-                     max_scans=args.max_scans, device=args.device)
+                     max_scans=args.max_scans, device=args.device,
+                     fused_step=args.fused_step, chain=args.chain)
     tp = sum(1 for r in pipe.results if r.tfpn == 0)
     fp = sum(1 for r in pipe.results if r.tfpn == 1)
     fn = sum(1 for r in pipe.results if r.tfpn == 3)

@@ -56,6 +56,31 @@
 // multiple of 8: the launcher then takes the scalar path (the same tiling,
 // one 2- or 4-byte load per column). The choice is made from the shapes
 // (cc_search_tilemin_vector), never by retrying.
+//
+// The batched entry (search_tilemin_batch_kernel) answers B queries against
+// the same store in one launch, each with its own searchable_n (block mode:
+// query b of a block sees the window before scan b's push; map serving: all
+// B at the map's state). It takes the place of the fused reduction that
+// jax.vmap of the query makes of this kernel's Pallas original. For query b
+//   out[b, q, a, t] = the single-query out[q, a, t] at searchable_b[b],
+// bit for bit: both entries share load_keys, min_cols and warp_tile_min.
+// What bounds it: at B = 16 the unfusable arithmetic, not the bytes (16 x
+// 22.7 MFLOP over 67 TFLOP/s fp32 = 5.4 us against 2.5 MB + 0.9 MB of
+// output over 3.35 TB/s = 1.0 us at the capacity-8192 fixture); and since
+// no sub, mul or add may fuse, every flop is an instruction of its own, so
+// the instruction rate (half the FMA peak) is the practical limit. So a
+// thread loads its 10 x 4 keys into registers once and sweeps kBatchGroup =
+// 4 queries over them (their A x 10 floats staged in shared memory), and
+// grid.z spreads the B queries over ceil(B / 4) such blocks: the store
+// leaves HBM once and is read again from L2 by the other groups. One block
+// sweeping all 16 queries was measured 1.5-2.3x slower on the H100
+// (PERF.md): 288 blocks leave a scheduler one to three warps, each a
+// serial chain of ~900 instructions a query, and a short searchable
+// history leaves most SMs idle. searchable_b is read on the device. A
+// block wholly past its group's max searchable_b[b] * A writes MAX_DIST_SQ
+// for its queries and exits without reading keys; a warp whose tile lies
+// past query b's limit writes MAX_DIST_SQ for b without computing; the
+// others mask per column.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -71,6 +96,8 @@ constexpr int kThreads = 128;
 constexpr int kTilesPerBlock = kThreads / 32;  // one warp per tile
 constexpr int kBlockCols = kTilesPerBlock * kTile;  // 512
 constexpr float kMaxDistSq = 1e6f;
+constexpr int kBatchGroup = 4;                 // queries a batched block sweeps
+static_assert(kBatchGroup * kMaxA <= kThreads, "one thread per staged anchor");
 static_assert(kMaxA * kD <= 2 * kThreads, "the query is staged 2 a thread");
 
 // Load the thread's 4 columns of one (level, dim) row into k[0..3].
@@ -108,6 +135,59 @@ __device__ __forceinline__ void load4<float, false>(
     const float* __restrict__ row, int c0, int NA, float* k) {
 #pragma unroll
   for (int j = 0; j < kCols; ++j) k[j] = c0 + j < NA ? row[c0 + j] : 0.f;
+}
+
+// Load the thread's kCols columns at c0 of all kD dims of level lv into k;
+// rv[j] says that column j's key is not all zero.
+template <typename T, bool kVec>
+__device__ __forceinline__ void load_keys(const T* __restrict__ keys_q, int lv,
+                                          int c0, int NA,
+                                          float (&k)[kD][kCols],
+                                          bool (&rv)[kCols]) {
+  const T* base = keys_q + static_cast<size_t>(lv) * kD * NA;
+#pragma unroll
+  for (int d = 0; d < kD; ++d)
+    load4<T, kVec>(base + static_cast<size_t>(d) * NA, c0, NA, k[d]);
+#pragma unroll
+  for (int j = 0; j < kCols; ++j) {
+    bool v = false;
+#pragma unroll
+    for (int d = 0; d < kD; ++d) v |= k[d][j] != 0.f;
+    rv[j] = v;
+  }
+}
+
+// The thread's minimum over its kCols columns of the masked squared distance
+// to the query anchor qa (kD floats): every sub, mul and add rounded on its
+// own, d = 0..9 in order.
+__device__ __forceinline__ float min_cols(const float (&k)[kD][kCols],
+                                          const bool (&ok)[kCols],
+                                          const float* __restrict__ qa) {
+  float m = kMaxDistSq;
+#pragma unroll
+  for (int j = 0; j < kCols; ++j) {
+    float d2 = 0.f;
+#pragma unroll
+    for (int d = 0; d < kD; ++d) {
+      const float diff = __fsub_rn(k[d][j], qa[d]);
+      d2 = __fadd_rn(d2, __fmul_rn(diff, diff));
+    }
+    m = fminf(m, ok[j] ? d2 : kMaxDistSq);
+  }
+  return m;
+}
+
+// Anchor `lane`'s minimum over the 32 threads of `warp` (its tile), from the
+// per-thread minima in s_min.
+__device__ __forceinline__ float warp_tile_min(
+    float (*s_min)[kMaxA + 1], int warp, int lane) {
+  float m[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) m[i] = s_min[warp * 32 + i][lane];
+#pragma unroll
+  for (int i = 4; i < 32; ++i)
+    m[i % 4] = fminf(m[i % 4], s_min[warp * 32 + i][lane]);
+  return fminf(fminf(m[0], m[1]), fminf(m[2], m[3]));
 }
 
 template <typename T, bool kVec>
@@ -153,50 +233,108 @@ search_tilemin_kernel(const T* __restrict__ keys_q,
 
   const int c0 = block_c0 + t * kCols;
   float k[kD][kCols];
-  bool ok[kCols];
+  bool ok[kCols] = {false, false, false, false};
   bool any_ok = false;
   if (c0 < lim) {
-    const T* base = keys_q + static_cast<size_t>(lv) * kD * NA;
-#pragma unroll
-    for (int d = 0; d < kD; ++d)
-      load4<T, kVec>(base + static_cast<size_t>(d) * NA, c0, NA, k[d]);
+    load_keys<T, kVec>(keys_q, lv, c0, NA, k, ok);
 #pragma unroll
     for (int j = 0; j < kCols; ++j) {
-      bool row_valid = false;
-#pragma unroll
-      for (int d = 0; d < kD; ++d) row_valid |= k[d][j] != 0.f;
-      ok[j] = row_valid && c0 + j < lim;
+      ok[j] = ok[j] && c0 + j < lim;
       any_ok |= ok[j];
     }
   }
   __syncthreads();                     // s_qv
 
 #pragma unroll 2
-  for (int a = 0; a < A; ++a) {
-    const float* qa = s_q + a * kD;
-    float m = kMaxDistSq;
-    if (any_ok && s_qv[a]) {
+  for (int a = 0; a < A; ++a)
+    s_min[t][a] = any_ok && s_qv[a] ? min_cols(k, ok, s_q + a * kD)
+                                    : kMaxDistSq;
+  __syncwarp();
+  if (writer)                          // min over the warp's 32 threads
+    out_q[lane * n_tiles + tile] = warp_tile_min(s_min, warp, lane);
+}
+
+// B queries in one launch: q (B, Q, A, kD), sn_b (B,) searchable_n of each
+// query, out (B, Q, A, n_tiles). Block z sweeps the kBatchGroup queries
+// [z * kBatchGroup, ...) over its key columns.
+template <typename T, bool kVec>
+__global__ void __launch_bounds__(kThreads)
+search_tilemin_batch_kernel(const T* __restrict__ keys_q,
+                            const float* __restrict__ q,
+                            const int* __restrict__ sn_b,
+                            float* __restrict__ out, int B_all, int A, int NA,
+                            unsigned lv_packed, int n_tiles) {
+  const int qi = blockIdx.y, Q = gridDim.y;
+  const int b0 = blockIdx.z * kBatchGroup;
+  const int B = B_all - b0 < kBatchGroup ? B_all - b0 : kBatchGroup;
+  const int lv = (lv_packed >> (8 * qi)) & 0xff;
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int tile = blockIdx.x * kTilesPerBlock + warp;
+  const bool writer = lane < A && tile < n_tiles;
+  // anchor `lane` of this warp's tile, query b0 + b at out_w[b * out_b]
+  const size_t out_b = static_cast<size_t>(Q) * A * n_tiles;
+  float* out_w =
+      out + ((static_cast<size_t>(b0) * Q + qi) * A + lane) * n_tiles + tile;
+
+  // columns [0, lim[b]) can be searchable for query b0 + b
+  int lim[kBatchGroup];
+  int max_lim = 0;
+#pragma unroll
+  for (int b = 0; b < kBatchGroup; ++b) {
+    const long long c =
+        b < B ? static_cast<long long>(sn_b[b0 + b]) * A : 0;
+    lim[b] = c < NA ? (c > 0 ? static_cast<int>(c) : 0) : NA;
+    max_lim = lim[b] > max_lim ? lim[b] : max_lim;
+  }
+  const int block_c0 = blockIdx.x * kBlockCols;
+  if (block_c0 >= max_lim) {           // uniform across the block
+    if (writer)
+      for (int b = 0; b < B; ++b) out_w[b * out_b] = kMaxDistSq;
+    return;
+  }
+
+  __shared__ float s_q[kBatchGroup * kMaxA * kD];
+  __shared__ bool s_qv[kBatchGroup * kMaxA];
+  __shared__ float s_min[kThreads][kMaxA + 1];
+  const int c0 = block_c0 + t * kCols;
+  float k[kD][kCols];
+  bool rv[kCols] = {false, false, false, false};
+  if (c0 < max_lim) load_keys<T, kVec>(keys_q, lv, c0, NA, k, rv);
+  const int qn = A * kD;
+  for (int i = t; i < B * qn; i += kThreads)
+    s_q[i] = q[(static_cast<size_t>(b0 + i / qn) * Q + qi) * qn + i % qn];
+  __syncthreads();                     // s_q
+  if (t < B * A) {
+    bool v = false;
+#pragma unroll
+    for (int d = 0; d < kD; ++d) v |= s_q[t * kD + d] != 0.f;
+    s_qv[t] = v;
+  }
+  __syncthreads();                     // s_qv
+
+#pragma unroll
+  for (int b = 0; b < kBatchGroup; ++b) {
+    if (b >= B) break;
+    const bool tile_live = tile * kTile < lim[b];  // uniform across the warp
+    if (tile_live) {
+      bool ok[kCols];
+      bool any_ok = false;
 #pragma unroll
       for (int j = 0; j < kCols; ++j) {
-        float d2 = 0.f;
-#pragma unroll
-        for (int d = 0; d < kD; ++d) {
-          const float diff = __fsub_rn(k[d][j], qa[d]);
-          d2 = __fadd_rn(d2, __fmul_rn(diff, diff));
-        }
-        m = fminf(m, ok[j] ? d2 : kMaxDistSq);
+        ok[j] = rv[j] && c0 + j < lim[b];
+        any_ok |= ok[j];
       }
+#pragma unroll 2
+      for (int a = 0; a < A; ++a)
+        s_min[t][a] = any_ok && s_qv[b * A + a]
+                          ? min_cols(k, ok, s_q + (b * A + a) * kD)
+                          : kMaxDistSq;
+      __syncwarp();
     }
-    s_min[t][a] = m;
-  }
-  __syncwarp();
-  if (writer) {                        // min over the warp's 32 threads
-    float m[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) m[i] = s_min[warp * 32 + i][lane];
-#pragma unroll
-    for (int i = 4; i < 32; ++i) m[i % 4] = fminf(m[i % 4], s_min[warp * 32 + i][lane]);
-    out_q[lane * n_tiles + tile] = fminf(fminf(m[0], m[1]), fminf(m[2], m[3]));
+    if (writer)
+      out_w[b * out_b] = tile_live ? warp_tile_min(s_min, warp, lane)
+                                   : kMaxDistSq;
+    __syncwarp();                      // s_min is written again for b + 1
   }
 }
 
@@ -216,6 +354,25 @@ void launch(const void* keys_q, const void* q, const void* state, void* out,
   else
     search_tilemin_kernel<T, false><<<grid, kThreads, 0, s>>>(
         k, qf, st, o, A, NA, lv_packed, n_tiles);
+}
+
+template <typename T>
+void launch_batch(const void* keys_q, const void* q, const void* sn_b,
+                  void* out, int B, int Q, int A, int NA, unsigned lv_packed,
+                  bool vec, cudaStream_t s) {
+  const int n_tiles = (NA + kTile - 1) / kTile;
+  const dim3 grid((NA + kBlockCols - 1) / kBlockCols, Q,
+                  (B + kBatchGroup - 1) / kBatchGroup);
+  const T* k = static_cast<const T*>(keys_q);
+  const float* qf = static_cast<const float*>(q);
+  const int* sn = static_cast<const int*>(sn_b);
+  float* o = static_cast<float*>(out);
+  if (vec)
+    search_tilemin_batch_kernel<T, true><<<grid, kThreads, 0, s>>>(
+        k, qf, sn, o, B, A, NA, lv_packed, n_tiles);
+  else
+    search_tilemin_batch_kernel<T, false><<<grid, kThreads, 0, s>>>(
+        k, qf, sn, o, B, A, NA, lv_packed, n_tiles);
 }
 
 }  // namespace
@@ -239,5 +396,23 @@ extern "C" int cc_search_tilemin(const void* keys_q, const void* q,
     launch<__nv_bfloat16>(keys_q, q, state, out, Q, A, NA, lv_packed, vec, s);
   else
     launch<float>(keys_q, q, state, out, Q, A, NA, lv_packed, vec, s);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int cc_search_tilemin_batch(const void* keys_q, const void* q,
+                                       const void* sn_b, void* out, int B,
+                                       int Q, int A, int NA, int keys_bf16,
+                                       unsigned lv_packed, int n_levels,
+                                       void* stream) {
+  if (A <= 0 || A > kMaxA || Q <= 0 || NA <= 0 || n_levels <= 0 || B <= 0 ||
+      (B + kBatchGroup - 1) / kBatchGroup > 65535)   // grid.z
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool vec = cc_search_tilemin_vector(keys_q, NA) != 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (keys_bf16)
+    launch_batch<__nv_bfloat16>(keys_q, q, sn_b, out, B, Q, A, NA, lv_packed,
+                                vec, s);
+  else
+    launch_batch<float>(keys_q, q, sn_b, out, B, Q, A, NA, lv_packed, vec, s);
   return static_cast<int>(cudaGetLastError());
 }

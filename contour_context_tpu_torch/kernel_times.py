@@ -1,4 +1,4 @@
-"""Device times of the port's two CUDA kernels beside their bounds.
+"""Device times of the port's CUDA kernels beside their bounds.
 
     python -m contour_context_tpu_torch.kernel_times [--reps 200]
         [--out FILE]
@@ -28,8 +28,11 @@ its phase 3. For each kernel, at the main path's shapes:
 Ring: the 36 anchors x 4096-pixel pool of the smoke stream's first scan.
 Tile-min: a bf16 (6, 10, 49152) store (capacity 8192) at searchable_n 7000
 (the fixture, a long drive) and 246 (the smoke stream's last scans, 3% of
-capacity). `edge_cases` holds each kernel against its plain version at the
-edge shapes and names the path each took.
+capacity). Batched tile-min (`measure_batch`): the same store, B = 16
+queries with searchable_b spread over 0, 246, 7000 and values between, its
+device time beside the summed device time of the 16 single-query launches
+that answer the same queries. `edge_cases` holds each kernel against its
+plain version at the edge shapes and names the path each took.
 """
 
 from __future__ import annotations
@@ -100,12 +103,13 @@ def kernel_durations_us(prof, name: str) -> list:
             and name in e.name]
 
 
-def device_us(fn, name: str, reps: int, cold: bool) -> float:
-    """Mean device duration (us) of the kernels named *name* over reps calls
-    of fn, from torch.profiler's kernel records; cold writes 64 MB between
-    calls. The profiler can lose records (seen on the H100: 199 or 10 of
-    200 kept): a window that lost any is reported on stderr and profiled
-    again, at most three times, and never averaged."""
+def device_us(fn, name: str, reps: int, cold: bool, per_call: int = 1) -> float:
+    """Mean device duration (us) a call of fn spends in the kernels named
+    *name* (per_call launches a call, summed), over reps calls, from
+    torch.profiler's kernel records; cold writes 64 MB between calls. The
+    profiler can lose records (seen on the H100: 199 or 10 of 200 kept): a
+    window that lost any is reported on stderr and profiled again, at most
+    three times, and never averaged."""
     flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.int32, device="cuda") \
         if cold else None
     for _ in range(5):
@@ -121,12 +125,12 @@ def device_us(fn, name: str, reps: int, cold: bool) -> float:
                 fn()
             torch.cuda.synchronize()
         durs = kernel_durations_us(prof, name)
-        if len(durs) == reps:
-            return float(np.mean(durs))
-        print(f"torch.profiler kept {len(durs)} of {reps} records of {name}: "
-              "profiling again", file=sys.stderr, flush=True)
+        if len(durs) == reps * per_call:
+            return float(np.sum(durs)) / reps
+        print(f"torch.profiler kept {len(durs)} of {reps * per_call} records "
+              f"of {name}: profiling again", file=sys.stderr, flush=True)
     raise RuntimeError(f"profiler saw {len(durs)} launches of {name}, "
-                       f"expected {reps}")
+                       f"expected {reps * per_call}")
 
 
 def _bound(n_bytes: float, t_ops_s: float) -> tuple:
@@ -156,6 +160,33 @@ def tilemin_bound(keys_q, q, state):
     n_bytes = (Q * D * cols * keys_q.element_size() + q.numel() * 4 + 8
                + Q * A * n_tiles * 4)
     return _bound(n_bytes, 3 * D * Q * A * cols / FP32_FLOPS)
+
+
+def tilemin_batch_bound(keys_q, q_b, searchable_b):
+    """(bound us, bound_by, bytes, flops) of search_tilemin_batch: the keys
+    of the columns searchable for any query read once (Q levels x 10 dims),
+    the B queries and limits once, the B outputs written once; 30 flops per
+    (query, level, anchor, column searchable for that query)."""
+    L, D, NA = keys_q.shape
+    B, Q, A, _ = q_b.shape
+    cols_b = [min(NA, max(0, int(sn)) * A) for sn in searchable_b.tolist()]
+    n_tiles = -(-NA // kernels.TILE)
+    n_bytes = (Q * D * max(cols_b) * keys_q.element_size() + q_b.numel() * 4
+               + 4 * B + B * Q * A * n_tiles * 4)
+    flops = 3 * D * Q * A * sum(cols_b)
+    return _bound(n_bytes, flops / FP32_FLOPS) + (n_bytes, flops)
+
+
+BATCH_SN = (0, 246, 7000, 1, 100, 500, 1000, 2000, 3000, 4000, 5000, 6000,
+            6500, 6999, 7000, 7000)   # searchable_b of the B = 16 fixture
+
+
+def batch_queries(B: int, seed: int = 1):
+    """(B, 6, 6, 10) f32 query keys with one invalid anchor in query 1."""
+    qk = np.random.default_rng(seed).uniform(
+        0.1, 5.0, (B, 6, 6, 10)).astype(np.float32)
+    qk[1 % B, 2, 3] = 0.0
+    return qk
 
 
 def ring_case(dev, cfg: PipelineConfig):
@@ -289,6 +320,81 @@ def measure(dev, cfg: PipelineConfig, reps: int = 200) -> list:
     return [_shares(ring), tile]
 
 
+def measure_batch(dev, cfg: PipelineConfig, reps: int = 200) -> dict:
+    """The batched tile-min's row at the fixture (bf16 capacity 8192, B = 16,
+    searchable_b = BATCH_SN), held bit-equal to its plain version first,
+    with the 16 single-query launches of the same queries beside it."""
+    kb, _ = tile_store(8192)
+    ql = tuple(cfg.db.q_levels)
+    kq = q_layout(kb, torch.bfloat16, dev)
+    B = len(BATCH_SN)
+    q_b = torch.from_numpy(batch_queries(B)[:, list(ql)]).to(dev).contiguous()
+    sb = torch.tensor(BATCH_SN, dtype=torch.int32, device=dev)
+    states = [torch.tensor([8192, sn], dtype=torch.int32, device=dev)
+              for sn in BATCH_SN]
+    t_k = kernels.search_tilemin_batch(kq, ql, q_b, sb)
+    t_p = kernels.search_tilemin_batch_plain(kq, ql, q_b, sb)
+    torch.cuda.synchronize()
+    assert torch.equal(t_k, t_p), "batched tile minima differ"
+
+    def singles():
+        for b in range(B):
+            kernels.search_tilemin(kq, ql, q_b[b], states[b])
+
+    def batch():
+        kernels.search_tilemin_batch(kq, ql, q_b, sb)
+
+    b_us, b_by, n_bytes, flops = tilemin_batch_bound(kq, q_b, sb)
+    row = dict(
+        name="search_tilemin_batch", route="cuda",
+        source="contour_context_tpu_torch/csrc/search_tilemin.cu",
+        replaces=REPLACES + ":112", library_ms=None,
+        shape=f"keys_q {tuple(kq.shape)} bf16, B {B}, searchable_b "
+        f"{min(BATCH_SN)}..{max(BATCH_SN)}",
+        path=kernels.search_tilemin_path(kq), max_abs_err=0.0,
+        bytes=n_bytes, flops=flops, bound_us=b_us, bound_by=b_by,
+        **_measure(batch, lambda: kernels.search_tilemin_batch_plain(
+            kq, ql, q_b, sb), "search_tilemin_batch_kernel", reps),
+        singles_us_warm=device_us(singles, "search_tilemin_kernel", reps,
+                                  cold=False, per_call=B),
+        singles_us_cold=device_us(singles, "search_tilemin_kernel", reps,
+                                  cold=True, per_call=B),
+        singles_ms=call_ms(singles))
+    return _shares(row)
+
+
+def batch_edge_cases(dev, cfg: PipelineConfig) -> list:
+    """The batched tile-min against its plain version at the edge shapes:
+    bf16 and f32, the vector path and the scalar path (NA 390), B = 1 equal
+    to the single-query kernel, B = 16 with mixed limits. Raises on the
+    first mismatch; returns one line per case."""
+    ql = tuple(cfg.db.q_levels)
+    lines = []
+    for N, sns in ((8192, BATCH_SN), (65, (0, 1, 33, 65, 64, 2))):
+        kb, _ = tile_store(N, seed=N)
+        q_b = torch.from_numpy(batch_queries(len(sns), seed=N)[:, list(ql)]) \
+            .to(dev).contiguous()
+        sb = torch.tensor(sns, dtype=torch.int32, device=dev)
+        for dtype in (torch.bfloat16, torch.float32):
+            kq = q_layout(kb, dtype, dev)
+            t_k = kernels.search_tilemin_batch(kq, ql, q_b, sb)
+            t_p = kernels.search_tilemin_batch_plain(kq, ql, q_b, sb)
+            one = kernels.search_tilemin_batch(kq, ql, q_b[2:3], sb[2:3])
+            single = kernels.search_tilemin(
+                kq, ql, q_b[2], torch.tensor([N, sns[2]], dtype=torch.int32,
+                                             device=dev))
+            torch.cuda.synchronize()
+            label = f"NA {kq.shape[2]} {str(dtype)[6:]} B {len(sns)}"
+            assert torch.equal(t_k, t_p), f"batched tile minima differ: {label}"
+            assert torch.equal(one[0], single) and torch.equal(one[0], t_k[2]), \
+                f"B = 1 differs from the single-query kernel: {label}"
+            lines.append(f"search_tilemin_batch {label}: "
+                         f"{kernels.search_tilemin_path(kq)} path, bit-equal "
+                         "to the plain version; B 1 equals the single-query "
+                         "kernel")
+    return lines
+
+
 def edge_cases(dev, cfg: PipelineConfig) -> list:
     """Each kernel against its plain version at the edge shapes (ring: a
     pool length that is no multiple of the block, an anchor whose box is
@@ -344,9 +450,9 @@ def main(argv: Optional[Sequence[str]] = None) -> list:
     kernels.build()
     dev = torch.device("cuda", 0)
     cfg = PipelineConfig()
-    for line in edge_cases(dev, cfg):
+    for line in edge_cases(dev, cfg) + batch_edge_cases(dev, cfg):
         print(line, flush=True)
-    rows = measure(dev, cfg, args.reps)
+    rows = measure(dev, cfg, args.reps) + [measure_batch(dev, cfg, args.reps)]
     for r in rows:
         print(json.dumps(r), flush=True)
     floor = launch_floor_us(dev, args.reps)

@@ -13,6 +13,7 @@ from __future__ import annotations
 import math
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from contour_context_tpu_torch.config import DIST_BIN_LAYERS, LAYER_AREA_WEIGHTS
@@ -197,6 +198,61 @@ def merge_proposals(pass3, gidx, T_delta, pair_valid, pair_level,
         prop_taken=(taken_u[:NK] > 0.5).view(C, P_PROP, NUM_SLOTS),
         prop_perc=perc_u[:NK].view(C, P_PROP, NUM_SLOTS),
         overflow_cand=overflow_cand, overflow_pass=overflow_pass)
+
+
+def dynamic_pass_scan(pass1, ovlp_sum, ovlp_max1, in_ang, indiv, orie,
+                      lb, ub):
+    """DYNAMIC_THRES re-gating of the check cascade (contour_db.h:439-458;
+    candidate.py:290-319): hints are re-gated in order, and each full pass
+    raises the five working count bars to that hint's final pair count,
+    clamped by the upper-bound ensemble. The recurrence is sequential and
+    tiny (five ints over H rows), so it runs on the host: one copy of the
+    six (H,) inputs down, one of the two masks back. Returns (pass2, pass3)
+    under the dynamic bars, on the inputs' device."""
+    lbv = [lb.sim_constell.i_ovlp_sum, lb.sim_constell.i_ovlp_max_one,
+           lb.sim_constell.i_in_ang_rng, lb.sim_pair.i_indiv_sim,
+           lb.sim_pair.i_orie_sim]
+    ubv = [ub.sim_constell.i_ovlp_sum, ub.sim_constell.i_ovlp_max_one,
+           ub.sim_constell.i_in_ang_rng, ub.sim_pair.i_indiv_sim,
+           ub.sim_pair.i_orie_sim]
+    rows = torch.stack([x.to(torch.int32) for x in (
+        pass1, ovlp_sum, ovlp_max1, in_ang, indiv, orie)], dim=1).tolist()
+    bars = [int(v) for v in lbv]
+    out = []
+    for p1, ov, m1, ia, ind, oc in rows:
+        pass2 = bool(p1) and ov >= bars[0] and m1 >= bars[1] and ia >= bars[2]
+        pass3 = pass2 and ind >= bars[3] and oc >= bars[4]
+        if pass3:
+            bars = [min(max(b, oc), int(u)) for b, u in zip(bars, ubv)]
+        out.append((pass2, pass3))
+    mask = torch.tensor(out, dtype=torch.bool).reshape(-1, 2) \
+        .to(pass1.device)
+    return mask[:, 0], mask[:, 1]
+
+
+def dynamic_post_scan(in_use, area, neg_d, corr0, lb_post, ub_post):
+    """DYNAMIC_THRES post-processing screens (contour_db.h:532-574;
+    candidate.py:322-344): candidates are screened in first-seen order, and
+    each one passing all three screens (area %, distance censor, init
+    correlation) raises the working bars to its own scores, clamped by the
+    upper bounds. On the host like `dynamic_pass_scan`, in float32 values
+    (exact in Python's floats; min, max and >= round nothing). Returns the
+    keep mask on the inputs' device."""
+    f32 = np.float32
+    bars = [float(f32(v)) for v in (lb_post.area_perc, lb_post.neg_est_dist,
+                                    lb_post.correlation)]
+    ubv = [float(f32(v)) for v in (ub_post.area_perc, ub_post.neg_est_dist,
+                                   ub_post.correlation)]
+    rows = torch.stack([in_use.to(torch.float32), area.to(torch.float32),
+                        neg_d.to(torch.float32), corr0.to(torch.float32)],
+                       dim=1).tolist()
+    keep = []
+    for use, a, d, c in rows:
+        k = use > 0.5 and a >= bars[0] and d >= bars[1] and c >= bars[2]
+        if k:
+            bars = [min(max(b, x), u) for b, x, u in zip(bars, (a, d, c), ubv)]
+        keep.append(k)
+    return torch.tensor(keep, dtype=torch.bool).to(in_use.device)
 
 
 def _area_weights(device) -> torch.Tensor:

@@ -401,11 +401,13 @@ def gmm_summary(tab: dict, gmm_cfg: GMMOptConfig):
 def pack_tab12(cnt, valid, mean, eig_vals, eig_vecs, vol3_mean, com_r,
                ecc_feat, cont_perc):
     """(4, 10, 12) check-3 stats table over DIST_BIN_LAYERS x first 10 seqs:
-    [cnt, eig0, eig1, h, comr, mean0, mean1, vec1x, vec1y, ecc, perc, ok]."""
+    [cnt, eig0, eig1, h, comr, mean0, mean1, vec1x, vec1y, ecc, perc, ok].
+    Leading batch axes (a stacked store) pass through."""
     lv = device_const(DIST_BIN_LAYERS, torch.long, mean.device)
+    nb = cnt.dim() - 2
 
     def sl(a):
-        return a[lv, :10]
+        return a.index_select(nb, lv).narrow(nb + 1, 0, 10)
 
     f32 = torch.float32
     return torch.stack([
@@ -417,17 +419,38 @@ def pack_tab12(cnt, valid, mean, eig_vals, eig_vecs, vol3_mean, com_r,
 
 def pack_gmm(mean, manual_cov, cnt, eig_vals, gmm_mask, gmm_cfg) -> torch.Tensor:
     """Flat (G*K*8,) GMM source row: [mu0, mu1, cov00, cov01, cov10, cov11,
-    w (masked cnt), majax] per (level, ellipse)."""
+    w (masked cnt), majax] per (level, ellipse). Leading batch axes (a
+    stacked store) pass through."""
     lev = device_const(tuple(gmm_cfg.levels), torch.long, mean.device)
     K = gmm_cfg.max_gmm_ellipses
     G = len(gmm_cfg.levels)
-    ws = torch.where(gmm_mask[lev][:, :K], cnt[lev][:, :K].to(torch.float32),
-                     0.0)
+    nb = cnt.dim() - 2
+    lead = tuple(cnt.shape[:nb])
+
+    def sl(a):
+        return a.index_select(nb, lev).narrow(nb + 1, 0, K)
+
+    ws = torch.where(sl(gmm_mask), sl(cnt).to(torch.float32), 0.0)
     packed = torch.cat([
-        mean[lev][:, :K], manual_cov[lev][:, :K].reshape(G, K, 4),
-        ws[..., None], torch.sqrt(eig_vals[lev][:, :K][..., 1])[..., None]],
+        sl(mean), sl(manual_cov).reshape(lead + (G, K, 4)),
+        ws[..., None], torch.sqrt(sl(eig_vals)[..., 1])[..., None]],
         dim=-1)
-    return packed.reshape(G * K * 8)
+    return packed.reshape(lead + (G * K * 8,))
+
+
+def tab12_of(desc) -> torch.Tensor:
+    """ScanDesc.tab12 recomputed from the other leaves of a scan or of a
+    stacked store (checkpoints do not hold it); bit-equal to what
+    build_descriptor packed."""
+    return pack_tab12(desc.cnt, desc.valid, desc.mean, desc.eig_vals,
+                      desc.eig_vecs, desc.vol3_mean, desc.com_r,
+                      desc.ecc_feat, desc.cont_perc)
+
+
+def gmm_pack_of(desc, gmm_cfg) -> torch.Tensor:
+    """ScanDesc.gmm_pack recomputed from the other leaves (see tab12_of)."""
+    return pack_gmm(desc.mean, desc.manual_cov, desc.cnt, desc.eig_vals,
+                    desc.gmm_mask, gmm_cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -474,3 +497,12 @@ def build_descriptor(points, cfg: ContourManagerConfig,
                          tab["com_r"], tab["ecc_feat"], tab["cont_perc"]),
         gmm_pack=pack_gmm(tab["mean"], tab["manual_cov"], tab["cnt"],
                           tab["eig_vals"], gmm_mask, gmm_cfg))
+
+
+def build_descriptors(points_b, cfg: ContourManagerConfig,
+                      gmm_cfg: GMMOptConfig = GMMOptConfig()) -> ScanDesc:
+    """points_b (B, P, 4) -> the B-stacked ScanDesc of a block: one
+    build_descriptor a scan (the ring kernel launches once a scan), stacked
+    leaf by leaf."""
+    descs = [build_descriptor(p, cfg, gmm_cfg) for p in points_b]
+    return ScanDesc(*[torch.stack(xs) for xs in zip(*descs)])

@@ -1,6 +1,6 @@
 """The port's hand-written CUDA kernels, their plain torch twins, and the build.
 
-Two kernels replace the JAX package's two Pallas kernels
+Three kernel entries replace the JAX package's two Pallas kernels
 (`contour_context_tpu/ops/pallas_kernels.py`):
 
 - `ring_key_divs` (csrc/ring_key.cu): the ring-key Gaussian contraction of
@@ -9,6 +9,10 @@ Two kernels replace the JAX package's two Pallas kernels
   search (masked squared key distance + per-128-column tile minimum over the
   bf16 search-layout store), replacing `_search_tilemin_kernel` under the
   contract of `db._search_cover2`.
+- `search_tilemin_batch` (a second entry of csrc/search_tilemin.cu): the same
+  for B queries, each with its own searchable_n, in one launch that reads the
+  store once (what `jax.vmap` of the query makes of the search in block and
+  serving modes).
 
 Each wrapper takes its plain twin for CPU tensors only; a CUDA tensor launches
 the kernel or raises. The kernels are compiled at first use with nvcc into one
@@ -73,6 +77,9 @@ def build() -> ctypes.CDLL:
                                       ctypes.c_uint, ci, vp]
     lib.cc_search_tilemin_vector.restype = ci
     lib.cc_search_tilemin_vector.argtypes = [vp, ci]
+    lib.cc_search_tilemin_batch.restype = ci
+    lib.cc_search_tilemin_batch.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci,
+                                            ctypes.c_uint, ci, vp]
     _lib = lib
     return lib
 
@@ -160,7 +167,8 @@ def masked_key_distances(kt, q, searchable_n, NA: int, cols):
     trailing axes): accumulated over d = 0..D-1 in order with each op rounded
     on its own (db._search_cover2's order). Zero key columns, columns of
     scans >= searchable_n, columns >= NA and zero query anchors give
-    MAX_DIST_SQ. Returns (Q, A, *C) f32."""
+    MAX_DIST_SQ. `searchable_n` is a 0-d tensor, or one value per row of the
+    Q axis shaped to broadcast against (Q, A, *C). Returns (Q, A, *C) f32."""
     Q, A, D = q.shape
     tail = (1,) * (kt.dim() - 3)
     k = kt.to(torch.float32)
@@ -207,13 +215,7 @@ def search_tilemin(keys_q, q_levels, q, state):
         raise ValueError(f"search_tilemin: unsupported device {keys_q.device}")
     L, D, NA = keys_q.shape
     Q, A = len(q_levels), q.shape[1]
-    if D != KEY_DIM or A > MAX_ANCHORS or not 0 < Q <= 4:
-        raise ValueError(f"search_tilemin: unsupported D={D} A={A} Q={Q}")
-    if not all(0 <= lv < L for lv in q_levels):
-        raise ValueError(f"search_tilemin: q_levels {q_levels} outside {L}")
-    if keys_q.dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"search_tilemin: keys_q dtype {keys_q.dtype}")
-    _check("keys_q", keys_q, keys_q.dtype)
+    _check_tilemin("search_tilemin", keys_q, q_levels, A, D)
     _check("q", q, torch.float32, (Q, A, D))
     _check("state", state, torch.int32, (2,))
     if q.device != keys_q.device or state.device != keys_q.device:
@@ -221,19 +223,90 @@ def search_tilemin(keys_q, q_levels, q, state):
     lib = build()
     Bt = -(-NA // TILE)
     out = torch.empty((Q, A, Bt), dtype=torch.float32, device=keys_q.device)
-    packed = 0
-    for i, lv in enumerate(q_levels):
-        packed |= lv << (8 * i)
     rc = lib.cc_search_tilemin(
         keys_q.data_ptr(), q.data_ptr(), state.data_ptr(), out.data_ptr(),
-        Q, A, NA, int(keys_q.dtype == torch.bfloat16), packed, L,
-        _stream(keys_q.device))
+        Q, A, NA, int(keys_q.dtype == torch.bfloat16),
+        _pack_levels(q_levels), L, _stream(keys_q.device))
     _raise_on(rc, "search_tilemin")
     search_tilemin.launches += 1
     return out
 
 
 search_tilemin.launches = 0
+
+
+def _check_tilemin(name, keys_q, q_levels, A: int, D: int) -> None:
+    L = keys_q.shape[0]
+    Q = len(q_levels)
+    if D != KEY_DIM or A > MAX_ANCHORS or not 0 < Q <= 4:
+        raise ValueError(f"{name}: unsupported D={D} A={A} Q={Q}")
+    if not all(0 <= lv < L for lv in q_levels):
+        raise ValueError(f"{name}: q_levels {q_levels} outside {L}")
+    if keys_q.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"{name}: keys_q dtype {keys_q.dtype}")
+    _check("keys_q", keys_q, keys_q.dtype)
+
+
+def _pack_levels(q_levels) -> int:
+    packed = 0
+    for i, lv in enumerate(q_levels):
+        packed |= lv << (8 * i)
+    return packed
+
+
+def search_tilemin_batch_plain(keys_q, q_levels, q_b, searchable_b):
+    """keys_q (L, D, NA), q_b (B, Q, A, D) f32 query keys of B queries,
+    searchable_b (B,) int32 searchable_n of each -> (B, Q, A, ceil(NA/TILE))
+    f32; row b equals `search_tilemin_plain` of q_b[b] at searchable_b[b]
+    bit for bit (the same elementwise ops over a folded (B*Q) axis)."""
+    L, D, NA = keys_q.shape
+    B, Q, A, _ = q_b.shape
+    lv = device_const(tuple(q_levels), torch.long, keys_q.device)
+    kt = keys_q.index_select(0, lv)
+    Bt = -(-NA // TILE)
+    pad = Bt * TILE - NA
+    if pad:
+        kt = torch.nn.functional.pad(kt, (0, pad))
+    kt = kt.reshape(1, Q, D, 1, Bt, TILE).expand(B, Q, D, 1, Bt, TILE) \
+        .reshape(B * Q, D, 1, Bt, TILE)
+    cols = torch.arange(Bt * TILE, dtype=torch.int32,
+                        device=keys_q.device).reshape(Bt, TILE)
+    sn = searchable_b.repeat_interleave(Q).reshape(B * Q, 1, 1, 1)
+    d2 = masked_key_distances(kt, q_b.reshape(B * Q, A, D), sn, NA, cols)
+    return d2.amin(dim=-1).reshape(B, Q, A, Bt)
+
+
+def search_tilemin_batch(keys_q, q_levels, q_b, searchable_b):
+    """Kernel wrapper of `search_tilemin_batch_plain` (same signature and
+    outputs, bit-identical): one launch for the B queries, in which the
+    store leaves device memory once. `searchable_b` stays on the device."""
+    if keys_q.device.type == "cpu":
+        return search_tilemin_batch_plain(keys_q, q_levels, q_b, searchable_b)
+    if keys_q.device.type != "cuda":
+        raise ValueError("search_tilemin_batch: unsupported device "
+                         f"{keys_q.device}")
+    L, D, NA = keys_q.shape
+    B, Q, A = q_b.shape[0], len(q_levels), q_b.shape[2]
+    _check_tilemin("search_tilemin_batch", keys_q, q_levels, A, D)
+    _check("q_b", q_b, torch.float32, (B, Q, A, D))
+    _check("searchable_b", searchable_b, torch.int32, (B,))
+    if q_b.device != keys_q.device or searchable_b.device != keys_q.device:
+        raise ValueError("search_tilemin_batch: inputs on different devices")
+    if B < 1:
+        raise ValueError("search_tilemin_batch: no query")
+    lib = build()
+    out = torch.empty((B, Q, A, -(-NA // TILE)), dtype=torch.float32,
+                      device=keys_q.device)
+    rc = lib.cc_search_tilemin_batch(
+        keys_q.data_ptr(), q_b.data_ptr(), searchable_b.data_ptr(),
+        out.data_ptr(), B, Q, A, NA, int(keys_q.dtype == torch.bfloat16),
+        _pack_levels(q_levels), L, _stream(keys_q.device))
+    _raise_on(rc, "search_tilemin_batch")
+    search_tilemin_batch.launches += 1
+    return out
+
+
+search_tilemin_batch.launches = 0
 
 
 def search_tilemin_path(keys_q) -> str:
@@ -247,3 +320,4 @@ def search_tilemin_path(keys_q) -> str:
 def reset_launches() -> None:
     ring_key_divs.launches = 0
     search_tilemin.launches = 0
+    search_tilemin_batch.launches = 0

@@ -102,6 +102,39 @@ def build_split(points, cfg: PipelineConfig, sync) -> dict:
     return out
 
 
+def block_split(db, points_b, cfg: PipelineConfig) -> dict:
+    """The query side of one block step on `db`'s state, in ms, with a
+    device synchronisation around each part: the B descriptor builds, the
+    batched key search (one tile-min launch and its stage 2), and the B
+    per-query tails (hint cap -> check 1 -> cascade -> merge -> GMM -> LM)
+    that `query_step_batch` runs one after another. Every query runs at the
+    DB's searchable prefix; nothing is appended."""
+    dev = db.device
+
+    def timed(fn):
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        return out, 1e3 * (time.perf_counter() - t0)
+
+    pts = torch.as_tensor(points_b).to(dev)
+    B = pts.shape[0]
+    descs, t_build = timed(
+        lambda: td.build_descriptors(pts, cfg.cm, cfg.gmm))
+    sb = db.state[1].expand(B).contiguous()
+    hits, t_search = timed(lambda: tdb.search_batch(
+        db.keys_q, descs.keys, sb, tuple(cfg.db.q_levels), cfg.db.nnk))
+    _, t_tails = timed(lambda: [
+        tdb.query_step(db.store, db.keys_q, type(descs)(*[x[b] for x in descs]),
+                       None, cfg, hits=tuple(h[b] for h in hits))
+        for b in range(B)])
+    return {"B": B, "build_ms": t_build, "search_ms": t_search,
+            "tails_ms": t_tails}
+
+
 def _device_busy(prof, n_scans: int):
     """(device-busy ms per scan, kernel launches per scan) of a profile."""
     busy_us, kernels = 0.0, 0

@@ -8,6 +8,18 @@ This file imports no jax, so it runs where only torch is installed:
   exact; tile minima bit-equal), at the main path's shapes and at the edge
   shapes (a ragged pool, an empty anchor box; searchable_n 0, 1, mid-store
   and full, NA % 8 != 0 and an unaligned store on the scalar path);
+- the batched tile-min against its plain version at the smoke's shapes
+  (bf16 and f32, the vector and the scalar path, mixed limits), B = 1 equal
+  to the single-query kernel, a B that is no multiple of the kernel's query
+  group;
+- a map built in blocks on the card equal to the same map built on the CPU
+  (store and keys_q bit for bit but for the float leaves' device bands, the
+  records in the stream's bands), one batched launch a block, and its
+  checkpoint reloaded on the card equal to it bit for bit (reloaded on the
+  CPU: but for the last bit of the recomputed sqrt in gmm_pack);
+- `run_blocked` and `run_chained` on the card (their staging goes through
+  pinned buffers guarded by CUDA events) against `run`: the same outcome
+  lines, correlation to 1e-4;
 - a short revisit stream on the card against the same stream on the CPU:
   records equal (found, gidx and counters exactly, corr to rtol and atol
   1e-4, T to rtol 1e-4 and atol 2e-3 cells), and the kernels launched once
@@ -117,6 +129,141 @@ def test_tilemin_edge_shapes_on_card(cuda, dtype, capacity, sn, offset,
     assert kernels.search_tilemin_path(kq) == path
     out = kernels.search_tilemin(kq, QL, q, state)
     assert torch.equal(out, kernels.search_tilemin_plain(kq, QL, q, state))
+
+
+@pytest.mark.cuda
+def test_tilemin_batch_matches_plain_on_card(cuda):
+    from contour_context_tpu_torch import kernel_times as kt
+    from contour_context_tpu_torch.config import PipelineConfig
+
+    for line in kt.batch_edge_cases(cuda, PipelineConfig()):
+        assert "bit-equal" in line
+    # a B that is no multiple of the kernel's query group, random limits
+    kb, _ = kt.tile_store(300, seed=3)
+    kq = kt.q_layout(kb, torch.bfloat16, cuda)
+    q_b = torch.rand((70, 3, 6, 10), device=cuda) * 5.0
+    sb = torch.randint(0, 320, (70,), dtype=torch.int32, device=cuda)
+    kernels.reset_launches()
+    out = kernels.search_tilemin_batch(kq, QL, q_b, sb)
+    assert torch.equal(out, kernels.search_tilemin_batch_plain(
+        kq, QL, q_b, sb))
+    assert kernels.search_tilemin_batch.launches == 1
+    with pytest.raises(ValueError):
+        kernels.search_tilemin_batch(kq, QL, q_b[:0], sb[:0])
+    with pytest.raises(TypeError):
+        kernels.search_tilemin_batch(kq, QL, q_b[:4], sb[:4].long())
+
+
+@pytest.mark.cuda
+def test_block_built_map_on_card_matches_cpu(cuda, tmp_path):
+    cfg = PipelineConfig(cm=ContourManagerConfig(max_points=16384))
+    world = make_world(11, n_structs=220, extent=160.0)
+    poses = [(10.0 * i, 0.0, 0.0) for i in range(8)] + [
+        (10.5, 0.8, 0.2), (30.0, -1.0, -0.15), (50.2, 0.7, 0.1),
+        (20.3, 0.5, -0.1)]
+    clouds = np.stack([pad_points(render_scan(world, p, seed=500 + i),
+                                  cfg.cm.max_points)
+                       for i, p in enumerate(poses)])
+    dbs = {}
+    for dev in ("cpu", "cuda"):
+        db = tdb.ContourDB(cfg, capacity=16, device=dev)
+        kernels.reset_launches()
+        db.block_chain_pts_async(
+            torch.from_numpy(clouds).reshape(3, 4, -1, 4), list(range(12)),
+            [[6.0 * (4 * k + i) for i in range(4)] for k in range(3)])
+        if dev == "cuda":
+            assert kernels.search_tilemin_batch.launches == 3
+            assert kernels.search_tilemin.launches == 0
+            assert kernels.ring_key_divs.launches == 12
+        dbs[dev] = db
+    c, g = dbs["cpu"], dbs["cuda"]
+    a, b = c.recs_store[:12].numpy(), g.recs_store[:12].cpu().numpy()
+    exact = [0, 1] + list(range(6, 18))
+    np.testing.assert_array_equal(b[:, exact], a[:, exact])
+    np.testing.assert_allclose(b[:, 2], a[:, 2], rtol=1e-4, atol=1e-4)
+    found = a[:, 0] > 0.5
+    np.testing.assert_allclose(b[found, 3:6], a[found, 3:6], rtol=1e-4,
+                               atol=2e-3)
+    assert [int(x) for x in a[8:, 1]] == [1, 3, 5, 2]
+    assert torch.equal(g.state.cpu(), c.state)
+    # the descriptor bands of tests/test_torch_descriptor.py
+    for name, x, y in zip(g.store._fields, g.store, c.store):
+        x = x.cpu()
+        if name == "nei_theta":
+            x, y = x[c.store.nei_valid], y[c.store.nei_valid]
+        if x.is_floating_point():
+            torch.testing.assert_close(x, y, rtol=1e-4, atol=1e-4, msg=name)
+        else:
+            assert torch.equal(x, y), name
+    # a checkpoint of the card's map, reloaded on the card and on the CPU
+    path = str(tmp_path / "map.npz")
+    g.save(path, chunk_bytes=8192)
+    for dev in ("cuda", "cpu"):
+        back = tdb.ContourDB.load(path, cfg, device=dev)
+        for name, x, y in zip(g.store._fields, back.store, g.store):
+            if dev == "cpu" and name == "gmm_pack":
+                # recomputed on load with the CPU's sqrt, which rounds
+                # another last bit than the card's
+                torch.testing.assert_close(x, y.cpu(), rtol=1e-6, atol=0)
+            else:
+                assert torch.equal(x.cpu(), y.cpu()), name
+        assert torch.equal(back.keys_q.cpu().view(torch.int16),
+                           g.keys_q.cpu().view(torch.int16))
+        assert torch.equal(back.state.cpu(), g.state.cpu())
+        assert back.ts == g.ts and back.seq_of_gidx == g.seq_of_gidx
+    res = g.localize_block_async(clouds[8:12], chunk=3).get()
+    assert [r[0] for r in res] == [8, 3, 5, 2]
+    assert g.serving_counters["n_hints"] > 0
+
+
+@pytest.mark.cuda
+def test_blocked_and_chained_replays_on_card(cuda, tmp_path):
+    from synth import se3_from_xyt
+
+    from contour_context_tpu_torch.eval.evaluator import ContLCDEvaluator
+    from contour_context_tpu_torch.pipeline import LoopClosurePipeline
+
+    cfg = PipelineConfig(cm=ContourManagerConfig(max_points=16384))
+    world = make_world(11, n_structs=220, extent=160.0)
+    poses = [(10.0 * i, 0.0, 0.0) for i in range(8)] + [
+        (10.5, 0.8, 0.2), (30.0, -1.0, -0.15), (50.2, 0.7, 0.1),
+        (20.3, 0.5, -0.1), (40.1, -0.4, 0.05), (60.0, 0.0, 0.0)]
+    pl, ll = [], []
+    for i, p in enumerate(poses):
+        pts = render_scan(world, p, seed=500 + i)
+        arr = np.zeros((len(pts), 4), np.float32)
+        arr[:, :3] = pts
+        bp = str(tmp_path / ("%06d.bin" % i))
+        arr.tofile(bp)
+        pl.append("%.6f %s" % (6.0 * i, " ".join(
+            "%.6f" % v for v in se3_from_xyt(p)[:3, :4].reshape(-1))))
+        ll.append("%.6f %d %s" % (6.0 * i, i, bp))
+    (tmp_path / "p.txt").write_text("\n".join(pl))
+    (tmp_path / "l.txt").write_text("\n".join(ll))
+
+    def replay(mode):
+        ev = ContLCDEvaluator(str(tmp_path / "p.txt"), str(tmp_path / "l.txt"),
+                              cfg.correlation_thres)
+        pipe = LoopClosurePipeline(cfg, ev, capacity=16, device="cuda")
+        # 14 scans: three groups of 4 (both staging slots are reused) and a
+        # 2-scan tail through the per-scan path
+        {"run": pipe.run, "blocked": lambda: pipe.run_blocked(block=4),
+         "chained": lambda: pipe.run_chained(chain=4)}[mode]()
+        out = tmp_path / f"out_{mode}.txt"
+        pipe.save_outcome(str(out))
+        assert pipe.db.n == 14
+        return [ln.split("\t") for ln in out.read_text().splitlines()]
+
+    want = replay("run")
+    assert len(want) == 14
+    for mode in ("blocked", "chained"):
+        got = replay(mode)
+        assert len(got) == 14
+        for a, b in zip(got, want):
+            assert a[0] == b[0] and a[1] == b[1] and a[6:] == b[6:], (a, b)
+            np.testing.assert_allclose(float(a[2]), float(b[2]), rtol=1e-4,
+                                       atol=1e-4)
+    assert sum(1 for ln in want if ln[0] == "0") >= 3     # revisits closed
 
 
 @pytest.mark.cuda

@@ -11,6 +11,9 @@
 - Hit sets vs the Pallas tile-min search kernel (interpret mode).
 - The plain tile-min's masking past searchable_n, which the kernel's early
   exit relies on.
+- The batched plain tile-min: row b bit-equal to the single-query one at
+  searchable_b[b], and every tile past a row's cutoff exactly MAX_DIST_SQ
+  (the contract the batched kernel's per-query early exits rely on).
 The kernels themselves run on the card in test_torch_cuda.py.
 """
 
@@ -110,8 +113,11 @@ def test_wrappers_take_plain_version_on_cpu():
     t0 = kernels.search_tilemin(kq, QL, q, state)
     assert torch.equal(t0, kernels.search_tilemin_plain(kq, QL, q, state))
     assert t0.shape == (3, 6, 8)
+    tb = kernels.search_tilemin_batch(kq, QL, q[None], state[1:])
+    assert torch.equal(tb, t0[None])
     assert kernels.ring_key_divs.launches == 0
     assert kernels.search_tilemin.launches == 0
+    assert kernels.search_tilemin_batch.launches == 0
 
 
 @pytest.mark.parametrize("capacity", [65, 300])
@@ -137,6 +143,38 @@ def test_tilemin_plain_is_max_past_searchable(capacity, where):
     noisy = kq.clone()
     noisy[:, :, sn * A:] = torch.rand(noisy[:, :, sn * A:].shape) * 9.0
     assert torch.equal(kernels.search_tilemin_plain(noisy, QL, q, state), out)
+
+
+@pytest.mark.parametrize("keys_dtype", ["bf16", "f32"])
+@pytest.mark.parametrize("capacity", [65, 300])
+def test_tilemin_batch_plain_rows_equal_single(capacity, keys_dtype):
+    """Row b of the batched plain version is the single-query one at
+    searchable_b[b], bit for bit, whatever the other rows' limits are; and
+    every tile past row b's cutoff is exactly MAX_DIST_SQ."""
+    A = 6
+    kb, qk = _search_fixture(400)
+    kq = keys_to_q_layout(
+        torch.from_numpy(kb[1:capacity + 1]),
+        torch.bfloat16 if keys_dtype == "bf16" else None).contiguous()
+    sns = [0, 1, 30, capacity, capacity + 5, 17, 30]
+    B = len(sns)
+    rng = np.random.default_rng(capacity)
+    q_b = rng.uniform(0.1, 5.0, (B, 3, A, 10)).astype(np.float32)
+    q_b[2] = qk[list(QL)]                  # one invalid anchor
+    q_b = torch.from_numpy(q_b)
+    sb = torch.tensor(sns, dtype=torch.int32)
+    out = kernels.search_tilemin_batch_plain(kq, QL, q_b, sb)
+    n_tiles = -(-kq.shape[2] // kernels.TILE)
+    assert out.shape == (B, 3, A, n_tiles) and out.dtype == torch.float32
+    for b, sn in enumerate(sns):
+        state = torch.tensor([capacity, sn], dtype=torch.int32)
+        one = kernels.search_tilemin_plain(kq, QL, q_b[b], state)
+        assert torch.equal(out[b], one), (b, sn)
+        past = torch.arange(n_tiles) * kernels.TILE >= sn * A
+        assert (out[b][..., past] == kernels.MAX_DIST_SQ).all()
+    assert torch.equal(out[2], out[6]) is False and torch.equal(
+        kernels.search_tilemin_batch_plain(kq, QL, q_b[2:3], sb[2:3])[0],
+        out[2])
 
 
 def _search_fixture(N):

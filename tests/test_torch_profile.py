@@ -29,3 +29,29 @@ def test_profile_step_runs_on_cpu(tmp_path):
     assert "aten::" in res["profile_table"]
     assert "device_busy_ms_per_scan" not in res      # CUDA only
     assert out.read_text().startswith("{")
+
+
+def test_block_split_runs_on_cpu():
+    """The block-step split (chip_smoke.py prints it from the card) on a
+    small CPU map: three positive parts, the DB untouched."""
+    import numpy as np
+
+    from synth import make_world, render_scan
+
+    from contour_context_tpu_torch import db as tdb
+    from contour_context_tpu_torch.config import (ContourManagerConfig,
+                                                  PipelineConfig)
+    from contour_context_tpu_torch.utils.io import pad_points
+
+    cfg = PipelineConfig(cm=ContourManagerConfig(max_points=16384))
+    world = make_world(11, n_structs=220, extent=160.0)
+    clouds = np.stack([pad_points(render_scan(world, (10.0 * i, 0.0, 0.0),
+                                              seed=500 + i), 16384)
+                       for i in range(4)])
+    db = tdb.ContourDB(cfg, capacity=8, device="cpu")
+    for i in range(4):
+        db.step_async(clouds[i], i, 20.0 * i)
+    state = db.state.clone()
+    split = profile_step.block_split(db, clouds[:2], cfg)
+    assert split["B"] == 2 and db.n == 4 and torch.equal(db.state, state)
+    assert all(split[k] > 0 for k in ("build_ms", "search_ms", "tails_ms"))

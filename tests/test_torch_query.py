@@ -210,10 +210,23 @@ def test_grow_keeps_the_query(carried):
     assert torch.equal(rec0, rec1)
 
 
-def test_device_and_unported_options_raise():
+def test_device_and_unported_options_raise(carried):
     if not torch.cuda.is_available():       # no silent CPU carry-on
         with pytest.raises(RuntimeError):
             tdb.ContourDB(TCFG, capacity=8, device="cuda")
+        with pytest.raises(RuntimeError):
+            tdb.ContourDB.load("unused.npz", TCFG)
+    # dynamic_thres is ported: the option constructs and runs (held against
+    # JAX in tests/test_torch_dynamic.py); its rising bars can only thin out
+    # the check-2/3 survivors, never check 1
+    host, qdesc, _ = carried
     dyn = _configs(dynamic_thres=True)[1]
-    with pytest.raises(NotImplementedError):
-        tdb.ContourDB(dyn, capacity=8, device="cpu")
+    db = _port_db(host, cfg=dyn)
+    q = scan_desc_from_numpy(jax.device_get(qdesc))
+    r_dyn = tdb.unpack_record(
+        tdb.query_step(db.store, db.keys_q, q, db.state, dyn).numpy())
+    r = tdb.unpack_record(
+        tdb.query_step(db.store, db.keys_q, q, db.state, TCFG).numpy())
+    assert r_dyn.found and r_dyn.gidx == r.gidx
+    assert r_dyn.n_hints == r.n_hints and r_dyn.aft1 == r.aft1
+    assert 0 < r_dyn.aft3 <= r_dyn.aft2 <= r.aft2
