@@ -30,7 +30,9 @@ exit code is not 0):
 6. a map built in blocks: the stream's first 264 clouds through
    `block_chain_pts_async` in 16 blocks of 16 and an 8-scan tail through
    `step_async`; records, store, keys_q and window state must equal the
-   stream's first 264 rows, with one batched tile-min launch a block; its
+   stream's first 264 rows, with one batched tile-min launch a block, and
+   the batched kernel is bit-equal to its plain version on the map's keys_q
+   with the last full block's query keys and replayed limits; its
    ms/scan is printed between the stream's over the same scans before and
    after it, and one block step is split into build, batched search and
    the per-query tails;
@@ -40,7 +42,9 @@ exit code is not 0):
    reloaded copy into a serving map of 528 rows;
 8. serving: the 132 revisit clouds through `localize_block_async` in chunks
    of 16 (the 4-cloud tail padded) against the merged map: one batched
-   launch a chunk, at least half found at the right place, two records equal
+   launch a chunk (bit-equal to its plain version on the merged map's
+   keys_q with the first chunk's keys and with the padded last chunk's), at
+   least half found at the right place, two records equal
    to `query_async` on the card and on a CPU copy of the map, one
    `range_search` equal on both;
 9. a 64-scan stream with `dynamic_thres=True` on the card equal to the same
@@ -416,10 +420,41 @@ def main() -> None:
     assert_records_close(ring_b, ring[:N_MAP], "block-built ring")
     assert_dbs_equal(db_b, db, N_MAP, "block-built map vs the stream")
     state = torch.zeros(2, dtype=torch.int32)
+    sb_last = []        # the last full block's searchable_b, replayed
     for j in range(N_MAP):
+        if n_full - BLOCK <= j < n_full:
+            sb_last.append(int(state[1]))
         state[0] = j + 1
         tdb.update_window(state, ts_c, ts_c[j], tb.min_elapse, tb.max_elapse)
     assert torch.equal(db_b.state.cpu(), state), (db_b.state, state)
+    # the batched kernel against its plain version on what the block build
+    # gave it: the map's keys_q, the last full block's query keys and limits
+    # (behind the launch counts, so these launches count for no path)
+    lv = list(cfg.db.q_levels)
+
+    def block_keys(points_b):
+        descs = td.build_descriptors(torch.from_numpy(points_b).to(dev), cm,
+                                     cfg.gmm)
+        return descs.keys[:, lv].to(torch.float32).contiguous()
+
+    held = []
+
+    def hold(m, q_b, sb, what):
+        err = kt.hold_batch(m.keys_q, ql, q_b, sb, what)
+        held.append({"path": what, "keys_q": list(m.keys_q.shape),
+                     "kernel_path": kernels.search_tilemin_path(m.keys_q),
+                     "B": int(sb.shape[0]), "searchable_b":
+                     [int(sb.min()), int(sb.max())], "max_abs_err": err})
+        log(f"search_tilemin_batch on the {what}: keys_q "
+            f"{tuple(m.keys_q.shape)} {str(m.keys_q.dtype)[6:]}, "
+            f"{held[-1]['kernel_path']} path, B {held[-1]['B']}, searchable_b "
+            f"{held[-1]['searchable_b']}: bit-equal to the plain version, "
+            f"max abs err {err}")
+
+    assert max(sb_last) > 0, sb_last
+    hold(db_b, block_keys(np.stack(clouds[n_full - BLOCK:n_full])),
+         torch.tensor(sb_last, dtype=torch.int32, device=dev),
+         "block build's last full block")
     tdb.drain_block_handles(block_handles)
     db_b.drain(tail)
     assert db_b.n == N_MAP and db_b.ts == [0.1 * i for i in range(N_MAP)]
@@ -497,7 +532,7 @@ def main() -> None:
     revisit = np.stack(clouds[rev0:])
     kernels.reset_launches()
     torch.cuda.synchronize()
-    held = torch.cuda.memory_allocated()     # the DBs of the phases above
+    mem_held = torch.cuda.memory_allocated()  # the DBs of the phases above
     torch.cuda.reset_peak_memory_stats()
     ev0.record()
     h_serve = served.localize_block_async(revisit, chunk=BLOCK)
@@ -509,7 +544,19 @@ def main() -> None:
     launches_serve = kernels.search_tilemin_batch.launches
     assert launches_serve == n_chunks and kernels.search_tilemin.launches == 0
     ring_serve = kernels.ring_key_divs.launches   # the pad clouds build too
-    assert LANE_SCANS <= ring_serve <= n_chunks * BLOCK, ring_serve
+    assert ring_serve == n_chunks * BLOCK, ring_serve
+    # the batched kernel against its plain version on what serving gave it:
+    # the merged map's keys_q (a partial last tile), every limit the map's
+    # n; the first chunk, and the last with its zero pad clouds
+    sb_serve = served.state[1].expand(BLOCK).contiguous()
+    hold(served, block_keys(revisit[:BLOCK]), sb_serve,
+         "serving map, first chunk")
+    tail_pts = np.concatenate([
+        revisit[(n_chunks - 1) * BLOCK:],
+        np.zeros((n_chunks * BLOCK - LANE_SCANS,) + revisit.shape[1:],
+                 revisit.dtype)])
+    hold(served, block_keys(tail_pts), sb_serve,
+         "serving map, padded last chunk")
     res = h_serve.get()
     assert len(res) == LANE_SCANS and served.n == 2 * N_MAP
     assert served.counters == tdb.ContourDB._zero_counters()
@@ -539,7 +586,7 @@ def main() -> None:
         f"query_async on the card and on a CPU copy of the map; "
         f"range_search {n_g} in range, equal on both; {serve_ms:.3f} "
         f"ms/query (CUDA events), peak allocated {peak_serve} bytes, of "
-        f"which {held} held before by this script's DBs ({smi})")
+        f"which {mem_held} held before by this script's DBs ({smi})")
     log(f"serving counters: {served.serving_counters}")
 
     # ---- 9. dynamic_thres -------------------------------------------------
@@ -586,6 +633,9 @@ def main() -> None:
             "serving": {"ring_key_divs": ring_serve,
                         "search_tilemin": 0,
                         "search_tilemin_batch": launches_serve}[r["name"]]}
+    brow["held_on_paths"] = held
+    brow["max_abs_err"] = max([brow["max_abs_err"]]
+                              + [h["max_abs_err"] for h in held])
     print(json.dumps({"kernels": rows}), flush=True)
     print(kt.card(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -189,6 +189,19 @@ def batch_queries(B: int, seed: int = 1):
     return qk
 
 
+def hold_batch(keys_q, q_levels, q_b, searchable_b, what: str) -> float:
+    """One `search_tilemin_batch` launch against its plain version on the
+    same tensors: raises unless the two are bit-equal, returns the largest
+    absolute difference it measured (0.0 then)."""
+    t_k = kernels.search_tilemin_batch(keys_q, q_levels, q_b, searchable_b)
+    t_p = kernels.search_tilemin_batch_plain(keys_q, q_levels, q_b,
+                                             searchable_b)
+    err = float((t_k - t_p).abs().max())
+    assert torch.equal(t_k, t_p), \
+        f"batched tile minima differ ({what}): max abs err {err}"
+    return err
+
+
 def ring_case(dev, cfg: PipelineConfig):
     """anchors (36, 8), pool (4096, 8), centres of the smoke stream's first
     scan, built on dev by the port's descriptor stages."""
@@ -303,7 +316,8 @@ def measure(dev, cfg: PipelineConfig, reps: int = 200) -> list:
         b_us, b_by = tilemin_bound(kq, q, state)
         rows[sn] = _shares(dict(
             shape=f"keys_q {tuple(kq.shape)} bf16, searchable_n {sn}",
-            path=kernels.search_tilemin_path(kq), max_abs_err=0.0,
+            path=kernels.search_tilemin_path(kq),
+            max_abs_err=float((t_k - t_p).abs().max()),
             bound_us=b_us, bound_by=b_by,
             **_measure(lambda: kernels.search_tilemin(kq, ql, q, state),
                        lambda: kernels.search_tilemin_plain(kq, ql, q, state),
@@ -332,10 +346,7 @@ def measure_batch(dev, cfg: PipelineConfig, reps: int = 200) -> dict:
     sb = torch.tensor(BATCH_SN, dtype=torch.int32, device=dev)
     states = [torch.tensor([8192, sn], dtype=torch.int32, device=dev)
               for sn in BATCH_SN]
-    t_k = kernels.search_tilemin_batch(kq, ql, q_b, sb)
-    t_p = kernels.search_tilemin_batch_plain(kq, ql, q_b, sb)
-    torch.cuda.synchronize()
-    assert torch.equal(t_k, t_p), "batched tile minima differ"
+    err = hold_batch(kq, ql, q_b, sb, "fixture")
 
     def singles():
         for b in range(B):
@@ -351,7 +362,7 @@ def measure_batch(dev, cfg: PipelineConfig, reps: int = 200) -> dict:
         replaces=REPLACES + ":112", library_ms=None,
         shape=f"keys_q {tuple(kq.shape)} bf16, B {B}, searchable_b "
         f"{min(BATCH_SN)}..{max(BATCH_SN)}",
-        path=kernels.search_tilemin_path(kq), max_abs_err=0.0,
+        path=kernels.search_tilemin_path(kq), max_abs_err=err,
         bytes=n_bytes, flops=flops, bound_us=b_us, bound_by=b_by,
         **_measure(batch, lambda: kernels.search_tilemin_batch_plain(
             kq, ql, q_b, sb), "search_tilemin_batch_kernel", reps),

@@ -128,8 +128,8 @@ def block_split(db, points_b, cfg: PipelineConfig) -> dict:
     hits, t_search = timed(lambda: tdb.search_batch(
         db.keys_q, descs.keys, sb, tuple(cfg.db.q_levels), cfg.db.nnk))
     _, t_tails = timed(lambda: [
-        tdb.query_step(db.store, db.keys_q, type(descs)(*[x[b] for x in descs]),
-                       None, cfg, hits=tuple(h[b] for h in hits))
+        tdb.query_from_hits(db.store, type(descs)(*[x[b] for x in descs]),
+                            tuple(h[b] for h in hits), cfg)
         for b in range(B)])
     return {"B": B, "build_ms": t_build, "search_ms": t_search,
             "tails_ms": t_tails}

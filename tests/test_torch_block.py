@@ -161,6 +161,15 @@ def test_padded_serving_clouds_come_back_not_found(port_stream, clouds):
     assert h.get()[0][0] == 3 and h.get()[1] is None
 
 
+def test_localizing_no_cloud_gives_an_empty_block(port_stream, clouds):
+    ds, _ = port_stream
+    before = dict(ds.serving_counters)
+    for chunk in (None, 3):
+        h = ds.localize_block_async(clouds[:0], chunk=chunk)
+        assert h.recs.shape == (0, tdb.RECORD_WIDTH) and h.get() == []
+    assert ds.serving_counters == before
+
+
 def test_search_batch_rows_equal_search(port_stream, descs):
     ds, _ = port_stream
     ql = tuple(CFG.db.q_levels)
@@ -254,7 +263,7 @@ def dataset(tmp_path_factory, clouds):
     (d / "l.txt").write_text("\n".join(ll))
     f_pose, f_laser = str(d / "p.txt"), str(d / "l.txt")
     pipe = run_batch(f_pose, f_laser, str(d / "out_run.txt"), cfg=CFG,
-                     device="cpu")
+                     device="cpu", fused_step=True)
     found = {r.q_seq: r.cand_seq for r in pipe.results
              if r.correlation >= CFG.correlation_thres}
     assert found == {8: 1, 9: 3, 10: 5, 11: 2}

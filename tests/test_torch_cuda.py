@@ -244,7 +244,8 @@ def test_blocked_and_chained_replays_on_card(cuda, tmp_path):
     def replay(mode):
         ev = ContLCDEvaluator(str(tmp_path / "p.txt"), str(tmp_path / "l.txt"),
                               cfg.correlation_thres)
-        pipe = LoopClosurePipeline(cfg, ev, capacity=16, device="cuda")
+        pipe = LoopClosurePipeline(cfg, ev, capacity=16, device="cuda",
+                                   fused_step=True)
         # 14 scans: three groups of 4 (both staging slots are reused) and a
         # 2-scan tail through the per-scan path
         {"run": pipe.run, "blocked": lambda: pipe.run_blocked(block=4),

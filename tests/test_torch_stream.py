@@ -2,8 +2,8 @@
 
 The 9-scan revisit dataset of test_pipeline_e2e.py (scan 8 revisits scan 1,
 6 s per scan) goes through JAX's run_batch(fused_step=True) and the port's
-run_batch(device="cpu"): the outcome files match line by line (ids and
-TP/FP/FN exactly, correlation to 1e-4), and so do the per-scan records in
+run_batch(device="cpu", fused_step=True): the outcome files match line by
+line (ids and TP/FP/FN exactly, correlation to 1e-4), and so do the records in
 both DBs' record rings (found, gidx and counters exactly, corr and T to rtol
 and atol 1e-4, PARITY.md's record band). The port's CLI writes the same outcome
 file, and a process that can import neither jax nor the JAX package
@@ -61,7 +61,7 @@ def runs(dataset):
     pj = jax_run_batch(f_pose, f_laser, str(d / "out_jax.txt"), cfg=JCFG,
                        fused_step=True)
     pt = run_batch(f_pose, f_laser, str(d / "out_torch.txt"), cfg=CFG,
-                   device="cpu")
+                   device="cpu", fused_step=True)
     return pj, pt
 
 
