@@ -34,8 +34,11 @@ exit code is not 0):
    the batched kernel is bit-equal to its plain version on the map's keys_q
    with the last full block's query keys and replayed limits; its
    ms/scan is printed between the stream's over the same scans before and
-   after it, and one block step is split into build, batched search and
-   the per-query tails;
+   after it; one block step of 16 revisit queries is split into build,
+   batched search and the batched tail, whose records must agree with the
+   same 16 queries run one at a time through the same code (B = 1), with
+   the device operations and host syncs of both, and the batched tail must
+   make at most 2 host syncs;
 7. checkpoints: the block-built map saved and loaded on the card, the
    stream DB as a base + a delta of 16 more scans through `load_chain`, each
    equal to its original bit for bit; the block-built map merged with its
@@ -46,9 +49,12 @@ exit code is not 0):
    keys_q with the first chunk's keys and with the padded last chunk's), at
    least half found at the right place, two records equal
    to `query_async` on the card and on a CPU copy of the map, one
-   `range_search` equal on both;
+   `range_search` equal on both; ms/query, device operations and host syncs
+   of one chunk, peak allocated bytes;
 9. a 64-scan stream with `dynamic_thres=True` on the card equal to the same
-   stream on the CPU, and the launches and host syncs the option adds.
+   stream on the CPU, the launches and host syncs the option adds to a
+   query, and one block of 16 queries with the option on the card equal to
+   the CPU's, with its host syncs.
 The last three lines are the kernel JSON, the card's nvidia-smi name and
 power limit, and {"ok": true, "device": ...}.
 """
@@ -60,7 +66,6 @@ import os
 import sys
 import tempfile
 import time
-import warnings
 
 import numpy as np
 import torch
@@ -147,32 +152,6 @@ def assert_dbs_equal(a, b, n: int, what: str) -> None:
         f"{what}: ts_store"
 
 
-def count_device_ops(fn) -> int:
-    """Kernel launches and copies fn puts on the card (torch.profiler)."""
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return sum(1 for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA)
-
-
-def count_syncs(fn) -> int:
-    """Host syncs inside fn, by torch's sync debug mode."""
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        caught.clear()   # switching the mode on warns of a sync of its own
-        try:
-            fn()
-            torch.cuda.synchronize()
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-    return sum("synchroniz" in str(w.message) for w in caught)
-
-
 def main() -> None:
     if not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available")
@@ -186,7 +165,10 @@ def main() -> None:
     from contour_context_tpu_torch import kernel_times as kt
     from contour_context_tpu_torch.ops import descriptor as td
     from contour_context_tpu_torch.ops import kernels
-    from contour_context_tpu_torch.profile_step import lane_poses
+    from contour_context_tpu_torch.profile_step import (block_split,
+                                                        device_ops,
+                                                        host_syncs,
+                                                        lane_poses)
 
     smi = kt.card()
     log(f"card: {smi}")
@@ -362,7 +344,7 @@ def main() -> None:
         for i in range(4):
             db.step_async(clouds[rev0 + i], n_scans + i, 0.1 * (n_scans + i))
 
-    syncs = count_syncs(four_more) / 4
+    syncs = host_syncs(four_more) / 4
     log(f"host syncs per scan: {syncs:g} (torch sync debug mode, 4 scans)")
 
     # ---- 5. the CLI -----------------------------------------------------
@@ -478,13 +460,33 @@ def main() -> None:
         f"events); the stream over the same scans in this call: "
         f"{ms_scan_map:.3f} ms/scan before it (after its {WARMUP}-scan "
         f"warm-up), {ms_scan_after:.3f} ms/scan after it ({smi})")
-    from contour_context_tpu_torch.profile_step import block_split
-
+    # one block of 16 revisit queries on the block-built map: the batched
+    # tail against the same 16 queries through the same code at B = 1
     split = block_split(db_b, np.stack(clouds[rev0:rev0 + BLOCK]), cfg)
+    assert_records_close(split["records"].cpu().numpy(),
+                         split["records_one_by_one"].cpu().numpy(),
+                         "batched tail vs the same queries at B = 1")
+    assert int((split["records"][:, 0] > 0.5).sum()) >= BLOCK // 2
+    assert split["tail_host_syncs"] <= 2, split["tail_host_syncs"]
+    block_ops = sum(split[k] for k in ("build_device_ops",
+                                       "search_device_ops",
+                                       "tail_device_ops"))
     log(f"block step split, {BLOCK} revisit queries on the block-built map, "
-        f"a sync around each part: build {split['build_ms']:.2f} ms, batched "
-        f"search {split['search_ms']:.2f} ms, the {BLOCK} per-query tails "
-        f"{split['tails_ms']:.2f} ms ({smi})")
+        f"a sync around each part: build {split['build_ms']:.2f} ms "
+        f"({split['build_device_ops']} device ops), batched search "
+        f"{split['search_ms']:.2f} ms ({split['search_device_ops']}), the "
+        f"batched tail {split['tails_ms']:.2f} ms "
+        f"({split['tail_device_ops']} device ops keeping the card busy "
+        f"{split['tail_device_busy_ms']:.2f} ms under the profiler, "
+        f"{split['tail_host_syncs']} host syncs); {block_ops} device ops a "
+        f"block, the card busy {split['build_device_busy_ms']:.2f} ms with "
+        f"the builds; the same {BLOCK} tails one query at a time "
+        f"{split['tails_one_by_one_ms']:.2f} ms "
+        f"({split['one_by_one_device_ops']} device ops, busy "
+        f"{split['one_by_one_device_busy_ms']:.2f} ms, "
+        f"{split['one_by_one_host_syncs']} host syncs); the records of both "
+        f"agree: found, gidx and counters exactly, corr and pose in the "
+        f"stream's bands ({smi})")
 
     # ---- 7. checkpoint, reload, merge ------------------------------------
     def assert_restored(back, orig, what):
@@ -580,13 +582,20 @@ def main() -> None:
     assert n_g == n_c > 0 and [h[:4] for h in hits_g] == [h[:4] for h in hits_c]
     np.testing.assert_allclose([h[4] for h in hits_g], [h[4] for h in hits_c],
                                rtol=1e-6, atol=0)
+    chunk_ops, chunk_busy = device_ops(lambda: served.localize_block_async(
+        revisit[:BLOCK], chunk=BLOCK))
+    chunk_syncs = host_syncs(lambda: served.localize_block_async(
+        revisit[:BLOCK], chunk=BLOCK))
     log(f"serving: {LANE_SCANS} revisit clouds in {n_chunks} chunks of "
         f"{BLOCK} (tail padded): {launches_serve} batched tile-min launches, "
         f"found at the right place {right}/{LANE_SCANS}; two records equal "
         f"query_async on the card and on a CPU copy of the map; "
         f"range_search {n_g} in range, equal on both; {serve_ms:.3f} "
-        f"ms/query (CUDA events), peak allocated {peak_serve} bytes, of "
-        f"which {mem_held} held before by this script's DBs ({smi})")
+        f"ms/query (CUDA events), {chunk_ops} device ops (the card busy "
+        f"{chunk_busy:.2f} ms under the profiler) and {chunk_syncs} host "
+        f"syncs a chunk of {BLOCK} (builds included), peak allocated "
+        f"{peak_serve} bytes, of which {mem_held} held before by this "
+        f"script's DBs ({smi})")
     log(f"serving counters: {served.serving_counters}")
 
     # ---- 9. dynamic_thres -------------------------------------------------
@@ -615,14 +624,34 @@ def main() -> None:
         return lambda: tdb.query_step(db_dg.store, db_dg.keys_q, q_d,
                                       db_dg.state, c)
 
-    ops = {name: count_device_ops(one_query(c))
+    ops = {name: device_ops(one_query(c))[0]
            for name, c in (("static", cfg), ("dynamic", dyn))}
-    sy = {name: count_syncs(one_query(c))
+    sy = {name: host_syncs(one_query(c))
           for name, c in (("static", cfg), ("dynamic", dyn))}
+    # the option through a block: 16 revisit queries in one batch on the
+    # card against the same batch on the CPU copy of that stream's DB
+    descs_d = td.build_descriptors(
+        torch.from_numpy(np.stack(dyn_clouds[-BLOCK:])).to(dev), cm, cfg.gmm)
+
+    def one_block(m, descs, c):
+        return lambda: tdb.query_step_batch(
+            m.store, m.keys_q, descs, m.state[1].expand(BLOCK).contiguous(),
+            c)
+
+    recs_dg = one_block(db_dg, descs_d, dyn)().cpu().numpy()
+    recs_dc = one_block(db_d, type(descs_d)(*[x.cpu() for x in descs_d]),
+                        dyn)().numpy()
+    assert_records_close(recs_dg, recs_dc, "dynamic block")
+    assert int((recs_dc[:, 0] > 0.5).sum()) >= BLOCK // 2
+    sy_block = {name: host_syncs(one_block(db_dg, descs_d, c))
+                for name, c in (("static", cfg), ("dynamic", dyn))}
     log(f"dynamic_thres: card records equal the CPU's over {2 * n_dyn} scans "
         f"({n_found}/{n_dyn} revisits found); one revisit query: "
         f"{ops['dynamic']} device ops and {sy['dynamic']} host syncs with "
-        f"the option, {ops['static']} and {sy['static']} without ({smi})")
+        f"the option, {ops['static']} and {sy['static']} without; one block "
+        f"of {BLOCK} queries: card records equal the CPU's, "
+        f"{sy_block['dynamic']} host syncs with the option, "
+        f"{sy_block['static']} without ({smi})")
 
     for r in rows:
         # the stream launches the first two, the block build the batched one

@@ -9,13 +9,18 @@ query -> addScan -> pushAndBalance order, batch_bin_test.cpp:105-238).
 
 The store, its (L, D, capacity*A) bf16 search-layout key copy `keys_q`, the
 timestamps, the window state [n, searchable_n] and the record ring all live
-on the DB's device; the host keeps a mirror of n for indexing. The query
-syncs the host three times per scan in eager torch (the CC fixpoint check,
-the cascade chunk count, the merge trip count).
+on the DB's device; the host keeps a mirror of n for indexing. A scan syncs
+the host three times in eager torch beside its upload (the CC fixpoint check
+of its descriptor, the cascade chunk count, the merge trip count).
+
+The query behind its search carries a leading B axis (`stages_from_hits` ->
+`refine_from_hits` -> `query_from_hits`), the counterpart of the JAX
+package's jax.vmap(_query_step_impl): B queries are one batched program with
+the two syncs of one query, and the stream's query is its B = 1 case.
 
 Beside the stream: the unfused API (`query_async` / `add_scan` /
 `push_and_balance`), block mode (`process_block_async`: B scans appended,
-their B queries answered through one batched key search), map serving
+their B queries answered as one batch), map serving
 (`localize_block_async`: B clouds against the frozen map), `range_search`,
 and checkpoints (`save` / `load` / `load_chain` / `merge`) in the npz format
 of `contour_context_tpu.db`, member for member.
@@ -39,6 +44,7 @@ from contour_context_tpu_torch.ops.candidate import (
     merge_proposals,
     select_topk_stable,
     stable_argsort,
+    take_rows,
     tidy_candidates,
 )
 from contour_context_tpu_torch.ops.cascade import (
@@ -170,94 +176,112 @@ def _anchor12(g):
 
 def check1(store: ScanDesc, query: ScanDesc, gidx, level, seq_src, seq_tgt,
            hint_valid, cont_sim):
-    """Check 1 (anchor checkSim) for every hint: the cascade's prefilter
-    (db._check1_impl), read from the packed tab12 rows."""
+    """Check 1 (anchor checkSim) for every hint of B queries: the cascade's
+    prefilter (db._check1_impl), read from the packed tab12 rows. `query` is
+    a B-stacked ScanDesc, the hint arrays are (B, H)."""
     gi = torch.where(hint_valid, gidx, 0).long()
     li = torch.clamp(level - 1, 0, store.tab12.shape[1] - 1).long()
     js = torch.clamp(seq_src, 0, store.tab12.shape[2] - 1).long()
-    jt = torch.clamp(seq_tgt, 0, query.tab12.shape[1] - 1).long()
+    jt = torch.clamp(seq_tgt, 0, query.tab12.shape[2] - 1).long()
+    b = torch.arange(gidx.shape[0], device=gidx.device)[:, None]
     s = _anchor12(store.tab12[gi, li, js])
-    t = _anchor12(query.tab12[li, jt])
+    t = _anchor12(query.tab12[b, li, jt])
     return hint_valid & check_sim_batched(
         s["cnt"], s["eig"], s["h"], s["comr"],
         t["cnt"], t["eig"], t["h"], t["comr"], cont_sim)
 
 
-def gather_and_cascade(store: ScanDesc, query: ScanDesc, gidx, level,
+def gather_and_cascade(store: ScanDesc, query: ScanDesc, tgt_q, gidx, level,
                        seq_src, seq_tgt, hint_valid, thres_lb, cont_sim,
                        p_pot=None) -> CascadeResult:
     """Per-hint gathers of the candidate tables + run_cascade
-    (db._gather_and_cascade_impl). Indices are clamped explicitly."""
+    (db._gather_and_cascade_impl) over H flat hint rows: `query` is a
+    B-stacked ScanDesc and tgt_q (H,) names the query of each row. Indices
+    are clamped explicitly."""
     H = gidx.shape[0]
     gi = torch.where(hint_valid, gidx, 0).long()
     lvl = torch.clamp(level, 0, store.nei_valid.shape[1] - 1).long()
     ss = torch.clamp(seq_src, 0, store.nei_valid.shape[2] - 1).long()
-    st = torch.clamp(seq_tgt, 0, query.nei_valid.shape[1] - 1).long()
+    st = torch.clamp(seq_tgt, 0, query.nei_valid.shape[2] - 1).long()
     names = ("valid", "level", "seq", "bit", "theta")
     src_nei = {k: getattr(store, "nei_" + k)[gi, lvl, ss] for k in names}
-    tgt_nei = {k: getattr(query, "nei_" + k)[lvl, st] for k in names}
+    tgt_nei = {k: getattr(query, "nei_" + k)[tgt_q, lvl, st] for k in names}
     src_tab12 = store.tab12[gi]
     li = torch.clamp(level - 1, 0, src_tab12.shape[1] - 1).long()
     js = torch.clamp(seq_src, 0, src_tab12.shape[2] - 1).long()
-    jt = torch.clamp(seq_tgt, 0, query.tab12.shape[1] - 1).long()
+    jt = torch.clamp(seq_tgt, 0, query.tab12.shape[2] - 1).long()
     src_anchor = _anchor12(src_tab12[torch.arange(H, device=gi.device), li,
                                      js])
-    tgt_anchor = _anchor12(query.tab12[li, jt])
+    tgt_anchor = _anchor12(query.tab12[tgt_q, li, jt])
     return run_cascade(src_anchor, src_nei, src_tab12, tgt_anchor, tgt_nei,
-                       query.tab12, hint_valid, level, seq_src, seq_tgt,
-                       thres_lb, cont_sim, p_pot)
+                       query.tab12, tgt_q, hint_valid, level, seq_src,
+                       seq_tgt, thres_lb, cont_sim, p_pot)
 
 
 def cascade_chunked(store, query, gidx, level, seq_src, seq_tgt, hv, n_valid,
                     thres_lb, cont_sim, chunk: int, p_pot=None
                     ) -> CascadeResult:
-    """The cascade over ceil(n_valid / W) chunks of W hint rows
-    (db._cascade_chunked; one host sync for the chunk count). Rows are
-    independent, so chunking changes no result; rows never run stay zero,
-    which downstream reads as non-hints. The last chunk's start is clamped,
-    so chunks may overlap and recompute rows identically."""
-    HC = gidx.shape[0]
+    """The cascade of B queries ((B, HC) hint arrays, n_valid (B,), `query`
+    B-stacked) in chunks of W hint columns (db._cascade_chunked): chunk i
+    runs columns [s0, s0 + W) of every query at once as B*W flat rows, and
+    the chunk count is the busiest query's ceil(n_valid / W) (one host
+    sync). Rows are independent, so neither chunking nor batching changes a
+    result; columns past a query's own chunks stay zero, which downstream
+    reads as non-hints. The last chunk's start is clamped, so chunks may
+    overlap and recompute rows identically."""
+    B, HC = gidx.shape
     W = min(chunk, HC) if chunk > 0 else HC
-    if W >= HC:
-        return gather_and_cascade(store, query, gidx, level, seq_src, seq_tgt,
-                                  hv, thres_lb, cont_sim, p_pot)
-    n_chunks = -(-HC // W)
-    nc = min(-(-int(n_valid) // W), n_chunks)            # host sync
     dev = gidx.device
+
+    def run(s0, w):
+        tgt_q = torch.arange(B, device=dev).repeat_interleave(w)
+        flat = [x[:, s0:s0 + w].reshape(-1)
+                for x in (gidx, level, seq_src, seq_tgt, hv)]
+        r = gather_and_cascade(store, query, tgt_q, *flat, thres_lb, cont_sim,
+                               p_pot)
+        return CascadeResult(*[x.reshape((B, w) + x.shape[1:]) for x in r])
+
+    if W >= HC:
+        return run(0, HC)
+    n_chunks = -(-HC // W)
+    nc = min(-(-int(n_valid.max()) // W), n_chunks)      # host sync
     b, i32, f32 = torch.bool, torch.int32, torch.float32
-    shapes = dict(pass1=((HC,), b), pass2=((HC,), b), pass3=((HC,), b),
-                  ovlp_sum=((HC,), i32), ovlp_max_one=((HC,), i32),
-                  in_ang_rng=((HC,), i32), i_indiv_sim=((HC,), i32),
-                  i_orie_sim=((HC,), i32), pair_valid=((HC, P_MAX), b),
-                  pair_level=((HC, P_MAX), i32),
-                  pair_seq_src=((HC, P_MAX), i32),
-                  pair_seq_tgt=((HC, P_MAX), i32),
-                  pair_area_perc=((HC, P_MAX), f32), T_delta=((HC, 3), f32),
-                  pot_overflow=((HC,), b), win_overflow=((HC,), b))
-    out = CascadeResult(*[torch.zeros(shapes[f][0], dtype=shapes[f][1],
-                                      device=dev)
+    shapes = dict(pass1=((), b), pass2=((), b), pass3=((), b),
+                  ovlp_sum=((), i32), ovlp_max_one=((), i32),
+                  in_ang_rng=((), i32), i_indiv_sim=((), i32),
+                  i_orie_sim=((), i32), pair_valid=((P_MAX,), b),
+                  pair_level=((P_MAX,), i32), pair_seq_src=((P_MAX,), i32),
+                  pair_seq_tgt=((P_MAX,), i32),
+                  pair_area_perc=((P_MAX,), f32), T_delta=((3,), f32),
+                  pot_overflow=((), b), win_overflow=((), b))
+    out = CascadeResult(*[torch.zeros((B, HC) + shapes[f][0],
+                                      dtype=shapes[f][1], device=dev)
                           for f in CascadeResult._fields])
     for i in range(nc):
         s0 = min(i * W, HC - W)
-        sl = slice(s0, s0 + W)
-        r = gather_and_cascade(store, query, gidx[sl], level[sl],
-                               seq_src[sl], seq_tgt[sl], hv[sl], thres_lb,
-                               cont_sim, p_pot)
-        for dst, src in zip(out, r):
-            dst[sl] = src
+        for dst, src in zip(out, run(s0, W)):
+            dst[:, s0:s0 + W] = src
+    if B > 1:
+        # a query with fewer chunks of its own than the busiest keeps zeros
+        # past them, as when it runs alone
+        own = torch.div(n_valid + (W - 1), W, rounding_mode="floor") * W
+        idle = torch.arange(HC, device=dev) >= own[:, None]
+        for x in out:
+            x.masked_fill_(idle.reshape((B, HC) + (1,) * (x.dim() - 2)), 0)
     return out
 
 
 def gather_gmm(store: ScanDesc, gidx, levels: Tuple[int, ...],
                max_k: int) -> GmmScan:
-    """Candidate GmmScans: one row of the packed gmm_pack table each."""
+    """Candidate GmmScans for gidx of any shape (...): one row of the packed
+    gmm_pack table each, (..., G, K, ·)."""
     G, K = len(levels), max_k
     if store.gmm_pack.shape[-1] != G * K * 8:
         raise ValueError("gmm_pack was built with a different GMMOptConfig")
-    C = gidx.shape[0]
-    rows = store.gmm_pack[gidx].reshape(C, G, K, 8)
+    lead = tuple(gidx.shape)
+    rows = store.gmm_pack[gidx].reshape(lead + (G, K, 8))
     return GmmScan(mus=rows[..., 0:2],
-                   covs=rows[..., 2:6].reshape(C, G, K, 2, 2),
+                   covs=rows[..., 2:6].reshape(lead + (G, K, 2, 2)),
                    ws=rows[..., 6], majax=rows[..., 7],
                    auto_corr=store.auto_corr[gidx])
 
@@ -299,7 +323,9 @@ def unpack_record(v) -> QueryRecord:
 
 
 class QueryStages(NamedTuple):
-    """What the query holds before the GMM stage (tests compare it)."""
+    """What a query holds before the GMM stage (tests compare it). The
+    shapes are one query's; the `*_from_hits` functions return B queries
+    stacked, every leaf with a leading B axis."""
     n_valid: torch.Tensor         # () int32 valid key hits
     overflow_hints: torch.Tensor  # () int32
     aft1: torch.Tensor            # () int32 check-1 survivors
@@ -313,44 +339,60 @@ def _search_query(keys_q, query: ScanDesc, state, cfg: PipelineConfig):
                   cfg.db.nnk)
 
 
-def stages_from_hits(store: ScanDesc, query: ScanDesc, hits,
+def _as_batch(query: ScanDesc, hits):
+    """One query and its search result as a batch of B = 1."""
+    return (ScanDesc(*[x[None] for x in query]),
+            tuple(h[None] for h in hits))
+
+
+def _row0(x):
+    """Row 0 of every tensor of a (nested) NamedTuple: a B = 1 batch's
+    result as one query's."""
+    if isinstance(x, torch.Tensor):
+        return x[0]
+    return type(x)(*[_row0(v) for v in x])
+
+
+def stages_from_hits(store: ScanDesc, descs: ScanDesc, hits,
                      cfg: PipelineConfig) -> QueryStages:
     """Hint cap -> check-1 prefilter -> chunked cascade -> merge (the first
-    half of db._query_step_impl behind its search). `hits` is the query's
-    search result: `search`'s output, or one row of `search_batch`'s."""
+    half of db._query_step_impl behind its search) for B queries at once:
+    `descs` is a B-stacked ScanDesc, `hits` their search results (B, Q, A,
+    K) (`search_batch`'s output). Two host syncs whatever B: the cascade's
+    chunk count and the merge's trip count."""
     gidx, seq_src, dist, valid = hits
     dev = gidx.device
     i32, f32 = torch.int32, torch.float32
     q_levels = tuple(cfg.db.q_levels)
-    Q, A, K = gidx.shape
+    B, Q, A, K = gidx.shape
     lv = device_const(q_levels, i32, dev)
     level_f = lv[:, None, None].expand(Q, A, K).reshape(-1)
     seq_tgt_f = torch.arange(A, dtype=i32, device=dev)[None, :, None] \
         .expand(Q, A, K).reshape(-1)
-    gidx_f, seq_src_f = gidx.reshape(-1), seq_src.reshape(-1)
 
     HC = min(cfg.db.max_check_cands, Q * A * K)
     perm, hv, n_valid, overflow_hints = select_topk_stable(
-        dist.reshape(-1), valid.reshape(-1), HC)
-    g_h, l_h = gidx_f[perm], level_f[perm]
-    ss_h, st_h = seq_src_f[perm], seq_tgt_f[perm]
+        dist.reshape(B, -1), valid.reshape(B, -1), HC)
+    g_h = gidx.reshape(B, -1).gather(1, perm)
+    ss_h = seq_src.reshape(B, -1).gather(1, perm)
+    l_h, st_h = level_f[perm], seq_tgt_f[perm]
 
     chunkw = cfg.db.cascade_chunk
     if cfg.db.check1_prefilter and 0 < chunkw < HC:
-        pass1_all = check1(store, query, g_h, l_h, ss_h, st_h, hv,
+        pass1_all = check1(store, descs, g_h, l_h, ss_h, st_h, hv,
                            cfg.db.cont_sim)
-        aft1 = pass1_all.sum().to(i32)
+        aft1 = pass1_all.sum(dim=1).to(i32)
         pos = torch.arange(HC, dtype=f32, device=dev)
         perm2, hv_run, n_run, _ = select_topk_stable(pos, pass1_all, HC)
-        g_h, l_h = g_h[perm2], l_h[perm2]
-        ss_h, st_h = ss_h[perm2], st_h[perm2]
+        g_h, l_h = g_h.gather(1, perm2), l_h.gather(1, perm2)
+        ss_h, st_h = ss_h.gather(1, perm2), st_h.gather(1, perm2)
     else:
         aft1 = None
         hv_run, n_run = hv, n_valid
-    res = cascade_chunked(store, query, g_h, l_h, ss_h, st_h, hv_run, n_run,
+    res = cascade_chunked(store, descs, g_h, l_h, ss_h, st_h, hv_run, n_run,
                           cfg.thres_lb, cfg.db.cont_sim, chunkw, cfg.db.p_pot)
     if aft1 is None:
-        aft1 = res.pass1.sum().to(i32)
+        aft1 = res.pass1.sum(dim=1).to(i32)
     if cfg.db.dynamic_thres:
         # DYNAMIC_THRES=1: sequential re-gating with rising bars
         pass2_d, pass3_d = dynamic_pass_scan(
@@ -368,14 +410,16 @@ def stages_from_hits(store: ScanDesc, query: ScanDesc, hits,
 
 def query_stages(store: ScanDesc, keys_q, query: ScanDesc, state,
                  cfg: PipelineConfig) -> QueryStages:
-    """Search at the window `state`, then `stages_from_hits`."""
-    return stages_from_hits(store, query,
-                            _search_query(keys_q, query, state, cfg), cfg)
+    """One query: search at the window `state`, then `stages_from_hits` at
+    B = 1."""
+    return _row0(stages_from_hits(store, *_as_batch(
+        query, _search_query(keys_q, query, state, cfg)), cfg))
 
 
 class RefineInputs(NamedTuple):
-    """The query just before the LM refinement (tests and the smoke replay
-    the refinement from it)."""
+    """A query just before the LM refinement (tests and the smoke replay the
+    refinement from it). The shapes are one query's; `refine_from_hits`
+    returns B queries stacked, every leaf with a leading B axis."""
     qs: QueryStages
     cand_gidx: torch.Tensor   # (C,) int32 candidate scans
     src: GmmScan              # the F best candidates' GMMs, (F, G, K, ...)
@@ -386,12 +430,19 @@ class RefineInputs(NamedTuple):
     valid: torch.Tensor       # (F,) bool: a live candidate above the gate
 
 
-def refine_from_hits(store: ScanDesc, query: ScanDesc, hits,
+def per_query(tgt: GmmScan) -> GmmScan:
+    """(B, ...) query GMMs, to broadcast against (B, C, ...) candidates."""
+    return GmmScan(*[x[:, None] for x in tgt])
+
+
+def refine_from_hits(store: ScanDesc, descs: ScanDesc, hits,
                      cfg: PipelineConfig) -> RefineInputs:
     """stages_from_hits -> tidy screens -> GMM init correlation -> the F =
-    max_fine_opt best candidates (db._query_step_impl up to its LM)."""
+    max_fine_opt best candidates (db._query_step_impl up to its LM), for B
+    queries at once: the init correlation runs over the B*C candidate rows,
+    each against its own query's GMM."""
     N = store.keys.shape[0]
-    qs = stages_from_hits(store, query, hits, cfg)
+    qs = stages_from_hits(store, descs, hits, cfg)
     st = qs.st
     post = cfg.thres_lb.sim_post
     tidy = tidy_candidates(st, post.area_perc, post.neg_est_dist,
@@ -401,8 +452,8 @@ def refine_from_hits(store: ScanDesc, query: ScanDesc, hits,
     cg = torch.clamp(st.cand_gidx, 0, N - 1).long()
     src_gmm = gather_gmm(store, cg, tuple(cfg.gmm.levels),
                          cfg.gmm.max_gmm_ellipses)
-    tgt_gmm = gmm_from_desc(query, cfg.gmm)
-    corr0, selp = init_correlation(src_gmm, tgt_gmm, tidy.T_sel,
+    tgt_gmm = gmm_from_desc(descs, cfg.gmm)
+    corr0, selp = init_correlation(src_gmm, per_query(tgt_gmm), tidy.T_sel,
                                    scale=cfg.gmm.cov_dilate_scale)
     if cfg.db.dynamic_thres:
         keep = dynamic_post_scan(tidy.in_use, tidy.area, tidy.neg_d, corr0,
@@ -410,76 +461,82 @@ def refine_from_hits(store: ScanDesc, query: ScanDesc, hits,
     else:
         keep = tidy.alive & (corr0 >= post.correlation)
 
-    C = st.cand_gidx.shape[0]
+    C = st.cand_gidx.shape[1]
     F = min(cfg.db.max_fine_opt, C)
     rank = torch.where(keep, corr0, -math.inf)
-    topi = stable_argsort(rank, descending=True)[:F]
+    topi = stable_argsort(rank, descending=True)[:, :F]
     return RefineInputs(qs=qs, cand_gidx=st.cand_gidx,
-                        src=GmmScan(*[x[topi] for x in src_gmm]),
-                        tgt=tgt_gmm, T0=tidy.T_sel[topi], sel=selp[topi],
-                        topi=topi, valid=torch.isfinite(rank[topi]))
+                        src=GmmScan(*[take_rows(x, topi) for x in src_gmm]),
+                        tgt=tgt_gmm, T0=take_rows(tidy.T_sel, topi),
+                        sel=take_rows(selp, topi), topi=topi,
+                        valid=torch.isfinite(rank.gather(1, topi)))
 
 
 def refine_inputs(store: ScanDesc, keys_q, query: ScanDesc, state,
                   cfg: PipelineConfig) -> RefineInputs:
-    """Search at the window `state`, then `refine_from_hits`."""
-    return refine_from_hits(store, query,
-                            _search_query(keys_q, query, state, cfg), cfg)
+    """One query: search at the window `state`, then `refine_from_hits` at
+    B = 1."""
+    return _row0(refine_from_hits(store, *_as_batch(
+        query, _search_query(keys_q, query, state, cfg)), cfg))
 
 
-def query_from_hits(store: ScanDesc, query: ScanDesc, hits,
+def query_from_hits(store: ScanDesc, descs: ScanDesc, hits,
                     cfg: PipelineConfig):
-    """The query behind its search: refine_from_hits -> LM refinement -> the
-    packed (18,) f32 record."""
+    """The B queries behind their search: refine_from_hits -> LM refinement
+    over the B*F best candidates at once -> the packed (B, 18) f32
+    records."""
     f32 = torch.float32
-    r = refine_from_hits(store, query, hits, cfg)
+    r = refine_from_hits(store, descs, hits, cfg)
     qs = r.qs
     res, st = qs.res, qs.st
-    corr_f, T_f = optimize_correlation(r.src, r.tgt, r.T0, r.sel,
+    B = r.topi.shape[0]
+    corr_f, T_f = optimize_correlation(r.src, per_query(r.tgt), r.T0, r.sel,
                                        scale=cfg.gmm.cov_dilate_scale,
                                        iters=cfg.gmm.gn_iters)
     corr_fm = torch.where(r.valid, corr_f, -math.inf)
-    # a (1,) index, not a 0-d one: indexing with a 0-d tensor reads it on
-    # the host
-    best = torch.argmax(corr_fm).reshape(1)
-    found = r.valid.any()
+    best = torch.argmax(corr_fm, dim=1, keepdim=True)               # (B, 1)
+    found = r.valid.any(dim=1, keepdim=True)
 
     def f(x):
-        return x.to(f32).reshape(1)
+        return x.to(f32).reshape(B, 1)
 
     return torch.cat([
-        f(found), f(torch.where(found, r.cand_gidx[r.topi[best]], -1)),
-        f(torch.where(found, corr_fm[best], 0.0)), T_f[best].reshape(3),
-        f(qs.n_valid), f(qs.aft1), f(res.pass2.sum()), f(res.pass3.sum()),
-        f(st.n_cand), f(qs.overflow_hints), f(st.overflow_pass),
-        f(st.overflow_cand), f((res.pot_overflow & res.pass1).sum()),
-        f((res.win_overflow & res.pass1).sum()), f(query.pix_overflow),
-        f(query.gmm_overflow)])
+        f(found),
+        f(torch.where(found, r.cand_gidx.gather(1, r.topi.gather(1, best)),
+                      -1)),
+        f(torch.where(found, corr_fm.gather(1, best), 0.0)),
+        take_rows(T_f, best).reshape(B, 3),
+        f(qs.n_valid), f(qs.aft1), f(res.pass2.sum(dim=1)),
+        f(res.pass3.sum(dim=1)), f(st.n_cand), f(qs.overflow_hints),
+        f(st.overflow_pass), f(st.overflow_cand),
+        f((res.pot_overflow & res.pass1).sum(dim=1)),
+        f((res.win_overflow & res.pass1).sum(dim=1)), f(descs.pix_overflow),
+        f(descs.gmm_overflow)], dim=1)
 
 
 def query_step(store: ScanDesc, keys_q, query: ScanDesc, state,
                cfg: PipelineConfig):
     """queryRangedKNN (contour_db.h:698-811) = db._query_step_impl without
-    the stage-split `depth` gates: the key search at the window `state`,
-    then `query_from_hits`. Returns the packed (18,) f32 record."""
-    return query_from_hits(store, query,
-                           _search_query(keys_q, query, state, cfg), cfg)
+    the stage-split `depth` gates: the key search at the window `state`
+    (the single-query tile-min), then `query_from_hits` at B = 1. Returns
+    the packed (18,) f32 record."""
+    return query_from_hits(store, *_as_batch(
+        query, _search_query(keys_q, query, state, cfg)), cfg)[0]
 
 
 def query_step_batch(store: ScanDesc, keys_q, descs: ScanDesc, searchable_b,
                      cfg: PipelineConfig):
     """B queries (a B-stacked ScanDesc), query b against the rows below
     searchable_b[b] ((B,) int32 on the device) -> (B, 18) records: the
-    counterpart of jax.vmap(_query_step_impl). Row b is bit-equal to
-    `query_step` of descs[b] at state[1] = searchable_b[b]. The key search
-    is batched (one tile-min launch reads the store once for the B queries);
-    from the hint cap on, the queries run one after another over its rows."""
+    counterpart of jax.vmap(_query_step_impl), one batched program from the
+    key search (one tile-min launch reads the store once for the B queries)
+    to the records. Row b equals `query_step` of descs[b] at state[1] =
+    searchable_b[b]: the exact columns exactly, the floats bit for bit on
+    the CPU and within the record bands on a CUDA device (its reductions
+    may split differently at another row count)."""
     hits = search_batch(keys_q, descs.keys, searchable_b,
                         tuple(cfg.db.q_levels), cfg.db.nnk)
-    return torch.stack([
-        query_from_hits(store, ScanDesc(*[x[b] for x in descs]),
-                        tuple(h[b] for h in hits), cfg)
-        for b in range(searchable_b.shape[0])])
+    return query_from_hits(store, descs, hits, cfg)
 
 
 def range_search_impl(keys_q, q_keys, searchable_n, max_dist_sq: float,
@@ -707,9 +764,10 @@ class ContourDB:
 
     With `cfg.db.dynamic_thres` every query runs the two sequential
     threshold recurrences (`dynamic_pass_scan`, `dynamic_post_scan`) on the
-    host: on a CUDA device that is 4 more host synchronisations a query (the
-    inputs of each copied down, its mask copied back) on top of the 4 of the
-    default step. The default `dynamic_thres=False` path is untouched."""
+    host: on a CUDA device that is 4 more host synchronisations a query, or
+    a block of queries (the inputs of each copied down, its mask copied
+    back), on top of the 4 of the default step. The default
+    `dynamic_thres=False` path is untouched."""
 
     def __init__(self, cfg: PipelineConfig, capacity: int = 8192,
                  device="cuda"):

@@ -29,6 +29,8 @@ TF_ANG_MERGE = 0.3
 
 
 class CandidateState(NamedTuple):
+    """One query's candidate table; `merge_proposals` returns B of them
+    stacked, every leaf with a leading B axis."""
     cand_gidx: torch.Tensor    # (C,) int32, -1 when empty; first-seen order
     n_cand: torch.Tensor       # () int32
     prop_n: torch.Tensor       # (C,) int32 proposals in use
@@ -49,37 +51,50 @@ def stable_argsort(x, dim: int = -1, descending: bool = False):
 
 
 def select_topk_stable(priority, mask, cap: int):
-    """Budget-capped stable selection (candidate.py:51-67): all masked items
-    in input order when they fit `cap`, else the `cap` best by ascending
-    priority (ties by position), in input order. Returns (perm,
-    sel_at_perm, n_masked, overflow)."""
-    n = mask.shape[0]
+    """Budget-capped stable selection along the last dim (candidate.py:51-67),
+    independently for every leading index: all masked items in input order
+    when they fit `cap`, else the `cap` best by ascending priority (ties by
+    position), in input order. `priority` broadcasts against `mask`.
+    Returns (perm (..., cap), sel_at_perm (..., cap), n_masked (...),
+    overflow (...))."""
+    n = mask.shape[-1]
     order = stable_argsort(torch.where(mask, priority, math.inf))
-    rank = torch.empty(n, dtype=torch.int32, device=mask.device)
-    rank[order] = torch.arange(n, dtype=torch.int32, device=mask.device)
+    iota = torch.arange(n, dtype=torch.int32, device=mask.device)
+    rank = torch.empty(mask.shape, dtype=torch.int32, device=mask.device) \
+        .scatter_(-1, order, iota.expand(mask.shape))
     sel = mask & (rank < cap)
-    perm = stable_argsort((~sel).to(torch.uint8))[:cap]
-    n_masked = mask.sum().to(torch.int32)
+    perm = stable_argsort((~sel).to(torch.uint8))[..., :cap]
+    n_masked = mask.sum(dim=-1).to(torch.int32)
     overflow = torch.clamp(n_masked - cap, min=0).to(torch.int32)
-    return perm, sel[perm], n_masked, overflow
+    return perm, sel.gather(-1, perm), n_masked, overflow
+
+
+def take_rows(x, idx):
+    """x (B, N, ...), idx (B, M) -> (B, M, ...): row idx[b, m] of x[b], as
+    one gather."""
+    tail = x.shape[2:]
+    return x.gather(1, idx.reshape(idx.shape + (1,) * len(tail))
+                    .expand(idx.shape + tail))
 
 
 def _dense_pair_maps_rows(pair_valid, pair_level, pair_seq_src, pair_seq_tgt,
                           pair_perc):
-    """(MP, P) pair lists -> dense (MP, NUM_SLOTS) perc/taken maps; a
-    duplicate slot keeps its FIRST pair's perc (setdefault)."""
-    MP, P = pair_valid.shape
+    """(..., P) pair lists -> dense (..., NUM_SLOTS) perc/taken maps; a
+    duplicate slot keeps its FIRST pair's perc (setdefault). The first pair
+    of a slot is the minimum pair position scattered to it (order-free, so
+    exact on any device); its perc is then one gather."""
+    P = pair_valid.shape[-1]
     dev = pair_valid.device
-    ids = torch.where(
-        pair_valid,
-        pair_level * (N_SEQ * N_SEQ) + pair_seq_src * N_SEQ + pair_seq_tgt,
-        NUM_SLOTS)
-    hit = ids[:, :, None] == torch.arange(NUM_SLOTS, device=dev)[None, None]
-    taken = hit.any(dim=1)
-    pos = torch.arange(P, dtype=torch.int32, device=dev)[None, :, None]
-    first_pos = torch.where(hit, pos, P).amin(dim=1)
-    is_first = hit & (pos == first_pos[:, None, :])
-    perc = torch.where(is_first, pair_perc[:, :, None], 0.0).sum(dim=1)
+    ids = pair_level * (N_SEQ * N_SEQ) + pair_seq_src * N_SEQ + pair_seq_tgt
+    ids = torch.where(pair_valid & (ids >= 0) & (ids < NUM_SLOTS), ids,
+                      NUM_SLOTS).long()
+    pos = torch.arange(P, dtype=torch.int32, device=dev).expand(ids.shape)
+    first_pos = torch.full(ids.shape[:-1] + (NUM_SLOTS + 1,), P,
+                           dtype=torch.int32, device=dev) \
+        .scatter_reduce_(-1, ids, pos, "amin")[..., :NUM_SLOTS]
+    taken = first_pos < P
+    perc = torch.where(
+        taken, pair_perc.gather(-1, first_pos.clamp(max=P - 1).long()), 0.0)
     return perc, taken
 
 
@@ -87,172 +102,196 @@ def merge_proposals(pass3, gidx, T_delta, pair_valid, pair_level,
                     pair_seq_src, pair_seq_tgt, pair_perc,
                     n_cand_max: int = 32, n_pass_max: int = 64
                     ) -> CandidateState:
-    """Merge the passing hints' proposals, identical to addProposal applied
-    hint by hint in input order (candidate.py:95-287). Hints of different
-    candidate rows never interact, so the loop runs over the j-th hint of
-    every row at once (one host sync for its trip count); the pair unions
-    are order-free given the hint -> (row, proposal) assignment."""
+    """Merge the passing hints' proposals of B queries at once: every input
+    has a leading B axis (pass3 (B, H), pair_* (B, H, P), ...), and so has
+    every leaf of the result. Per query it is identical to addProposal
+    applied hint by hint in input order (candidate.py:95-287). Hints of
+    different candidate rows never interact, so the loop runs over the j-th
+    hint of every row of every query at once (one host sync for its trip
+    count, the busiest query's; a query with fewer hints idles through the
+    rest); the pair unions are order-free given the hint -> (row, proposal)
+    assignment. Index writes that must go nowhere land in a dump slot of
+    the query's own."""
     dev = pass3.device
-    H = pass3.shape[0]
+    B, H = pass3.shape
     C = n_cand_max
     MP = min(n_pass_max, H)
-    i32 = torch.int32
+    i32, f32 = torch.int32, torch.float32
 
-    votes_h = pair_valid.sum(dim=1).to(i32)
+    votes_h = pair_valid.sum(dim=-1).to(i32)
     perm, _, n_pass, overflow_pass = select_topk_stable(
-        -votes_h.to(torch.float32), pass3, MP)
-    g = gidx[perm].to(i32)
-    T = T_delta[perm]
-    votes = votes_h[perm]
+        -votes_h.to(f32), pass3, MP)
+    g = gidx.gather(1, perm).to(i32)
+    T = take_rows(T_delta, perm)
+    votes = votes_h.gather(1, perm)
     iota = torch.arange(MP, dtype=i32, device=dev)
-    live = iota < torch.clamp(n_pass, max=MP)
+    live = iota < torch.clamp(n_pass, max=MP)[:, None]          # (B, MP)
+    before = iota[None, :] < iota[:, None]          # [m, m']: m' before m
 
     # candidate row of each hint = first-seen rank of its gidx
-    same = (g[:, None] == g[None, :]) & live[:, None] & live[None, :]
-    first_m = torch.where(same, iota[None, :], MP).amin(dim=1)
+    same = (g[:, :, None] == g[:, None, :]) & live[:, :, None] \
+        & live[:, None, :]
+    first_m = torch.where(same, iota, MP).amin(dim=-1)
     is_first_m = live & (first_m == iota)
-    rank_at_m = torch.cumsum(is_first_m.to(i32), 0).to(i32) - 1
-    cidx_h = rank_at_m[first_m.clamp(max=MP - 1).long()]
+    rank_at_m = torch.cumsum(is_first_m.to(i32), 1).to(i32) - 1
+    cidx_h = rank_at_m.gather(1, first_m.clamp(max=MP - 1).long())
     drop_h = live & (cidx_h >= C)
-    overflow_cand = drop_h.sum().to(i32)
+    overflow_cand = drop_h.sum(dim=1).to(i32)
     keep_h = live & ~drop_h
-    n_cand = torch.clamp(is_first_m.sum(), max=C).to(i32)
-    cand_gidx = torch.full((C + 1,), -1, dtype=i32, device=dev)
-    cand_gidx[torch.where(is_first_m & (rank_at_m < C), rank_at_m,
-                          C).long()] = g
-    cand_gidx = cand_gidx[:C]
+    n_cand = torch.clamp(is_first_m.sum(dim=1), max=C).to(i32)
+    cand_gidx = torch.full((B, C + 1), -1, dtype=i32, device=dev).scatter_(
+        1, torch.where(is_first_m & (rank_at_m < C), rank_at_m, C).long(),
+        g)[:, :C]
     # arrival order j of a hint within its row
-    j_h = (same & (iota[None, :] < iota[:, None])).sum(dim=1).to(i32)
-    hint_of = torch.full(((C + 1) * MP,), -1, dtype=i32, device=dev)
-    hint_of[(torch.where(keep_h, cidx_h, C) * MP + j_h).long()] = iota
-    hint_of = hint_of.view(C + 1, MP)[:C]
+    j_h = (same & before).sum(dim=-1).to(i32)
+    hint_of = torch.full((B, (C + 1) * MP), -1, dtype=i32, device=dev) \
+        .scatter_(1, (torch.where(keep_h, cidx_h, C) * MP + j_h).long(),
+                  iota.expand(B, MP)).view(B, C + 1, MP)[:, :C]
     nj = int(torch.where(keep_h, j_h + 1, 0).max())      # host sync
 
     rows = torch.arange(C, dtype=i32, device=dev)
-    slot_iota = torch.arange(P_PROP, dtype=i32, device=dev)[None, :]
-    prop_T = torch.zeros((C, P_PROP, 3), dtype=torch.float32, device=dev)
-    prop_votes = torch.zeros((C, P_PROP), dtype=i32, device=dev)
-    prop_n = torch.zeros((C,), dtype=i32, device=dev)
-    key_of_m = torch.full((MP + 1,), -1, dtype=i32, device=dev)
+    slot_iota = torch.arange(P_PROP, dtype=i32, device=dev)
+    prop_T = torch.zeros((B, C, P_PROP, 3), dtype=f32, device=dev)
+    prop_votes = torch.zeros((B, C, P_PROP), dtype=i32, device=dev)
+    prop_n = torch.zeros((B, C), dtype=i32, device=dev)
+    key_of_m = torch.full((B, MP + 1), -1, dtype=i32, device=dev)
     for j in range(nj):
-        m_c = hint_of[:, j]
+        m_c = hint_of[:, :, j]
         act = m_c >= 0
         mm = m_c.clamp(0, MP - 1).long()
-        T_m = T[mm]
-        w2 = votes[mm]
-        c_m, s_m = torch.cos(T_m[:, 2:3]), torch.sin(T_m[:, 2:3])
-        dx = prop_T[:, :, 0] - T_m[:, 0:1]
-        dy = prop_T[:, :, 1] - T_m[:, 1:2]
+        T_m = take_rows(T, mm)                                  # (B, C, 3)
+        w2 = votes.gather(1, mm)
+        c_m, s_m = torch.cos(T_m[..., 2:3]), torch.sin(T_m[..., 2:3])
+        dx = prop_T[..., 0] - T_m[..., 0:1]
+        dy = prop_T[..., 1] - T_m[..., 1:2]
         tx = c_m * dx + s_m * dy
         ty = -s_m * dx + c_m * dy
-        dth = clamp_ang(prop_T[:, :, 2] - T_m[:, 2:3])
-        in_use = slot_iota < prop_n[:, None]
+        dth = clamp_ang(prop_T[..., 2] - T_m[..., 2:3])
+        in_use = slot_iota < prop_n[..., None]
         match = in_use & (torch.hypot(tx, ty) < TF_TRANS_MERGE) & \
             (dth.abs() < TF_ANG_MERGE)
-        has_match = match.any(dim=1)
-        first = torch.argmax(match.to(torch.uint8), dim=1).to(i32)
+        has_match = match.any(dim=-1)
+        first = torch.argmax(match.to(torch.uint8), dim=-1).to(i32)
         can_append = prop_n < P_PROP
         slot = torch.where(has_match, first,
                            torch.clamp(prop_n, max=P_PROP - 1))
         write = act & (has_match | can_append)
-        oh = slot_iota == slot[:, None]
-        old_T = torch.where(oh[..., None], prop_T, 0.0).sum(dim=1)
-        w1 = torch.where(oh, prop_votes, 0).sum(dim=1).to(i32)
-        wsum = torch.clamp(w1 + w2, min=1).to(torch.float32)
-        trans = (old_T[:, :2] * w1[:, None]
-                 + T_m[:, :2] * w2[:, None]) / wsum[:, None]
-        diff = T_m[:, 2] - old_T[:, 2]
+        oh = slot_iota == slot[..., None]
+        old_T = torch.where(oh[..., None], prop_T, 0.0).sum(dim=-2)
+        w1 = torch.where(oh, prop_votes, 0).sum(dim=-1).to(i32)
+        wsum = torch.clamp(w1 + w2, min=1).to(f32)
+        trans = (old_T[..., :2] * w1[..., None]
+                 + T_m[..., :2] * w2[..., None]) / wsum[..., None]
+        diff = T_m[..., 2] - old_T[..., 2]
         diff = torch.where(diff < 0, diff + 2 * math.pi, diff)
         diff = torch.where(diff > math.pi, diff - 2 * math.pi, diff)
-        ang = diff * w2.to(torch.float32) / wsum + old_T[:, 2]
-        T_merged = torch.cat([trans, ang[:, None]], dim=1)
-        new_T = torch.where(has_match[:, None], T_merged, T_m)
+        ang = diff * w2.to(f32) / wsum + old_T[..., 2]
+        T_merged = torch.cat([trans, ang[..., None]], dim=-1)
+        new_T = torch.where(has_match[..., None], T_merged, T_m)
         new_votes = torch.where(has_match, w1 + w2, w2)
-        wsel = write[:, None] & oh
-        prop_T = torch.where(wsel[..., None], new_T[:, None, :], prop_T)
-        prop_votes = torch.where(wsel, new_votes[:, None], prop_votes)
+        wsel = write[..., None] & oh
+        prop_T = torch.where(wsel[..., None], new_T[..., None, :], prop_T)
+        prop_votes = torch.where(wsel, new_votes[..., None], prop_votes)
         prop_n = prop_n + (write & ~has_match).to(i32)
-        key_of_m[torch.where(write, mm, MP)] = rows * P_PROP + slot
-    key_of_m = key_of_m[:MP]
+        key_of_m.scatter_(1, torch.where(write, mm, MP),
+                          rows * P_PROP + slot)
+    key_of_m = key_of_m[:, :MP]
 
     # constellation unions: per (row, proposal) key, taken = OR over its
     # hints, perc = the perc of the first hint (in m order) taking the slot
     NK = C * P_PROP
     key_m = torch.where(key_of_m >= 0, key_of_m, NK).long()
     dperc, dtaken = _dense_pair_maps_rows(
-        pair_valid[perm], pair_level[perm], pair_seq_src[perm],
-        pair_seq_tgt[perm], pair_perc[perm])                  # (MP, SLOTS)
-    same_key = key_m[:, None] == key_m[None, :]
-    earlier = same_key & (iota[None, :] < iota[:, None])      # (MP, MP)
-    taken_before = (earlier.to(torch.float32)
-                    @ dtaken.to(torch.float32)) > 0.5
+        take_rows(pair_valid, perm), take_rows(pair_level, perm),
+        take_rows(pair_seq_src, perm), take_rows(pair_seq_tgt, perm),
+        take_rows(pair_perc, perm))                       # (B, MP, SLOTS)
+    earlier = (key_m[:, :, None] == key_m[:, None, :]) & before
+    # 0/1 values: the product is exact in any summation order
+    taken_before = torch.bmm(earlier.to(f32), dtaken.to(f32)) > 0.5
     is_first = dtaken & ~taken_before
-    taken_u = torch.zeros((NK + 1, NUM_SLOTS), dtype=torch.float32,
-                          device=dev)
-    taken_u.index_add_(0, key_m, dtaken.to(torch.float32))
-    perc_u = torch.zeros((NK + 1, NUM_SLOTS), dtype=torch.float32, device=dev)
-    perc_u.index_add_(0, key_m, torch.where(is_first, dperc, 0.0))
+    # one accumulator row per (query, key) and a dump row per query; a slot
+    # of perc_u receives one non-zero perc and zeros, so the sum is exact
+    # whatever order the device adds in
+    flat = (key_m + torch.arange(B, device=dev)[:, None] * (NK + 1)) \
+        .reshape(-1)
+    taken_u = torch.zeros((B * (NK + 1), NUM_SLOTS), dtype=f32, device=dev)
+    taken_u.index_add_(0, flat, dtaken.to(f32).reshape(-1, NUM_SLOTS))
+    perc_u = torch.zeros((B * (NK + 1), NUM_SLOTS), dtype=f32, device=dev)
+    perc_u.index_add_(0, flat, torch.where(is_first, dperc, 0.0)
+                      .reshape(-1, NUM_SLOTS))
+
+    def rows_of(u):
+        return u.view(B, NK + 1, NUM_SLOTS)[:, :NK] \
+            .reshape(B, C, P_PROP, NUM_SLOTS)
+
     return CandidateState(
         cand_gidx=cand_gidx, n_cand=n_cand, prop_n=prop_n, prop_T=prop_T,
-        prop_votes=prop_votes,
-        prop_taken=(taken_u[:NK] > 0.5).view(C, P_PROP, NUM_SLOTS),
-        prop_perc=perc_u[:NK].view(C, P_PROP, NUM_SLOTS),
-        overflow_cand=overflow_cand, overflow_pass=overflow_pass)
+        prop_votes=prop_votes, prop_taken=rows_of(taken_u) > 0.5,
+        prop_perc=rows_of(perc_u), overflow_cand=overflow_cand,
+        overflow_pass=overflow_pass)
 
 
 def dynamic_pass_scan(pass1, ovlp_sum, ovlp_max1, in_ang, indiv, orie,
                       lb, ub):
     """DYNAMIC_THRES re-gating of the check cascade (contour_db.h:439-458;
-    candidate.py:290-319): hints are re-gated in order, and each full pass
-    raises the five working count bars to that hint's final pair count,
-    clamped by the upper-bound ensemble. The recurrence is sequential and
-    tiny (five ints over H rows), so it runs on the host: one copy of the
-    six (H,) inputs down, one of the two masks back. Returns (pass2, pass3)
-    under the dynamic bars, on the inputs' device."""
-    lbv = [lb.sim_constell.i_ovlp_sum, lb.sim_constell.i_ovlp_max_one,
-           lb.sim_constell.i_in_ang_rng, lb.sim_pair.i_indiv_sim,
-           lb.sim_pair.i_orie_sim]
-    ubv = [ub.sim_constell.i_ovlp_sum, ub.sim_constell.i_ovlp_max_one,
-           ub.sim_constell.i_in_ang_rng, ub.sim_pair.i_indiv_sim,
-           ub.sim_pair.i_orie_sim]
-    rows = torch.stack([x.to(torch.int32) for x in (
-        pass1, ovlp_sum, ovlp_max1, in_ang, indiv, orie)], dim=1).tolist()
-    bars = [int(v) for v in lbv]
-    out = []
-    for p1, ov, m1, ia, ind, oc in rows:
-        pass2 = bool(p1) and ov >= bars[0] and m1 >= bars[1] and ia >= bars[2]
-        pass3 = pass2 and ind >= bars[3] and oc >= bars[4]
-        if pass3:
-            bars = [min(max(b, oc), int(u)) for b, u in zip(bars, ubv)]
-        out.append((pass2, pass3))
-    mask = torch.tensor(out, dtype=torch.bool).reshape(-1, 2) \
-        .to(pass1.device)
-    return mask[:, 0], mask[:, 1]
+    candidate.py:290-319): hints are re-gated in order along the last dim,
+    and each full pass raises the five working count bars to that hint's
+    final pair count, clamped by the upper-bound ensemble. The recurrence
+    is sequential and tiny (five ints over H rows), so it runs on the host,
+    every leading index (the B queries of a block) advancing together: one
+    copy of the six (..., H) inputs down, one of the two masks back.
+    Returns (pass2, pass3) under the dynamic bars, on the inputs' device."""
+    lbv = np.array([lb.sim_constell.i_ovlp_sum, lb.sim_constell.i_ovlp_max_one,
+                    lb.sim_constell.i_in_ang_rng, lb.sim_pair.i_indiv_sim,
+                    lb.sim_pair.i_orie_sim], np.int64)
+    ubv = np.array([ub.sim_constell.i_ovlp_sum, ub.sim_constell.i_ovlp_max_one,
+                    ub.sim_constell.i_in_ang_rng, ub.sim_pair.i_indiv_sim,
+                    ub.sim_pair.i_orie_sim], np.int64)
+    shape = tuple(pass1.shape)
+    H = shape[-1]
+    cols = torch.stack([x.to(torch.int32) for x in (
+        pass1, ovlp_sum, ovlp_max1, in_ang, indiv, orie)], dim=-1) \
+        .reshape(-1, H, 6).cpu().numpy().astype(np.int64)
+    bars = np.tile(lbv, (cols.shape[0], 1))
+    out = np.zeros((cols.shape[0], H, 2), np.bool_)
+    for t in range(H):
+        row = cols[:, t]
+        pass2 = (row[:, 0] > 0) & (row[:, 1:4] >= bars[:, 0:3]).all(axis=1)
+        pass3 = pass2 & (row[:, 4:6] >= bars[:, 3:5]).all(axis=1)
+        raised = np.minimum(np.maximum(bars, row[:, 5:6]), ubv)
+        bars = np.where(pass3[:, None], raised, bars)
+        out[:, t, 0], out[:, t, 1] = pass2, pass3
+    mask = torch.from_numpy(out).reshape(shape + (2,)).to(pass1.device)
+    return mask[..., 0], mask[..., 1]
 
 
 def dynamic_post_scan(in_use, area, neg_d, corr0, lb_post, ub_post):
     """DYNAMIC_THRES post-processing screens (contour_db.h:532-574;
-    candidate.py:322-344): candidates are screened in first-seen order, and
-    each one passing all three screens (area %, distance censor, init
-    correlation) raises the working bars to its own scores, clamped by the
-    upper bounds. On the host like `dynamic_pass_scan`, in float32 values
-    (exact in Python's floats; min, max and >= round nothing). Returns the
-    keep mask on the inputs' device."""
+    candidate.py:322-344): candidates are screened in first-seen order along
+    the last dim, and each one passing all three screens (area %, distance
+    censor, init correlation) raises the working bars to its own scores,
+    clamped by the upper bounds. On the host like `dynamic_pass_scan`, in
+    float32 (min, max and >= round nothing). Returns the keep mask on the
+    inputs' device."""
     f32 = np.float32
-    bars = [float(f32(v)) for v in (lb_post.area_perc, lb_post.neg_est_dist,
-                                    lb_post.correlation)]
-    ubv = [float(f32(v)) for v in (ub_post.area_perc, ub_post.neg_est_dist,
-                                   ub_post.correlation)]
-    rows = torch.stack([in_use.to(torch.float32), area.to(torch.float32),
+    lbv = np.array([lb_post.area_perc, lb_post.neg_est_dist,
+                    lb_post.correlation], f32)
+    ubv = np.array([ub_post.area_perc, ub_post.neg_est_dist,
+                    ub_post.correlation], f32)
+    shape = tuple(in_use.shape)
+    C = shape[-1]
+    cols = torch.stack([in_use.to(torch.float32), area.to(torch.float32),
                         neg_d.to(torch.float32), corr0.to(torch.float32)],
-                       dim=1).tolist()
-    keep = []
-    for use, a, d, c in rows:
-        k = use > 0.5 and a >= bars[0] and d >= bars[1] and c >= bars[2]
-        if k:
-            bars = [min(max(b, x), u) for b, x, u in zip(bars, (a, d, c), ubv)]
-        keep.append(k)
-    return torch.tensor(keep, dtype=torch.bool).to(in_use.device)
+                       dim=-1).reshape(-1, C, 4).cpu().numpy()
+    bars = np.tile(lbv, (cols.shape[0], 1))
+    keep = np.zeros((cols.shape[0], C), np.bool_)
+    for t in range(C):
+        x = cols[:, t, 1:]
+        k = (cols[:, t, 0] > 0.5) & (x >= bars).all(axis=1)
+        bars = np.where(k[:, None], np.minimum(np.maximum(bars, x), ubv),
+                        bars)
+        keep[:, t] = k
+    return torch.from_numpy(keep).reshape(shape).to(in_use.device)
 
 
 def _area_weights(device) -> torch.Tensor:
@@ -277,26 +316,30 @@ class TidyResult(NamedTuple):
 def tidy_candidates(st: CandidateState, area_perc_lb: float,
                     neg_est_dist_lb: float, n_row: int, n_col: int,
                     reso_row: float, reso_col: float) -> TidyResult:
-    """Screens 1-2 of tidyUpCandidates (candidate.py:366-399)."""
+    """Screens 1-2 of tidyUpCandidates (candidate.py:366-399) on a
+    CandidateState with a leading B axis; every leaf of the result has it
+    too. The area is a product and a sum along the slot dim, so a row's
+    summation order does not depend on how many rows there are."""
     dev = st.cand_gidx.device
-    C = st.cand_gidx.shape[0]
-    prop_use = torch.arange(P_PROP, device=dev)[None, :] < st.prop_n[:, None]
+    C = st.cand_gidx.shape[-1]
+    prop_use = torch.arange(P_PROP, device=dev) < st.prop_n[..., None]
     votes_m = torch.where(prop_use, st.prop_votes, -1)
-    sel = torch.argmax(votes_m, dim=1)
-    rows = torch.arange(C, device=dev)
-    area_all = torch.einsum(
-        "cps,s->cp", torch.where(st.prop_taken, st.prop_perc, 0.0),
-        _area_weights(dev))
-    area = area_all[rows, sel]
-    T_sel = st.prop_T[rows, sel]
-    votes = st.prop_votes[rows, sel]
+    sel = torch.argmax(votes_m, dim=-1)
+    pick = sel[..., None]
+    area_all = (torch.where(st.prop_taken, st.prop_perc, 0.0)
+                * _area_weights(dev)).sum(dim=-1)
+    area = area_all.gather(-1, pick)[..., 0]
+    T_sel = st.prop_T.gather(
+        -2, pick[..., None].expand(pick.shape + (3,)))[..., 0, :]
+    votes = st.prop_votes.gather(-1, pick)[..., 0]
     ox = n_row / 2 - 0.5
     oy = n_col / 2 - 0.5
-    c, s = torch.cos(T_sel[:, 2]), torch.sin(T_sel[:, 2])
-    tx = c * ox - s * oy + T_sel[:, 0] - ox
-    ty = s * ox + c * oy + T_sel[:, 1] - oy
+    c, s = torch.cos(T_sel[..., 2]), torch.sin(T_sel[..., 2])
+    tx = c * ox - s * oy + T_sel[..., 0] - ox
+    ty = s * ox + c * oy + T_sel[..., 1] - oy
     neg_d = -torch.hypot(tx * reso_row, ty * reso_col)
-    in_use = (rows < st.n_cand) & (st.prop_n > 0)
+    in_use = (torch.arange(C, device=dev) < st.n_cand[..., None]) \
+        & (st.prop_n > 0)
     alive = in_use & (area >= area_perc_lb) & (neg_d >= neg_est_dist_lb)
     return TidyResult(alive=alive, in_use=in_use, T_sel=T_sel, area=area,
                       neg_d=neg_d, votes=votes, sel=sel)

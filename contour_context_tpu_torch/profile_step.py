@@ -38,7 +38,7 @@ import time
 import traceback
 import warnings
 from collections import Counter
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -102,37 +102,93 @@ def build_split(points, cfg: PipelineConfig, sync) -> dict:
     return out
 
 
+def device_ops(fn) -> Tuple[int, float]:
+    """(kernel launches and copies fn puts on the card, the ms the card is
+    busy with them), from torch.profiler."""
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    durs = [e.time_range.elapsed_us() for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    return len(durs), sum(durs) / 1e3
+
+
+def host_syncs(fn) -> int:
+    """Host syncs inside fn, by torch's sync debug mode."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        caught.clear()   # switching the mode on warns of a sync of its own
+        try:
+            fn()
+            torch.cuda.synchronize()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
 def block_split(db, points_b, cfg: PipelineConfig) -> dict:
-    """The query side of one block step on `db`'s state, in ms, with a
-    device synchronisation around each part: the B descriptor builds, the
-    batched key search (one tile-min launch and its stage 2), and the B
-    per-query tails (hint cap -> check 1 -> cascade -> merge -> GMM -> LM)
-    that `query_step_batch` runs one after another. Every query runs at the
-    DB's searchable prefix; nothing is appended."""
+    """The query side of one block step on `db`'s state, with a device
+    synchronisation around each part, in ms: the B descriptor builds, the
+    batched key search (one tile-min launch and its stage 2), the batched
+    tail (hint cap -> check 1 -> cascade -> merge -> GMM -> LM, one
+    `query_from_hits` call for the B queries) and, beside it, the same B
+    queries through the same function one at a time (B = 1 each), with the
+    records of both. On a CUDA device also each part's device operations
+    (kernel launches and copies), the ms the card is busy with them under
+    the profiler, and the host syncs of the batched tail and
+    of the B single calls; None on the CPU. Every query runs at the DB's searchable
+    prefix; nothing is appended."""
     dev = db.device
+    cuda = dev.type == "cuda"
 
     def timed(fn):
-        if dev.type == "cuda":
+        if cuda:
             torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = fn()
-        if dev.type == "cuda":
+        if cuda:
             torch.cuda.synchronize()
         return out, 1e3 * (time.perf_counter() - t0)
 
     pts = torch.as_tensor(points_b).to(dev)
     B = pts.shape[0]
-    descs, t_build = timed(
-        lambda: td.build_descriptors(pts, cfg.cm, cfg.gmm))
+    def build():
+        return td.build_descriptors(pts, cfg.cm, cfg.gmm)
+
+    descs, t_build = timed(build)
     sb = db.state[1].expand(B).contiguous()
-    hits, t_search = timed(lambda: tdb.search_batch(
-        db.keys_q, descs.keys, sb, tuple(cfg.db.q_levels), cfg.db.nnk))
-    _, t_tails = timed(lambda: [
-        tdb.query_from_hits(db.store, type(descs)(*[x[b] for x in descs]),
-                            tuple(h[b] for h in hits), cfg)
-        for b in range(B)])
-    return {"B": B, "build_ms": t_build, "search_ms": t_search,
-            "tails_ms": t_tails}
+
+    def search():
+        return tdb.search_batch(db.keys_q, descs.keys, sb,
+                                tuple(cfg.db.q_levels), cfg.db.nnk)
+
+    hits, t_search = timed(search)
+
+    def tail():
+        return tdb.query_from_hits(db.store, descs, hits, cfg)
+
+    def tails_one_by_one():
+        return torch.cat([tdb.query_from_hits(
+            db.store, type(descs)(*[x[b:b + 1] for x in descs]),
+            tuple(h[b:b + 1] for h in hits), cfg) for b in range(B)])
+
+    tail()                 # first use of the batch's shapes: allocator, caches
+    recs, t_tail = timed(tail)
+    recs_1, t_ones = timed(tails_one_by_one)
+    out = {"B": B, "build_ms": t_build, "search_ms": t_search,
+           "tails_ms": t_tail, "tails_one_by_one_ms": t_ones,
+           "records": recs, "records_one_by_one": recs_1}
+    for name, fn in (("build", build), ("search", search), ("tail", tail),
+                     ("one_by_one", tails_one_by_one)):
+        out[name + "_device_ops"], out[name + "_device_busy_ms"] = \
+            device_ops(fn) if cuda else (None, None)
+        if fn in (tail, tails_one_by_one):
+            out[name + "_host_syncs"] = host_syncs(fn) if cuda else None
+    return out
 
 
 def _device_busy(prof, n_scans: int):

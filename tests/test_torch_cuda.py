@@ -17,6 +17,12 @@ This file imports no jax, so it runs where only torch is installed:
   records in the stream's bands), one batched launch a block, and its
   checkpoint reloaded on the card equal to it bit for bit (reloaded on the
   CPU: but for the last bit of the recomputed sqrt in gmm_pack);
+- a ragged batch of queries through the batched tail on the card against
+  the same queries one at a time (B = 1) on the card and against the batch
+  on the CPU: found, gidx and counters exactly, corr and pose in the record
+  bands (CUDA's reduce kernels may split a sum differently at another row
+  count), with `dynamic_thres` too; the batched tail makes at most 2 host
+  syncs a block whatever B (6 with `dynamic_thres`);
 - `run_blocked` and `run_chained` on the card (their staging goes through
   pinned buffers guarded by CUDA events) against `run`: the same outcome
   lines, correlation to 1e-4;
@@ -214,6 +220,69 @@ def test_block_built_map_on_card_matches_cpu(cuda, tmp_path):
     res = g.localize_block_async(clouds[8:12], chunk=3).get()
     assert [r[0] for r in res] == [8, 3, 5, 2]
     assert g.serving_counters["n_hints"] > 0
+
+
+def _assert_records(b, a):
+    exact = [0, 1] + list(range(6, 18))
+    np.testing.assert_array_equal(b[:, exact], a[:, exact])
+    np.testing.assert_allclose(b[:, 2], a[:, 2], rtol=1e-4, atol=1e-4)
+    found = a[:, 0] > 0.5
+    np.testing.assert_allclose(b[found, 3:6], a[found, 3:6], rtol=1e-4,
+                               atol=2e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dynamic", [False, True])
+def test_batched_tail_on_card_matches_single_and_cpu(cuda, dynamic):
+    """The ragged batch of tests/test_torch_batch.py (a zero cloud, a query
+    with no valid hit, caps that overflow for some queries only) on the
+    card: the batch against each query alone, and against the CPU."""
+    from contour_context_tpu_torch.config import ContourDBConfig
+    from contour_context_tpu_torch.profile_step import host_syncs
+
+    def cfg_of(**db):
+        return PipelineConfig(cm=ContourManagerConfig(max_points=16384),
+                              db=ContourDBConfig(dynamic_thres=dynamic, **db))
+
+    world = make_world(11, n_structs=220, extent=160.0)
+    poses = [(10.0 * i, 0.0, 0.0) for i in range(8)] + [
+        (10.5, 0.8, 0.2), (30.0, -1.0, -0.15), (50.2, 0.7, 0.1),
+        (20.3, 0.5, -0.1)]
+    clouds = np.stack([pad_points(render_scan(world, p, seed=500 + i), 16384)
+                       for i, p in enumerate(poses)])
+    db = tdb.ContourDB(cfg_of(), capacity=16, device="cuda")
+    for i in range(12):
+        db.step_async(clouds[i], i, 6.0 * i)
+    queries = np.stack([clouds[8], np.zeros_like(clouds[0]), clouds[9],
+                        clouds[10], clouds[7], clouds[11]])
+    searchable = [12, 12, 0, 12, 5, 12]
+    descs = td.build_descriptors(torch.from_numpy(queries).to(cuda),
+                                 db.cfg.cm, db.cfg.gmm)
+    descs_c = type(descs)(*[x.cpu() for x in descs])
+    store_c = type(db.store)(*[x.cpu() for x in db.store])
+    sb = torch.tensor(searchable, dtype=torch.int32, device=cuda)
+    for cfg in (cfg_of(), cfg_of(max_check_cands=160, cascade_chunk=64,
+                                 max_pass_hints=24, max_cand_poses=3)):
+        recs = tdb.query_step_batch(db.store, db.keys_q, descs, sb, cfg)
+        ones = torch.stack([tdb.query_step(
+            db.store, db.keys_q, type(descs)(*[x[b] for x in descs]),
+            torch.tensor([12, searchable[b]], dtype=torch.int32,
+                         device=cuda), cfg) for b in range(len(searchable))])
+        _assert_records(recs.cpu().numpy(), ones.cpu().numpy())
+        recs_c = tdb.query_step_batch(store_c, db.keys_q.cpu(), descs_c,
+                                      sb.cpu(), cfg)
+        _assert_records(recs.cpu().numpy(), recs_c.numpy())
+        assert recs[0, 0] == 1 and recs[1, 0] == 0 and recs[2, 0] == 0
+        hits = tdb.search_batch(db.keys_q, descs.keys, sb,
+                                tuple(cfg.db.q_levels), cfg.db.nnk)
+        n_sync = host_syncs(lambda: tdb.query_from_hits(db.store, descs,
+                                                        hits, cfg))
+        assert n_sync <= (6 if dynamic else 2), n_sync
+        one = host_syncs(lambda: tdb.query_from_hits(
+            db.store, type(descs)(*[x[:1] for x in descs]),
+            tuple(h[:1] for h in hits), cfg))
+        assert one == n_sync, (one, n_sync)      # whatever B
+    assert recs[:, 11].max() > 0 and recs[:, 13].max() > 0   # overflows ran
 
 
 @pytest.mark.cuda

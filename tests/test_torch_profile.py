@@ -33,7 +33,9 @@ def test_profile_step_runs_on_cpu(tmp_path):
 
 def test_block_split_runs_on_cpu():
     """The block-step split (chip_smoke.py prints it from the card) on a
-    small CPU map: three positive parts, the DB untouched."""
+    small CPU map: positive parts, the batched tail's records equal to the
+    same queries' one at a time, the card-only counts absent, the DB
+    untouched."""
     import numpy as np
 
     from synth import make_world, render_scan
@@ -54,4 +56,12 @@ def test_block_split_runs_on_cpu():
     state = db.state.clone()
     split = profile_step.block_split(db, clouds[:2], cfg)
     assert split["B"] == 2 and db.n == 4 and torch.equal(db.state, state)
-    assert all(split[k] > 0 for k in ("build_ms", "search_ms", "tails_ms"))
+    assert all(split[k] > 0 for k in ("build_ms", "search_ms", "tails_ms",
+                                      "tails_one_by_one_ms"))
+    assert split["records"].shape == (2, tdb.RECORD_WIDTH)
+    assert torch.equal(split["records"], split["records_one_by_one"])
+    assert split["records"][1, 6] > 0                # key hits: a real query
+    for k in ("build_device_ops", "search_device_ops", "tail_device_ops",
+              "one_by_one_device_ops", "tail_device_busy_ms",
+              "tail_host_syncs", "one_by_one_host_syncs"):
+        assert split[k] is None, k                   # CUDA only
