@@ -27,30 +27,43 @@ exit code is not 0):
    bf16 and f32, the vector and the scalar path, B = 1 equal to the
    single-query kernel; its device time at B = 16 beside its bound and the
    16 single launches that answer the same queries;
+3c. the batched ring key (one launch for the B scans of a block) bit-equal
+   to its plain version and to one single launch a scan, at B = 1, with a
+   zero cloud (an empty pool) in the batch and at B = 17; its device time
+   at the stream's first block of 16 beside its bound and the 16 single
+   launches of the same scans;
 6. a map built in blocks: the stream's first 264 clouds through
    `block_chain_pts_async` in 16 blocks of 16 and an 8-scan tail through
-   `step_async`; records, store, keys_q and window state must equal the
-   stream's first 264 rows, with one batched tile-min launch a block, and
-   the batched kernel is bit-equal to its plain version on the map's keys_q
-   with the last full block's query keys and replayed limits; its
-   ms/scan is printed between the stream's over the same scans before and
-   after it; one block step of 16 revisit queries is split into build,
-   batched search and the batched tail, whose records must agree with the
-   same 16 queries run one at a time through the same code (B = 1), with
-   the device operations and host syncs of both, and the batched tail must
-   make at most 2 host syncs;
+   `step_async`; records and window state must equal the stream's first 264
+   rows (found, gidx and counters exactly), the store and keys_q too, bit
+   for bit but for float leaves the script names, held in the descriptor
+   bands; one batched ring launch and one batched tile-min launch a block,
+   one single launch of each a tail scan; both batched kernels bit-equal to
+   their plain versions on what the block build gave them (the last full
+   block's anchors and pools; the map's keys_q with that block's query keys
+   and replayed limits); its ms/scan is printed between the stream's over
+   the same scans before and after it; one block step of 16 revisit
+   queries is split into build, batched search and the batched tail, the
+   build and the tail each beside the same 16 clouds or queries run one at
+   a time through the same code (B = 1), with the device operations and
+   host syncs of both: the descriptors must agree (ints exactly, floats in
+   the descriptor bands), the records too, the batched build must make no
+   more host syncs than the slowest single build and the batched tail at
+   most 2;
 7. checkpoints: the block-built map saved and loaded on the card, the
    stream DB as a base + a delta of 16 more scans through `load_chain`, each
    equal to its original bit for bit; the block-built map merged with its
    reloaded copy into a serving map of 528 rows;
 8. serving: the 132 revisit clouds through `localize_block_async` in chunks
    of 16 (the 4-cloud tail padded) against the merged map: one batched
-   launch a chunk (bit-equal to its plain version on the merged map's
-   keys_q with the first chunk's keys and with the padded last chunk's), at
-   least half found at the right place, two records equal
-   to `query_async` on the card and on a CPU copy of the map, one
-   `range_search` equal on both; ms/query, device operations and host syncs
-   of one chunk, peak allocated bytes;
+   ring launch and one batched tile-min launch a chunk (the tile-min
+   bit-equal to its plain version on the merged map's keys_q with the first
+   chunk's keys and with the padded last chunk's, the ring on the padded
+   chunk's anchors and pools), at least half found at the right place, two
+   records equal to `query_async` on the card and on a CPU copy of the map,
+   one `range_search` equal on both; ms/query, device operations and host
+   syncs of one chunk, peak allocated bytes, and the bytes one batched
+   build of 16 adds at its peak;
 9. a 64-scan stream with `dynamic_thres=True` on the card equal to the same
    stream on the CPU, the launches and host syncs the option adds to a
    query, and one block of 16 queries with the option on the card equal to
@@ -124,6 +137,29 @@ def lm_witness(cfg, r_g, r_c, row: int) -> None:
 
 
 EXACT = [0, 1] + list(range(6, 18))      # found, gidx, counters of a record
+# descriptor leaves in the 1e-4 bands of tests/test_torch_descriptor.py
+LOOSE = ("com_r", "eig_vecs", "manual_cov", "gmm_pack", "tab12", "keys")
+
+
+def desc_leaves_close(fields, xs, ys, valid_nei, what: str) -> list:
+    """Descriptor leaves (any leading axes, on any devices): ints and bools
+    exactly; a float leaf bit for bit or else in the bands of
+    tests/test_torch_descriptor.py (floats 1e-5, keys rtol 1e-4, LOOSE atol
+    1e-4, nei_theta on valid slots). Returns [(leaf, max abs difference)]
+    of the float leaves that are not bit-equal."""
+    off = []
+    for name, x, y in zip(fields, xs, ys):
+        x, y = x.cpu(), y.cpu()
+        if torch.equal(x, y):
+            continue
+        assert x.is_floating_point(), f"{what}: {name}"
+        if name == "nei_theta":
+            x, y = x[valid_nei], y[valid_nei]
+        torch.testing.assert_close(
+            x, y, rtol=1e-4 if name == "keys" else 1e-5,
+            atol=1e-4 if name in LOOSE else 1e-5, msg=f"{what}: {name}")
+        off.append((name, float((x - y).abs().max())))
+    return off
 
 
 def assert_records_close(a, b, what: str) -> None:
@@ -150,6 +186,27 @@ def assert_dbs_equal(a, b, n: int, what: str) -> None:
         f"{what}: keys_q"
     assert torch.equal(a.ts_store[:n].cpu(), b.ts_store[:n].cpu()), \
         f"{what}: ts_store"
+
+
+def assert_dbs_close(a, b, n: int, what: str) -> list:
+    """`assert_dbs_equal` for two DBs whose descriptors were built at
+    different batch sizes: store leaves by `desc_leaves_close`; keys_q bit
+    for bit unless the keys differ, then each bf16 key within one bf16 step
+    (2^-8 relative); timestamps exactly. Returns the leaves that are not
+    bit-equal with their largest difference."""
+    off = desc_leaves_close(a.store._fields, [x[:n] for x in a.store],
+                            [x[:n] for x in b.store],
+                            b.store.nei_valid[:n].cpu(), what)
+    A = a.store.keys.shape[2]
+    ka, kb = (m.keys_q[:, :, :n * A].cpu() for m in (a, b))
+    if not torch.equal(ka.view(torch.int16), kb.view(torch.int16)):
+        assert "keys" in [o[0] for o in off], f"{what}: keys_q"
+        torch.testing.assert_close(ka.float(), kb.float(), rtol=2 ** -8,
+                                   atol=0, msg=f"{what}: keys_q")
+        off.append(("keys_q", float((ka.float() - kb.float()).abs().max())))
+    assert torch.equal(a.ts_store[:n].cpu(), b.ts_store[:n].cpu()), \
+        f"{what}: ts_store"
+    return off
 
 
 def main() -> None:
@@ -216,6 +273,23 @@ def main() -> None:
         f"{brow['singles_us_cold']:.3f} us cold in all; call {brow['ms']:.4f} "
         f"ms against {brow['singles_ms']:.4f} ms for the 16 (host + launch), "
         f"plain {brow['plain_ms']:.4f} ms ({smi})")
+    # ---- 3c. the batched ring key --------------------------------------
+    ring_case = kt.ring_block_case(dev, cfg)
+    for line in kt.ring_batch_edge_cases(dev, cfg, ring_case):
+        log(line)
+    rrow = kt.measure_ring_batch(dev, cfg, ring_case)
+    rows.append(rrow)
+    log(f"ring_key_divs_batch: {rrow['shape']}, the stream's first block: "
+        f"device {rrow['device_us_warm']:.3f} us warm, "
+        f"{rrow['device_us_cold']:.3f} us cold (torch.profiler, mean of "
+        f"200); bound {rrow['bound_us']:.4f} us by {rrow['bound_by']} "
+        f"({rrow['bytes']} B, {rrow['exps']:.0f} expf), share "
+        f"{rrow['share_of_bound']:.4f} cold; the 16 single launches of the "
+        f"same scans {rrow['singles_us_warm']:.3f} us warm, "
+        f"{rrow['singles_us_cold']:.3f} us cold in all; call "
+        f"{rrow['ms']:.4f} ms against {rrow['singles_ms']:.4f} ms for the 16 "
+        f"(host + launch), plain {rrow['plain_ms']:.4f} ms; bit-equal to "
+        f"the plain version and to the single launches ({smi})")
     kb, qk = kt.tile_store(8192)
     kq = kt.q_layout(kb, torch.bfloat16, dev)
     ql = tuple(cfg.db.q_levels)
@@ -260,6 +334,8 @@ def main() -> None:
     n_scans = len(clouds)
     assert launches["ring_key_divs"] == n_scans, launches
     assert launches["search_tilemin"] == n_scans, launches
+    assert kernels.ring_key_divs_batch.launches == 0
+    assert kernels.search_tilemin_batch.launches == 0
     ms_scan = ev0.elapsed_time(ev1) / (n_scans - WARMUP)
     ms_scan_map = ev0.elapsed_time(ev_map) / (2 * LANE_SCANS - WARMUP)
     wall_ms = 1e3 * (t_end - t_warm) / (n_scans - WARMUP)
@@ -300,21 +376,8 @@ def main() -> None:
         qpts = torch.from_numpy(clouds[row])
         desc_g = td.build_descriptor(qpts.to(dev), cm, cfg.gmm)
         desc_c = td.build_descriptor(qpts, cm, cfg.gmm)
-        # the bands of tests/test_torch_descriptor.py: ints exact, floats
-        # 1e-5, keys 1e-4, eigen-derived leaves and com_r atol 1e-4,
-        # nei_theta on valid slots
-        loose = ("com_r", "eig_vecs", "manual_cov", "gmm_pack", "tab12",
-                 "keys")
-        for name, x, y in zip(desc_g._fields, desc_g, desc_c):
-            x = x.cpu()
-            if name == "nei_theta":
-                x, y = x[desc_c.nei_valid], y[desc_c.nei_valid]
-            if x.is_floating_point():
-                torch.testing.assert_close(
-                    x, y, rtol=1e-4 if name == "keys" else 1e-5,
-                    atol=1e-4 if name in loose else 1e-5, msg=name)
-            else:
-                assert torch.equal(x, y), name
+        desc_leaves_close(desc_g._fields, desc_g, desc_c, desc_c.nei_valid,
+                          f"scan {row} on the card vs the CPU")
         state = torch.zeros(2, dtype=torch.int32)
         for j in range(row):
             state[0] = j + 1
@@ -392,15 +455,18 @@ def main() -> None:
     block_ms = ev0.elapsed_time(ev1) / N_MAP
     launches_block = {
         "ring_key_divs": kernels.ring_key_divs.launches,
+        "ring_key_divs_batch": kernels.ring_key_divs_batch.launches,
         "search_tilemin": kernels.search_tilemin.launches,
         "search_tilemin_batch": kernels.search_tilemin_batch.launches}
-    assert launches_block == {"ring_key_divs": N_MAP,
+    assert launches_block == {"ring_key_divs": N_MAP - n_full,
+                              "ring_key_divs_batch": n_full // BLOCK,
                               "search_tilemin": N_MAP - n_full,
                               "search_tilemin_batch": n_full // BLOCK}, \
         launches_block
     ring_b = db_b.recs_store[:N_MAP].cpu().numpy()
     assert_records_close(ring_b, ring[:N_MAP], "block-built ring")
-    assert_dbs_equal(db_b, db, N_MAP, "block-built map vs the stream")
+    off_map = assert_dbs_close(db_b, db, N_MAP,
+                               "block-built map vs the stream")
     state = torch.zeros(2, dtype=torch.int32)
     sb_last = []        # the last full block's searchable_b, replayed
     for j in range(N_MAP):
@@ -437,6 +503,27 @@ def main() -> None:
     hold(db_b, block_keys(np.stack(clouds[n_full - BLOCK:n_full])),
          torch.tensor(sb_last, dtype=torch.int32, device=dev),
          "block build's last full block")
+    held_ring = []
+
+    def hold_ring(points_b, what):
+        anchors_b, pool_b, centers = kt.ring_inputs_of(
+            torch.from_numpy(points_b).to(dev), cfg)
+        err = kt.hold_ring_batch(anchors_b, pool_b, centers, cm.roi_radius,
+                                 what)
+        _, counts = kernels.ring_key_divs_batch_plain(anchors_b, pool_b,
+                                                      centers, cm.roi_radius)
+        held_ring.append({"path": what, "anchors": list(anchors_b.shape),
+                          "pool": list(pool_b.shape),
+                          "counted_pixels": int(counts.sum()),
+                          "max_abs_err": err})
+        log(f"ring_key_divs_batch on the {what}: anchors "
+            f"{tuple(anchors_b.shape)}, pool {tuple(pool_b.shape)}, "
+            f"{held_ring[-1]['counted_pixels']} counted pixels: bit-equal to "
+            f"the plain version and to one single launch a scan, max abs "
+            f"err {err}")
+
+    hold_ring(np.stack(clouds[n_full - BLOCK:n_full]),
+              "block build's last full block")
     tdb.drain_block_handles(block_handles)
     db_b.drain(tail)
     assert db_b.n == N_MAP and db_b.ts == [0.1 * i for i in range(N_MAP)]
@@ -455,8 +542,10 @@ def main() -> None:
     del db_s
     log(f"block build: {N_MAP} scans in {n_full // BLOCK} blocks of {BLOCK} "
         f"and a tail of {N_MAP - n_full}: launches {launches_block}; "
-        f"records, store, keys_q and window state {state.tolist()} equal "
-        f"the stream's first {N_MAP} rows; {block_ms:.3f} ms/scan (CUDA "
+        f"records and window state {state.tolist()} equal the stream's "
+        f"first {N_MAP} rows; store and keys_q bit-equal to them but for "
+        f"{off_map or 'no leaf'} (leaf, max abs difference: in the "
+        f"descriptor bands); {block_ms:.3f} ms/scan (CUDA "
         f"events); the stream over the same scans in this call: "
         f"{ms_scan_map:.3f} ms/scan before it (after its {WARMUP}-scan "
         f"warm-up), {ms_scan_after:.3f} ms/scan after it ({smi})")
@@ -468,9 +557,28 @@ def main() -> None:
                          "batched tail vs the same queries at B = 1")
     assert int((split["records"][:, 0] > 0.5).sum()) >= BLOCK // 2
     assert split["tail_host_syncs"] <= 2, split["tail_host_syncs"]
+    assert split["build_host_syncs"] <= \
+        split["single_build_host_syncs_max"], split
+    descs_1 = split["descs_one_by_one"]
+    off_build = desc_leaves_close(descs_1._fields, split["descs"], descs_1,
+                                  descs_1.nei_valid.cpu(),
+                                  "batched build vs the 16 single builds")
     block_ops = sum(split[k] for k in ("build_device_ops",
                                        "search_device_ops",
                                        "tail_device_ops"))
+    log(f"block build split, {BLOCK} revisit clouds, a sync around each: "
+        f"one batched build {split['build_ms']:.2f} ms "
+        f"({split['build_device_ops']} device ops, the card busy "
+        f"{split['build_device_busy_ms']:.2f} ms, "
+        f"{split['build_host_syncs']} host syncs); the same {BLOCK} clouds "
+        f"built one at a time {split['builds_one_by_one_ms']:.2f} ms "
+        f"({split['builds_one_by_one_device_ops']} device ops, busy "
+        f"{split['builds_one_by_one_device_busy_ms']:.2f} ms, "
+        f"{split['builds_one_by_one_host_syncs']} host syncs, the slowest "
+        f"single build {split['single_build_host_syncs_max']}); the "
+        f"descriptors of both agree, bit for bit but for "
+        f"{off_build or 'no leaf'} (leaf, max abs difference: in the "
+        f"descriptor bands) ({smi})")
     log(f"block step split, {BLOCK} revisit queries on the block-built map, "
         f"a sync around each part: build {split['build_ms']:.2f} ms "
         f"({split['build_device_ops']} device ops), batched search "
@@ -543,10 +651,17 @@ def main() -> None:
     serve_ms = ev0.elapsed_time(ev1) / LANE_SCANS
     peak_serve = torch.cuda.max_memory_allocated()
     n_chunks = -(-LANE_SCANS // BLOCK)
-    launches_serve = kernels.search_tilemin_batch.launches
-    assert launches_serve == n_chunks and kernels.search_tilemin.launches == 0
-    ring_serve = kernels.ring_key_divs.launches   # the pad clouds build too
-    assert ring_serve == n_chunks * BLOCK, ring_serve
+    launches_serve = {
+        "ring_key_divs": kernels.ring_key_divs.launches,
+        "ring_key_divs_batch": kernels.ring_key_divs_batch.launches,
+        "search_tilemin": kernels.search_tilemin.launches,
+        "search_tilemin_batch": kernels.search_tilemin_batch.launches}
+    # one batched build a chunk: the pad clouds build in the last one
+    assert launches_serve == {"ring_key_divs": 0,
+                              "ring_key_divs_batch": n_chunks,
+                              "search_tilemin": 0,
+                              "search_tilemin_batch": n_chunks}, \
+        launches_serve
     # the batched kernel against its plain version on what serving gave it:
     # the merged map's keys_q (a partial last tile), every limit the map's
     # n; the first chunk, and the last with its zero pad clouds
@@ -559,6 +674,7 @@ def main() -> None:
                  revisit.dtype)])
     hold(served, block_keys(tail_pts), sb_serve,
          "serving map, padded last chunk")
+    hold_ring(tail_pts, "serving's padded last chunk")
     res = h_serve.get()
     assert len(res) == LANE_SCANS and served.n == 2 * N_MAP
     assert served.counters == tdb.ContourDB._zero_counters()
@@ -586,8 +702,16 @@ def main() -> None:
         revisit[:BLOCK], chunk=BLOCK))
     chunk_syncs = host_syncs(lambda: served.localize_block_async(
         revisit[:BLOCK], chunk=BLOCK))
+    # the device memory one batched build of a chunk adds at its peak
+    pts_chunk = torch.from_numpy(revisit[:BLOCK]).to(dev)
+    torch.cuda.synchronize()
+    mem_before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    td.build_descriptors(pts_chunk, cm, cfg.gmm)
+    torch.cuda.synchronize()
+    build_peak = torch.cuda.max_memory_allocated() - mem_before
     log(f"serving: {LANE_SCANS} revisit clouds in {n_chunks} chunks of "
-        f"{BLOCK} (tail padded): {launches_serve} batched tile-min launches, "
+        f"{BLOCK} (tail padded): launches {launches_serve}, "
         f"found at the right place {right}/{LANE_SCANS}; two records equal "
         f"query_async on the card and on a CPU copy of the map; "
         f"range_search {n_g} in range, equal on both; {serve_ms:.3f} "
@@ -595,7 +719,8 @@ def main() -> None:
         f"{chunk_busy:.2f} ms under the profiler) and {chunk_syncs} host "
         f"syncs a chunk of {BLOCK} (builds included), peak allocated "
         f"{peak_serve} bytes, of which {mem_held} held before by this "
-        f"script's DBs ({smi})")
+        f"script's DBs; one batched build of {BLOCK} adds {build_peak} "
+        f"bytes at its peak ({smi})")
     log(f"serving counters: {served.serving_counters}")
 
     # ---- 9. dynamic_thres -------------------------------------------------
@@ -654,17 +779,17 @@ def main() -> None:
         f"{sy_block['static']} without ({smi})")
 
     for r in rows:
-        # the stream launches the first two, the block build the batched one
+        # the stream launches the single entries, the block build the
+        # batched ones
         r["launches"] = launches.get(r["name"], launches_block[r["name"]])
         r["launches_by_path"] = {
             "stream": launches.get(r["name"], 0),
             "block_build": launches_block[r["name"]],
-            "serving": {"ring_key_divs": ring_serve,
-                        "search_tilemin": 0,
-                        "search_tilemin_batch": launches_serve}[r["name"]]}
-    brow["held_on_paths"] = held
-    brow["max_abs_err"] = max([brow["max_abs_err"]]
-                              + [h["max_abs_err"] for h in held])
+            "serving": launches_serve[r["name"]]}
+    for r, h in ((brow, held), (rrow, held_ring)):
+        r["held_on_paths"] = h
+        r["max_abs_err"] = max([r["max_abs_err"]]
+                               + [x["max_abs_err"] for x in h])
     print(json.dumps({"kernels": rows}), flush=True)
     print(kt.card(), flush=True)
     print(json.dumps({"ok": True, "device": {

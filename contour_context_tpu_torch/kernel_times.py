@@ -25,7 +25,12 @@ its phase 3. For each kernel, at the main path's shapes:
   launch costs on the device; beside it each kernel's own floor, its
   device time with nothing to do (an empty pool; searchable_n 0).
 
-Ring: the 36 anchors x 4096-pixel pool of the smoke stream's first scan.
+Ring: the 36 anchors x 4096-pixel pool of a scan of the smoke stream's
+first pose. Batched ring (`measure_ring_batch`): the 16 scans of the smoke
+stream's first block, B = 16 in one launch, beside the summed device time
+of the 16 single launches of the same scans; `ring_batch_edge_cases` holds
+it bit-equal to its plain version and to the single launches at B = 1, with
+a zero cloud (a serving pad: an empty pool) in the batch and at B = 17.
 Tile-min: a bf16 (6, 10, 49152) store (capacity 8192) at searchable_n 7000
 (the fixture, a long drive) and 246 (the smoke stream's last scans, 3% of
 capacity). Batched tile-min (`measure_batch`): the same store, B = 16
@@ -140,13 +145,16 @@ def _bound(n_bytes: float, t_ops_s: float) -> tuple:
 
 
 def ring_bound(anchors, pool, centers, counts, sms: int, clk_hz: float):
-    """(bound us, bound_by, exps) of ring_key_divs: each input read once,
-    divs and counts written once; one expf per (counted pixel, division)."""
-    out_bytes = 4 * anchors.shape[0] * (kernels.N_DIV + 1)
+    """(bound us, bound_by, exps, bytes) of ring_key_divs or, for (B, ...)
+    inputs, ring_key_divs_batch: each input read once, divs and counts
+    written once; one expf per (counted pixel, division), summed over the
+    batch."""
+    out_bytes = 4 * (anchors.numel() // 8) * (kernels.N_DIV + 1)
     n_bytes = sum(t.numel() * t.element_size()
                   for t in (anchors, pool, centers)) + out_bytes
     exps = float(counts.sum()) * kernels.N_DIV
-    return _bound(n_bytes, exps / (MUFU_PER_CLK_SM * sms * clk_hz)) + (exps,)
+    return _bound(n_bytes, exps / (MUFU_PER_CLK_SM * sms * clk_hz)) + (
+        exps, n_bytes)
 
 
 def tilemin_bound(keys_q, q, state):
@@ -202,26 +210,74 @@ def hold_batch(keys_q, q_levels, q_b, searchable_b, what: str) -> float:
     return err
 
 
-def ring_case(dev, cfg: PipelineConfig):
-    """anchors (36, 8), pool (4096, 8), centres of the smoke stream's first
-    scan, built on dev by the port's descriptor stages."""
+def ring_inputs_of(points_b, cfg: PipelineConfig):
+    """anchors (B, 36, 8), pool (B, 4096, 8) and the centres (35,) of the
+    clouds points_b (B, P, 4), built on their device by the port's
+    descriptor stages."""
+    cm = cfg.cm
+    bev, rowf, colf = td.rasterize_bev(points_b, cm)
+    masks = td.level_masks(bev, cm)
+    tab = td.component_tables(td.cc_labels(masks), masks.flatten(-2), bev,
+                              rowf, colf, cm)
+    return td.ring_inputs(tab, bev, rowf, colf, cm)[:3]
+
+
+def _world():
+    """bench.py's world and tests/synth.py's render_scan."""
     sys.path.insert(0, os.path.join(ROOT, "tests"))
     from synth import make_world, render_scan
 
+    return make_world(1, n_structs=300, extent=400.0), render_scan
+
+
+def ring_case(dev, cfg: PipelineConfig):
+    """anchors (36, 8), pool (4096, 8), centres of a scan of the smoke
+    stream's first pose (seed 1), built on dev by the port's descriptor
+    stages."""
     from contour_context_tpu_torch.profile_step import lane_poses
 
-    cm = cfg.cm
-    world = make_world(1, n_structs=300, extent=400.0)
+    world, render_scan = _world()
     pts = torch.from_numpy(pad_points(
-        render_scan(world, lane_poses(0, 1)[0], seed=1), cm.max_points)).to(dev)
-    bev, rowf, colf = td.rasterize_bev(pts, cm)
-    masks = bev.reshape(cm.n_row, cm.n_col)[None] > \
-        torch.tensor(cm.lv_grads, device=dev)[:, None, None]
-    tab = td.component_tables(td.cc_labels(masks),
-                              masks.reshape(cm.n_levels, -1), bev, rowf,
-                              colf, cm)
-    anchors, pool, centers, _ = td.ring_inputs(tab, bev, rowf, colf, cm)
-    return anchors, pool, centers
+        render_scan(world, lane_poses(0, 1)[0], seed=1), cfg.cm.max_points))
+    anchors, pool, centers = ring_inputs_of(pts[None].to(dev), cfg)
+    return anchors[0], pool[0], centers
+
+
+def ring_block_case(dev, cfg: PipelineConfig, B: int = 16):
+    """anchors (B, 36, 8), pool (B, 4096, 8), centres of the smoke stream's
+    first B scans (its seeds, drawn in order from default_rng(0)), and the
+    same of one all-zero cloud (a serving pad), built on dev."""
+    from contour_context_tpu_torch.profile_step import lane_poses
+
+    world, render_scan = _world()
+    rng = np.random.default_rng(0)
+    pts = np.stack([pad_points(render_scan(world, p, seed=int(
+        rng.integers(1 << 30))), cfg.cm.max_points)
+        for p in lane_poses(0, B)])
+    block = ring_inputs_of(torch.from_numpy(pts).to(dev), cfg)
+    zero = ring_inputs_of(torch.zeros((1,) + pts.shape[1:], device=dev), cfg)
+    return block, zero
+
+
+def hold_ring_batch(anchors_b, pool_b, centers, roi: float,
+                    what: str) -> float:
+    """One `ring_key_divs_batch` launch against its plain version and
+    against one `ring_key_divs` launch a scan, on the same tensors: raises
+    unless all three are bit-equal (divs and counts), returns the largest
+    absolute difference it measured (0.0 then)."""
+    d_k, c_k = kernels.ring_key_divs_batch(anchors_b, pool_b, centers, roi)
+    d_p, c_p = kernels.ring_key_divs_batch_plain(anchors_b, pool_b, centers,
+                                                 roi)
+    ones = [kernels.ring_key_divs(a, p, centers, roi)
+            for a, p in zip(anchors_b, pool_b)]
+    err = float((d_k - d_p).abs().max())
+    assert torch.equal(d_k, d_p) and torch.equal(c_k, c_p), \
+        f"batched ring sums differ from the plain version ({what}): " \
+        f"max abs err {err}"
+    for b, (d1, c1) in enumerate(ones):
+        assert torch.equal(d_k[b], d1) and torch.equal(c_k[b], c1), \
+            f"batched ring row {b} differs from its single launch ({what})"
+    return err
 
 
 def tile_store(N: int, seed: int = 0):
@@ -282,9 +338,9 @@ def measure(dev, cfg: PipelineConfig, reps: int = 200) -> list:
     d_k, c_k = kernels.ring_key_divs(anchors, pool, centers, roi)
     d_p, c_p = kernels.ring_key_divs_plain(anchors, pool, centers, roi)
     torch.cuda.synchronize()
-    torch.testing.assert_close(d_k, d_p, rtol=1e-5, atol=1e-5)
-    assert torch.equal(c_k, c_p) and float(c_p.sum()) > 0
-    b_us, b_by, exps = ring_bound(anchors, pool, centers, c_p, sms, clk)
+    assert torch.equal(d_k, d_p) and torch.equal(c_k, c_p)
+    assert float(c_p.sum()) > 0
+    b_us, b_by, exps, _ = ring_bound(anchors, pool, centers, c_p, sms, clk)
     empty = pool[:0]
     ring_empty_us = device_us(
         lambda: kernels.ring_key_divs(anchors, empty, centers, roi),
@@ -374,6 +430,69 @@ def measure_batch(dev, cfg: PipelineConfig, reps: int = 200) -> dict:
     return _shares(row)
 
 
+def measure_ring_batch(dev, cfg: PipelineConfig, case=None,
+                       reps: int = 200) -> dict:
+    """The batched ring's row at the smoke stream's first block of 16
+    (`ring_block_case`, or `case` as it returns), held bit-equal to its
+    plain version and to the 16 single launches first, with the 16 single
+    launches' device and call times beside it."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    clk = max_sm_clock_hz()
+    roi = cfg.cm.roi_radius
+    (anchors, pool, centers), _ = case or ring_block_case(dev, cfg)
+    B = anchors.shape[0]
+    err = hold_ring_batch(anchors, pool, centers, roi,
+                          "the smoke stream's first block")
+    _, c_p = kernels.ring_key_divs_batch_plain(anchors, pool, centers, roi)
+    b_us, b_by, exps, n_bytes = ring_bound(anchors, pool, centers, c_p, sms,
+                                           clk)
+
+    def batch():
+        kernels.ring_key_divs_batch(anchors, pool, centers, roi)
+
+    def singles():
+        for b in range(B):
+            kernels.ring_key_divs(anchors[b], pool[b], centers, roi)
+
+    row = dict(
+        name="ring_key_divs_batch", route="cuda",
+        source="contour_context_tpu_torch/csrc/ring_key.cu",
+        replaces=REPLACES + ":40", library_ms=None,
+        shape=f"anchors {tuple(anchors.shape)} pool {tuple(pool.shape)}",
+        counted_pixels=int(c_p.sum()), exps=exps, bytes=n_bytes,
+        max_abs_err=err, bound_us=b_us, bound_by=b_by,
+        **_measure(batch, lambda: kernels.ring_key_divs_batch_plain(
+            anchors, pool, centers, roi), "ring_key_divs_kernel", reps),
+        singles_us_warm=device_us(singles, "ring_key_divs_kernel", reps,
+                                  cold=False, per_call=B),
+        singles_us_cold=device_us(singles, "ring_key_divs_kernel", reps,
+                                  cold=True, per_call=B),
+        singles_ms=call_ms(singles))
+    return _shares(row)
+
+
+def ring_batch_edge_cases(dev, cfg: PipelineConfig, case=None) -> list:
+    """The batched ring against its plain version and its single launches,
+    bit for bit: B = 1, a zero cloud (an empty pool) inside a batch, and
+    B = 17 (the block and the zero cloud). Raises on the first mismatch;
+    returns one line per case."""
+    roi = cfg.cm.roi_radius
+    (anchors, pool, centers), (za, zp, _) = case or ring_block_case(dev, cfg)
+    lines = []
+    for label, a, p in (
+            ("B 1", anchors[:1], pool[:1]),
+            ("B 3, a zero cloud in row 1", torch.cat([anchors[:1], za,
+                                                      anchors[1:2]]),
+             torch.cat([pool[:1], zp, pool[1:2]])),
+            ("B 17", torch.cat([anchors, za]), torch.cat([pool, zp]))):
+        hold_ring_batch(a, p, centers, roi, label)
+        torch.cuda.synchronize()
+        lines.append(f"ring_key_divs_batch {label}: bit-equal to the plain "
+                     "version and to one single launch a scan")
+    assert not zp[0, :, 5].any()
+    return lines
+
+
 def batch_edge_cases(dev, cfg: PipelineConfig) -> list:
     """The batched tile-min against its plain version at the edge shapes:
     bf16 and f32, the vector path and the scalar path (NA 390), B = 1 equal
@@ -423,10 +542,9 @@ def edge_cases(dev, cfg: PipelineConfig) -> list:
         d_k, c_k = kernels.ring_key_divs(a, p, centers, roi)
         d_p, c_p = kernels.ring_key_divs_plain(a, p, centers, roi)
         torch.cuda.synchronize()
-        torch.testing.assert_close(d_k, d_p, rtol=1e-5, atol=1e-5)
-        assert torch.equal(c_k, c_p), label
-        lines.append(f"ring_key_divs {label}: counts exact, divs max err "
-                     f"{float((d_k - d_p).abs().max()):.3g}")
+        assert torch.equal(d_k, d_p) and torch.equal(c_k, c_p), label
+        lines.append(f"ring_key_divs {label}: bit-equal to the plain "
+                     "version")
     ql = tuple(cfg.db.q_levels)
     for N, sns, offset in ((8192, (0, 1, 7000, 8192), 0), (65, (0, 1, 33, 65), 0),
                            (8192, (7000,), 1)):
@@ -461,9 +579,13 @@ def main(argv: Optional[Sequence[str]] = None) -> list:
     kernels.build()
     dev = torch.device("cuda", 0)
     cfg = PipelineConfig()
-    for line in edge_cases(dev, cfg) + batch_edge_cases(dev, cfg):
+    case = ring_block_case(dev, cfg)
+    for line in edge_cases(dev, cfg) + batch_edge_cases(dev, cfg) + \
+            ring_batch_edge_cases(dev, cfg, case):
         print(line, flush=True)
-    rows = measure(dev, cfg, args.reps) + [measure_batch(dev, cfg, args.reps)]
+    rows = measure(dev, cfg, args.reps) + [
+        measure_batch(dev, cfg, args.reps),
+        measure_ring_batch(dev, cfg, case, args.reps)]
     for r in rows:
         print(json.dumps(r), flush=True)
     floor = launch_floor_us(dev, args.reps)

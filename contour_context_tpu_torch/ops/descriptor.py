@@ -1,10 +1,17 @@
-"""Per-scan descriptor build: points -> ScanDesc, in torch.
+"""Descriptor build: points -> ScanDesc, for one scan or a batch, in torch.
 
 Port of `contour_context_tpu/ops/descriptor.py` (the reference's makeBEV +
 makeContoursRecurs + key/BCI generation, contour_mng.h:505-960): BEV raster,
 per-level 8-connected components, top-K contour tables with moments and a
 closed-form eigen-decomposition, ring-histogram retrieval keys (through the
-`ring_key_divs` kernel), BCI neighbour tables and the GMM summary.
+ring-key kernel), BCI neighbour tables and the GMM summary.
+
+Every stage takes any leading axes (a scan is the empty batch), as the JAX
+package's `jax.vmap(build_descriptor)` batches them: a batch of B scans runs
+each stage once, with one ring-key launch and one CC fixpoint check a
+propagate for the whole batch. Every reduction runs over the trailing
+extents of one scan, so on the CPU a scan's row of a batch is bit-equal to
+its build alone.
 """
 
 from __future__ import annotations
@@ -23,10 +30,12 @@ from contour_context_tpu_torch.config import (
 )
 from contour_context_tpu_torch.ops.candidate import select_topk_stable
 from contour_context_tpu_torch.ops.gmm import l2_pairwise
-from contour_context_tpu_torch.ops.kernels import ring_key_divs
+from contour_context_tpu_torch.ops.kernels import (ring_key_divs,
+                                                   ring_key_divs_batch)
 from contour_context_tpu_torch.types import ScanDesc, device_const
 
 VAL_ABS_INF = 1e3
+DESC_BATCH = 16      # scans a sub-batch of build_descriptors (db.DESC_BATCH)
 
 
 # ---------------------------------------------------------------------------
@@ -34,15 +43,21 @@ VAL_ABS_INF = 1e3
 # ---------------------------------------------------------------------------
 
 def rasterize_bev(points, cfg: ContourManagerConfig):
-    """points (P, 4) f32 [x y z valid] -> (bev, rowf, colf), each (S,) f32.
+    """points (..., P, 4) f32 [x y z valid] -> (bev, rowf, colf), each
+    (..., S) f32.
 
     Per-pixel max of z + lidar_height; the continuous (row, col) payload is
     that of the first point in array order reaching the max (the
-    reference's strict `<` update)."""
+    reference's strict `<` update). Each scan scatters into its own row of
+    (B, S + 1) bins, and the winner is the least index of the scan's own
+    points."""
     nr, nc = cfg.n_row, cfg.n_col
     S = nr * nc
     dev = points.device
-    x, y, z, flag = points[:, 0], points[:, 1], points[:, 2], points[:, 3]
+    lead, P = points.shape[:-2], points.shape[-2]
+    pts = points.reshape(-1, P, 4)
+    B = pts.shape[0]
+    x, y, z, flag = pts.unbind(-1)                          # (B, P) each
     pad = 1e-2
     x_min, x_max = -(nr // 2) * cfg.reso_row, (nr // 2) * cfg.reso_row
     y_min, y_max = -(nc // 2) * cfg.reso_col, (nc // 2) * cfg.reso_col
@@ -59,20 +74,29 @@ def rasterize_bev(points, cfg: ContourManagerConfig):
     ok &= torch.isfinite(h)
     pid = torch.where(ok, row * nc + col, S).long()
     hm = torch.where(ok, h, -math.inf)
-    best = torch.full((S + 1,), -math.inf, dtype=torch.float32, device=dev)
-    best.scatter_reduce_(0, pid, hm, reduce="amax", include_self=True)
-    P = points.shape[0]
-    at_max = ok & (hm == best[pid])
+    best = torch.full((B, S + 1), -math.inf, dtype=torch.float32, device=dev)
+    best.scatter_reduce_(1, pid, hm, reduce="amax", include_self=True)
+    at_max = ok & (hm == best.gather(1, pid))
     idx = torch.where(at_max, torch.arange(P, device=dev), P)
-    win = torch.full((S + 1,), P, dtype=torch.long, device=dev)
-    win.scatter_reduce_(0, pid, idx, reduce="amin", include_self=True)
-    win = win[:S]
+    win = torch.full((B, S + 1), P, dtype=torch.long, device=dev)
+    win.scatter_reduce_(1, pid, idx, reduce="amin", include_self=True)
+    win = win[:, :S]
     has = win < P
     wi = win.clamp(max=P - 1)
-    bev = torch.where(has, best[:S], -VAL_ABS_INF)
-    rowf = torch.where(has, x[wi] / cfg.reso_row + nr / 2 - 0.5, -1.0)
-    colf = torch.where(has, y[wi] / cfg.reso_col + nc / 2 - 0.5, -1.0)
-    return bev, rowf, colf
+    bev = torch.where(has, best[:, :S], -VAL_ABS_INF)
+    rowf = torch.where(has, x.gather(1, wi) / cfg.reso_row + nr / 2 - 0.5,
+                       -1.0)
+    colf = torch.where(has, y.gather(1, wi) / cfg.reso_col + nc / 2 - 0.5,
+                       -1.0)
+    return tuple(t.reshape(lead + (S,)) for t in (bev, rowf, colf))
+
+
+def level_masks(bev, cfg: ContourManagerConfig):
+    """bev (..., S) -> (..., L, n_row, n_col) bool: the pixels above each
+    level's height."""
+    grads = device_const(tuple(cfg.lv_grads), torch.float32, bev.device)
+    return bev.reshape(bev.shape[:-1] + (1, cfg.n_row, cfg.n_col)) > \
+        grads[:, None, None]
 
 
 # ---------------------------------------------------------------------------
@@ -92,8 +116,9 @@ def _shift(x, d: int, dim: int, fill):
 
 
 def cc_labels(masks):
-    """masks (L, nr, nc) bool -> labels (L, nr*nc) int32: 8-connected
+    """masks (..., nr, nc) bool -> labels (..., nr*nc) int32: 8-connected
     components labelled by their minimum linear pixel index, background S.
+    Every leading index (a level of a scan) is labelled on its own.
 
     Each propagate takes the 3x3 window min, then flushes the running min
     along whole foreground runs of every row and then every column. A
@@ -102,8 +127,10 @@ def cc_labels(masks):
     the packing of cc_labels' "hillis" flush, here as torch.cummax (and a
     flipped cummax for the reverse direction). Runs to the fixpoint, so the
     labels do not depend on the number of propagates; one host sync per
-    convergence check."""
-    L, nr, nc = masks.shape
+    convergence check, for the whole batch: the loop runs until the slowest
+    level converges, and more propagates do not change a converged one."""
+    lead, (nr, nc) = masks.shape[:-2], masks.shape[-2:]
+    masks = masks.reshape(-1, nr, nc)
     S = nr * nc
     if S >= 1 << 15:
         raise ValueError("cc_labels packs labels in 15 bits: n_row*n_col "
@@ -144,7 +171,7 @@ def cc_labels(masks):
     for _ in range(S):
         new = propagate(lab)
         if torch.equal(new, lab):           # host sync
-            return lab.reshape(L, S)
+            return lab.reshape(lead + (S,))
         lab = new
     raise RuntimeError("cc_labels did not converge")
 
@@ -155,43 +182,47 @@ def cc_labels(masks):
 
 def component_tables(labels, masks_flat, bev, rowf, colf,
                      cfg: ContourManagerConfig) -> dict:
-    """Per-level top-K contour statistics (descriptor.py:284-438)."""
-    L, S = labels.shape
+    """Per-level top-K contour statistics (descriptor.py:284-438): labels
+    and masks_flat (..., L, S), bev/rowf/colf (..., S) -> (..., L, K, ...)
+    tables."""
+    S = labels.shape[-1]
     K = cfg.max_contours
     sc = cfg.view_stat
     dev = labels.device
     lab64 = labels.long()
     # cell count of each label (torch.bincount would sync the host to size
     # its output)
-    counts = torch.zeros((L, S + 1), dtype=torch.int32, device=dev) \
-        .scatter_add_(1, lab64, torch.ones_like(labels))
-    cnt_pix = torch.where(masks_flat, torch.gather(counts, 1, lab64), 0) \
+    counts = torch.zeros(labels.shape[:-1] + (S + 1,), dtype=torch.int32,
+                         device=dev) \
+        .scatter_add_(-1, lab64, torch.ones_like(labels))
+    cnt_pix = torch.where(masks_flat, torch.gather(counts, -1, lab64), 0) \
         .to(torch.int32)
     min_ok = cnt_pix >= cfg.min_cont_cell_cnt
-    valid_pix = torch.cummin(min_ok.to(torch.int32), 0).values > 0
-    iota_s = torch.arange(S, dtype=torch.int32, device=dev)[None]
+    # a pixel is valid while it is valid at every lower level
+    valid_pix = torch.cummin(min_ok.to(torch.int32), -2).values > 0
+    iota_s = torch.arange(S, dtype=torch.int32, device=dev)
     valid_rep = (labels == iota_s) & valid_pix
-    layer_cell_cnt = valid_pix.sum(1).to(torch.int32)
-    n_cont = valid_rep.sum(1).to(torch.int32)
+    layer_cell_cnt = valid_pix.sum(-1).to(torch.int32)
+    n_cont = valid_rep.sum(-1).to(torch.int32)
 
     # top-K by (count desc, min pixel asc): stable sort, invalid last
     sort_key = torch.where(valid_rep, -cnt_pix, 1)
-    order_k = torch.sort(sort_key, dim=1, stable=True).indices[:, :K]
-    sel_valid = torch.gather(valid_rep, 1, order_k)
+    order_k = torch.sort(sort_key, dim=-1, stable=True).indices[..., :K]
+    sel_valid = torch.gather(valid_rep, -1, order_k)
     rep = torch.where(sel_valid, order_k.to(torch.int32), S)
 
-    sel = (labels[:, None, :] == torch.clamp(rep, max=S - 1)[:, :, None]) \
-        & (rep[:, :, None] < S)                         # (L, K, S)
-    # the per-component sums accumulate in float64 and round once: every
-    # float32 reduction order rounds differently, and com_r and the
-    # off-diagonal covariance cancel large terms
+    sel = (labels[..., None, :] == torch.clamp(rep, max=S - 1)[..., None]) \
+        & (rep[..., None] < S)                          # (..., L, K, S)
+    # the per-component sums accumulate in float64 over the S pixels of one
+    # scan and round once: every float32 reduction order rounds differently,
+    # and com_r and the off-diagonal covariance cancel large terms
     f64 = torch.float64
-    ch1 = torch.stack([rowf, colf, bev, bev * rowf, bev * colf])   # (5, S)
-    sums = torch.einsum("lks,cs->lkc", sel.to(f64), ch1.to(f64)) \
+    ch1 = torch.stack([rowf, colf, bev, bev * rowf, bev * colf], -2)
+    sums = torch.einsum("...lks,...cs->...lkc", sel.to(f64), ch1.to(f64)) \
         .to(torch.float32)
     s_r, s_c, s_h, s_hr, s_hc = sums.unbind(-1)
 
-    g_cnt = torch.where(sel_valid, torch.gather(cnt_pix, 1, order_k), 0)
+    g_cnt = torch.where(sel_valid, torch.gather(cnt_pix, -1, order_k), 0)
     g_n = torch.clamp(g_cnt, min=1).to(torch.float32)
     mean_r = s_r / g_n
     mean_c = s_c / g_n
@@ -200,8 +231,8 @@ def component_tables(labels, masks_flat, bev, rowf, colf,
         torch.clamp(s_h, min=1e-12)[..., None]
     g_vol3_mean = s_h / g_n
 
-    dr = torch.where(sel, rowf[None, None, :] - mean_r[:, :, None], 0.0)
-    dc = torch.where(sel, colf[None, None, :] - mean_c[:, :, None], 0.0)
+    dr = torch.where(sel, rowf[..., None, None, :] - mean_r[..., None], 0.0)
+    dc = torch.where(sel, colf[..., None, None, :] - mean_c[..., None], 0.0)
     nm1 = torch.clamp(g_n - 1.0, min=1.0)
     a = (dr * dr).sum(-1, dtype=f64).to(torch.float32) / nm1
     b = (dr * dc).sum(-1, dtype=f64).to(torch.float32) / nm1
@@ -237,7 +268,7 @@ def component_tables(labels, masks_flat, bev, rowf, colf,
     dcm = g_com - g_mean
     com_r = torch.sqrt(dcm[..., 0] * dcm[..., 0] + dcm[..., 1] * dcm[..., 1])
     cont_perc = g_cnt.to(torch.float32) / torch.clamp(
-        layer_cell_cnt.to(torch.float32), min=1.0)[:, None]
+        layer_cell_cnt.to(torch.float32), min=1.0)[..., None]
     return dict(cnt=g_cnt, valid=sel_valid, mean=g_mean, eig_vals=eig_vals,
                 eig_vecs=eig_vecs, manual_cov=manual_cov,
                 vol3_mean=g_vol3_mean, com_r=com_r, ecc_feat=ecc_feat,
@@ -250,10 +281,11 @@ def component_tables(labels, masks_flat, bev, rowf, colf,
 # ---------------------------------------------------------------------------
 
 def ring_inputs(tab: dict, bev, rowf, colf, cfg: ContourManagerConfig):
-    """The ring contraction's inputs (descriptor.py:456-517): anchors
-    (L*A, 8) [v0, v1, r_min, r_max, c_min, c_max, 1, 0], the compacted pixel
-    pool (pix_pool, 8) [p_r, p_c, rowf, colf, higher, ok, 0, 0], the
-    division centres (35,) and the pool's overflow count."""
+    """The ring contraction's inputs (descriptor.py:456-517), each scan's
+    own: anchors (..., L*A, 8) [v0, v1, r_min, r_max, c_min, c_max, 1, 0],
+    the compacted pixel pool (..., pix_pool, 8) [p_r, p_c, rowf, colf,
+    higher, ok, 0, 0], the shared division centres (35,) and the pool's
+    overflow count (...)."""
     L, A = cfg.n_levels, cfg.piv_firsts
     nr, nc = cfg.n_row, cfg.n_col
     S = nr * nc
@@ -266,21 +298,22 @@ def ring_inputs(tab: dict, bev, rowf, colf, cfg: ContourManagerConfig):
     h_gate = cfg.lv_grads[DIST_BIN_LAYERS[0]]
 
     pvalid = bev > h_gate
-    full_higher = torch.zeros(S, dtype=torch.float32, device=dev)
+    full_higher = torch.zeros_like(bev)
     for ele in range(DIST_BIN_LAYERS[0], L):
         full_higher = full_higher + (bev > cfg.lv_grads[ele]).to(torch.float32)
     order, p_ok, _, pix_overflow = select_topk_stable(
         -full_higher, pvalid, min(cfg.pix_pool, S))
     p_r = (order // nc).to(torch.float32)
     p_c = (order % nc).to(torch.float32)
-    higher = torch.where(p_ok, full_higher[order], 0.0)
+    higher = torch.where(p_ok, full_higher.gather(-1, order), 0.0)
     zp = torch.zeros_like(higher)
-    pool = torch.stack([p_r, p_c, rowf[order], colf[order], higher,
-                        p_ok.to(torch.float32), zp, zp], dim=1)
+    pool = torch.stack([p_r, p_c, rowf.gather(-1, order),
+                        colf.gather(-1, order), higher,
+                        p_ok.to(torch.float32), zp, zp], dim=-1)
 
-    mean = tab["mean"][:, :A]
-    v0 = mean[..., 0].reshape(-1)
-    v1 = mean[..., 1].reshape(-1)
+    mean = tab["mean"][..., :A, :]
+    v0 = mean[..., 0].flatten(-2)
+    v1 = mean[..., 1].flatten(-2)
     r_cen = v0.to(torch.int32)                     # C trunc toward zero
     c_cen = v1.to(torch.int32)
     f32 = torch.float32
@@ -289,32 +322,43 @@ def ring_inputs(tab: dict, bev, rowf, colf, cfg: ContourManagerConfig):
         torch.clamp(r_cen + roi_pad, max=nr - 1).to(f32),
         torch.clamp(c_cen - roi_pad, min=0).to(f32),
         torch.clamp(c_cen + roi_pad, max=nc - 1).to(f32),
-        torch.ones_like(v0), torch.zeros_like(v0)], dim=1)
+        torch.ones_like(v0), torch.zeros_like(v0)], dim=-1)
     return anchors, pool, div_centers, pix_overflow
 
 
 def make_keys(tab: dict, bev, rowf, colf, cfg: ContourManagerConfig):
-    """(L, A, 10) retrieval keys (zero for invalid anchors), the anchor
-    validity (L, A) and the pixel-pool overflow count."""
+    """(..., L, A, 10) retrieval keys (zero for invalid anchors), the anchor
+    validity (..., L, A) and the pixel-pool overflow count (...). The ring
+    sums of all the scans are one kernel launch: `ring_key_divs_batch`, or
+    `ring_key_divs` for a single scan (the stream)."""
     L, A = cfg.n_levels, cfg.piv_firsts
     num_bins = RET_KEY_DIM - 3
     bin_len = cfg.roi_radius / num_bins
     anchors, pool, centers, pix_overflow = ring_inputs(tab, bev, rowf, colf,
                                                        cfg)
-    divs, cnt_point = ring_key_divs(anchors, pool, centers, cfg.roi_radius)
-    ring = divs.reshape(-1, num_bins, 5).sum(-1)
+    lead = anchors.shape[:-2]
+    anchors_b = anchors.reshape((-1,) + anchors.shape[-2:])
+    pool_b = pool.reshape((-1,) + pool.shape[-2:])
+    if anchors_b.shape[0] == 1:
+        divs, cnt_point = (x[None] for x in ring_key_divs(
+            anchors_b[0], pool_b[0], centers, cfg.roi_radius))
+    else:
+        divs, cnt_point = ring_key_divs_batch(anchors_b, pool_b, centers,
+                                              cfg.roi_radius)
+    ring = divs.reshape(lead + (L * A, num_bins, 5)).sum(-1)
+    cnt_point = cnt_point.reshape(lead + (L * A,))
     ring = torch.where(
-        cnt_point[:, None] > 0,
-        ring * bin_len / torch.sqrt(torch.clamp(cnt_point, min=1.0))[:, None],
+        cnt_point[..., None] > 0,
+        ring * bin_len / torch.sqrt(torch.clamp(cnt_point, min=1.0))[..., None],
         0.0)
-    cnt = tab["cnt"][:, :A]
-    anch_valid = tab["valid"][:, :A] & (cnt >= cfg.min_cont_key_cnt)
+    cnt = tab["cnt"][..., :A]
+    anch_valid = tab["valid"][..., :A] & (cnt >= cfg.min_cont_key_cnt)
     cntf = cnt.to(torch.float32)
-    k0 = torch.sqrt(tab["eig_vals"][:, :A, 1] * cntf)
-    k1 = torch.sqrt(tab["eig_vals"][:, :A, 0] * cntf)
-    k2 = torch.sqrt(torch.cumsum(cnt, 1).to(torch.float32))
+    k0 = torch.sqrt(tab["eig_vals"][..., :A, 1] * cntf)
+    k1 = torch.sqrt(tab["eig_vals"][..., :A, 0] * cntf)
+    k2 = torch.sqrt(torch.cumsum(cnt, -1).to(torch.float32))
     keys = torch.cat([torch.stack([k0, k1, k2], -1),
-                      ring.reshape(L, A, num_bins)], -1)
+                      ring.reshape(lead + (L, A, num_bins))], -1)
     keys = torch.where(anch_valid[..., None], keys, 0.0)
     return keys, anch_valid, pix_overflow
 
@@ -324,22 +368,27 @@ def make_keys(tab: dict, bev, rowf, colf, cfg: ContourManagerConfig):
 # ---------------------------------------------------------------------------
 
 def make_bcis(tab: dict, anch_valid, cfg: ContourManagerConfig) -> dict:
+    """(..., L, A, M) neighbour tables of each scan's anchors over the
+    DIST_BIN_LAYERS levels of the same scan."""
     L, A, J = cfg.n_levels, cfg.piv_firsts, cfg.dist_firsts
     M = NUM_BIN_KEY_LAYER * J
     dev = anch_valid.device
     i32 = torch.int32
-    mean = tab["mean"]
-    n_cont = tab["n_cont"]
+    mean = tab["mean"]                                   # (..., L, K, 2)
+    n_cont = tab["n_cont"]                               # (..., L)
     lay_idx = device_const(DIST_BIN_LAYERS, torch.long, dev)
-    anchor_mean = mean[:, :A]
-    nei_mean = mean[lay_idx][:, :J]
-    if nei_mean.shape[1] < J:
+    anchor_mean = mean[..., :A, :]
+    # the level axis, not the batch's
+    nei_mean = mean.index_select(-3, lay_idx)[..., :J, :]
+    if nei_mean.shape[-2] < J:
         nei_mean = torch.nn.functional.pad(
-            nei_mean, (0, 0, 0, J - nei_mean.shape[1]))
+            nei_mean, (0, 0, 0, J - nei_mean.shape[-2]))
     ar_j = torch.arange(J, dtype=i32, device=dev)
-    nei_exists = ar_j[None, :] < torch.clamp(n_cont[lay_idx], max=J)[:, None]
+    nei_exists = ar_j < torch.clamp(n_cont.index_select(-1, lay_idx),
+                                    max=J)[..., None]     # (..., 4, J)
 
-    vec = nei_mean[None, None] - anchor_mean[:, :, None, None]  # (L,A,4,J,2)
+    vec = nei_mean[..., None, None, :, :, :] - \
+        anchor_mean[..., :, :, None, None, :]            # (..., L,A,4,J,2)
     d = torch.sqrt(vec[..., 0] * vec[..., 0] + vec[..., 1] * vec[..., 1])
     theta = torch.atan2(vec[..., 1], vec[..., 0])
     d_hi = (BITS_PER_LAYER - 1) * 1.01 + 5.43 - 1e-3
@@ -348,7 +397,7 @@ def make_bcis(tab: dict, anch_valid, cfg: ContourManagerConfig) -> dict:
     seq_ar = torch.arange(A, dtype=i32, device=dev)
     is_self = (lay_idx[None, None, :, None] == ll_ar[:, None, None, None]) & \
         (ar_j[None, None, None, :] == seq_ar[None, :, None, None])
-    valid = nei_exists[None, None] & in_rng & ~is_self & \
+    valid = nei_exists[..., None, None, :, :] & in_rng & ~is_self & \
         anch_valid[..., None, None]
     bit_local = torch.clamp(torch.floor((d - 5.43) / 1.01),
                             max=BITS_PER_LAYER - 1.0)
@@ -359,7 +408,7 @@ def make_bcis(tab: dict, anch_valid, cfg: ContourManagerConfig) -> dict:
     nei_seq = ar_j[None, None, None, :].expand(valid.shape)
 
     def flat(x):
-        return x.reshape(L, A, M)
+        return x.reshape(x.shape[:-2] + (M,))
 
     valid, bit, theta, nei_level, nei_seq = map(
         flat, (valid, bit, theta, nei_level, nei_seq))
@@ -382,19 +431,22 @@ def make_bcis(tab: dict, anch_valid, cfg: ContourManagerConfig) -> dict:
 # ---------------------------------------------------------------------------
 
 def gmm_summary(tab: dict, gmm_cfg: GMMOptConfig):
-    cnt = tab["cnt"].to(torch.float32)
+    """(gmm_mask (..., L, K), auto_corr (...), gmm_overflow (...)): the
+    self-correlation and overflow are sums over each scan's own levels."""
+    cnt = tab["cnt"].to(torch.float32)                   # (..., L, K)
     lcc = torch.clamp(tab["layer_cell_cnt"].to(torch.float32), min=1.0)
-    ex_cum = torch.cumsum(cnt, 1) - cnt
-    gmm_mask = tab["valid"] & (ex_cum / lcc[:, None] < gmm_cfg.min_area_perc)
+    ex_cum = torch.cumsum(cnt, -1) - cnt
+    gmm_mask = tab["valid"] & (ex_cum / lcc[..., None] <
+                               gmm_cfg.min_area_perc)
     lev = device_const(tuple(gmm_cfg.levels), torch.long, cnt.device)
-    mus = tab["mean"][lev]
-    covs = tab["manual_cov"][lev]
-    ws = torch.where(gmm_mask[lev], cnt[lev], 0.0)
+    mus = tab["mean"].index_select(-3, lev)
+    covs = tab["manual_cov"].index_select(-4, lev)
+    mask_g = gmm_mask.index_select(-2, lev)
+    ws = torch.where(mask_g, cnt.index_select(-2, lev), 0.0)
     auto_corr = l2_pairwise(mus, covs, ws, mus, covs, ws,
-                            gmm_cfg.cov_dilate_scale).sum()
-    prefix_n = gmm_mask[lev].sum(1)
-    gmm_overflow = torch.clamp(prefix_n - gmm_cfg.max_gmm_ellipses,
-                               min=0).sum().to(torch.int32)
+                            gmm_cfg.cov_dilate_scale).sum((-3, -2, -1))
+    gmm_overflow = torch.clamp(mask_g.sum(-1) - gmm_cfg.max_gmm_ellipses,
+                               min=0).sum(-1).to(torch.int32)
     return gmm_mask, auto_corr.to(torch.float32), gmm_overflow
 
 
@@ -459,24 +511,22 @@ def gmm_pack_of(desc, gmm_cfg) -> torch.Tensor:
 
 def dequantize_points(points):
     """int16 q16 wire format (1/256 m steps, utils/io.quantize_points_q16)
-    -> f32 [x y z valid]; f32 points pass through."""
+    -> f32 [x y z valid], for (..., P, 4) points; f32 points pass
+    through."""
     if points.dtype != torch.int16:
         return points
     pf = points.to(torch.float32)
-    return torch.cat([pf[:, :3] * (1.0 / 256.0), pf[:, 3:4]], dim=1)
+    return torch.cat([pf[..., :3] * (1.0 / 256.0), pf[..., 3:4]], dim=-1)
 
 
-def build_descriptor(points, cfg: ContourManagerConfig,
-                     gmm_cfg: GMMOptConfig = GMMOptConfig()) -> ScanDesc:
-    """points (P, 4) f32 (or int16 q16) on any device -> ScanDesc there."""
-    points = dequantize_points(points)
-    nr, nc = cfg.n_row, cfg.n_col
-    bev, rowf, colf = rasterize_bev(points, cfg)
-    grads = device_const(tuple(cfg.lv_grads), torch.float32, bev.device)
-    masks = bev.reshape(nr, nc)[None] > grads[:, None, None]
+def _build_batch(points_b, cfg: ContourManagerConfig,
+                 gmm_cfg: GMMOptConfig) -> ScanDesc:
+    """Every stage once over the B scans of points_b (B, P, 4)."""
+    points_b = dequantize_points(points_b)
+    bev, rowf, colf = rasterize_bev(points_b, cfg)
+    masks = level_masks(bev, cfg)
     labels = cc_labels(masks)
-    tab = component_tables(labels, masks.reshape(cfg.n_levels, -1), bev,
-                           rowf, colf, cfg)
+    tab = component_tables(labels, masks.flatten(-2), bev, rowf, colf, cfg)
     keys, anch_valid, pix_overflow = make_keys(tab, bev, rowf, colf, cfg)
     bci = make_bcis(tab, anch_valid, cfg)
     gmm_mask, auto_corr, gmm_overflow = gmm_summary(tab, gmm_cfg)
@@ -500,9 +550,27 @@ def build_descriptor(points, cfg: ContourManagerConfig,
 
 
 def build_descriptors(points_b, cfg: ContourManagerConfig,
-                      gmm_cfg: GMMOptConfig = GMMOptConfig()) -> ScanDesc:
-    """points_b (B, P, 4) -> the B-stacked ScanDesc of a block: one
-    build_descriptor a scan (the ring kernel launches once a scan), stacked
-    leaf by leaf."""
-    descs = [build_descriptor(p, cfg, gmm_cfg) for p in points_b]
-    return ScanDesc(*[torch.stack(xs) for xs in zip(*descs)])
+                      gmm_cfg: GMMOptConfig = GMMOptConfig(),
+                      batch: int = DESC_BATCH) -> ScanDesc:
+    """points_b (B, P, 4) f32 (or int16 q16) on any device -> the B-stacked
+    ScanDesc there: the port of `db._build_descs_chunked`
+    (`jax.vmap(build_descriptor)` over sub-batches). Each sub-batch of at
+    most `batch` scans runs every stage once, with one ring-key launch; the
+    sub-batches are concatenated. Sub-batching bounds the (batch, L, K, S)
+    membership temporaries of `component_tables` (~1.1 GB of float64 at 16
+    scans) whatever B is."""
+    B = points_b.shape[0]
+    batch = max(1, batch)
+    if B <= batch:
+        return _build_batch(points_b, cfg, gmm_cfg)
+    parts = [_build_batch(points_b[i:i + batch], cfg, gmm_cfg)
+             for i in range(0, B, batch)]
+    return ScanDesc(*[torch.cat(xs) for xs in zip(*parts)])
+
+
+def build_descriptor(points, cfg: ContourManagerConfig,
+                     gmm_cfg: GMMOptConfig = GMMOptConfig()) -> ScanDesc:
+    """points (P, 4) f32 (or int16 q16) on any device -> ScanDesc there:
+    `build_descriptors` of a batch of one, the batch axis stripped."""
+    return ScanDesc(*[x[0] for x in build_descriptors(points[None], cfg,
+                                                      gmm_cfg)])

@@ -1,10 +1,14 @@
 """The port's hand-written CUDA kernels, their plain torch twins, and the build.
 
-Three kernel entries replace the JAX package's two Pallas kernels
+Four kernel entries replace the JAX package's two Pallas kernels
 (`contour_context_tpu/ops/pallas_kernels.py`):
 
 - `ring_key_divs` (csrc/ring_key.cu): the ring-key Gaussian contraction of
   `make_keys`, replacing `_ring_kernel`.
+- `ring_key_divs_batch` (the same `__global__` with a batch grid axis): the
+  same for the B scans of a block or serving chunk in one launch (what
+  `jax.vmap(build_descriptor)` makes of `_ring_kernel`); `ring_key_divs` is
+  its B = 1 launch.
 - `search_tilemin` (csrc/search_tilemin.cu): stage 1 of the tile-min-cover key
   search (masked squared key distance + per-128-column tile minimum over the
   bf16 search-layout store), replacing `_search_tilemin_kernel` under the
@@ -70,8 +74,9 @@ def build() -> ctypes.CDLL:
         os.replace(tmp, so)
     lib = ctypes.CDLL(str(so))
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.cc_ring_key_divs.restype = ci
-    lib.cc_ring_key_divs.argtypes = [vp, vp, vp, vp, vp, ci, ci, cf, vp]
+    lib.cc_ring_key_divs_batch.restype = ci
+    lib.cc_ring_key_divs_batch.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, cf,
+                                           vp]
     lib.cc_search_tilemin.restype = ci
     lib.cc_search_tilemin.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci,
                                       ctypes.c_uint, ci, vp]
@@ -106,55 +111,143 @@ def _raise_on(rc: int, name: str) -> None:
 # ring-key contraction
 # ---------------------------------------------------------------------------
 
-def ring_key_divs_plain(anchors, pool, centers, roi_radius: float):
-    """anchors (A8, 8) [v0, v1, r_min, r_max, c_min, c_max, _, _], pool
-    (P, 8) [p_r, p_c, rowf, colf, higher, ok, _, _], centers (n_div,) ->
-    divs (A8, n_div) = sum_p w exp(-(c_d - dist)^2 / 2) / sqrt(2 pi) and the
-    in-RoI pixel count (A8,), both f32 (pallas_kernels.ring_key_divs_reference)."""
-    v0, v1 = anchors[:, 0:1], anchors[:, 1:2]
-    p_r, p_c = pool[None, :, 0], pool[None, :, 1]
-    rowf, colf = pool[None, :, 2], pool[None, :, 3]
-    in_box = ((p_r >= anchors[:, 2:3]) & (p_r <= anchors[:, 3:4])
-              & (p_c >= anchors[:, 4:5]) & (p_c <= anchors[:, 5:6]))
-    dr = rowf - v0
-    dc = colf - v1
-    dist = torch.sqrt(dr * dr + dc * dc)
-    contrib = in_box & (dist < roi_radius - 1e-2) & (pool[None, :, 5] > 0)
-    w = torch.where(contrib, pool[None, :, 4], 0.0)
-    x = centers[None, None, :] - dist[..., None]
-    g = torch.exp(-0.5 * (x * x)) * INV_SQRT_2PI
-    divs = torch.einsum("ap,apd->ad", w, g)
-    return divs, contrib.sum(dim=1).to(torch.float32)
+# the kernel's split of a scan's pool (csrc/ring_key.cu): CLUSTER contiguous
+# slices, one a CTA, each compacted RING_CHUNK pixels at a time, whose
+# counted pixels add into RING_PHASES partial sums a division in turn
+CLUSTER = 4               # kCluster
+RING_THREADS = 256        # kThreads
+RING_CHUNK = 4096         # kChunk
+RING_PHASES = 7           # kPhases
 
 
-def ring_key_divs(anchors, pool, centers, roi_radius: float):
-    """Kernel wrapper of `ring_key_divs_plain` (same signature and outputs)."""
-    if anchors.device.type == "cpu":
-        return ring_key_divs_plain(anchors, pool, centers, roi_radius)
-    if anchors.device.type != "cuda":
-        raise ValueError(f"ring_key_divs: unsupported device {anchors.device}")
-    A8, P = anchors.shape[0], pool.shape[0]
-    _check("anchors", anchors, torch.float32, (A8, 8))
-    _check("pool", pool, torch.float32, (P, 8))
-    _check("centers", centers, torch.float32, (N_DIV,))
-    if pool.device != anchors.device or centers.device != anchors.device:
-        raise ValueError("ring_key_divs: inputs on different devices")
-    if pool.data_ptr() % 16:
-        raise ValueError("ring_key_divs: pool is not 16-byte aligned (the "
-                         "kernel loads each row as two float4s)")
-    lib = build()
-    divs = torch.empty((A8, N_DIV), dtype=torch.float32, device=anchors.device)
-    counts = torch.empty((A8,), dtype=torch.float32, device=anchors.device)
-    rc = lib.cc_ring_key_divs(anchors.data_ptr(), pool.data_ptr(),
-                              centers.data_ptr(), divs.data_ptr(),
-                              counts.data_ptr(), A8, P, float(roi_radius),
-                              _stream(anchors.device))
-    _raise_on(rc, "ring_key_divs")
-    ring_key_divs.launches += 1
+def ring_key_divs_batch_plain(anchors_b, pool_b, centers, roi_radius: float):
+    """anchors (B, A8, 8) [v0, v1, r_min, r_max, c_min, c_max, _, _] and pool
+    (B, P, 8) [p_r, p_c, rowf, colf, higher, ok, _, _] of B scans, centers
+    (n_div,) -> divs (B, A8, n_div) = sum_p w exp(-(c_d - dist)^2 / 2) /
+    sqrt(2 pi) over the pixels p of the scan's own pool that lie in the
+    anchor's box, at dist < roi_radius - 0.01 with ok set, and that count
+    (B, A8), both f32 (pallas_kernels.ring_key_divs_reference per scan).
+
+    The sums run in the kernel's order, each op rounded on its own, so the
+    kernel equals this bit for bit: the pool is cut into CLUSTER slices of
+    `per` pixels and each slice into chunks of RING_CHUNK; the i-th counted
+    pixel of a chunk (in pixel order) adds into partial i mod RING_PHASES of
+    its slice, a slice's partials are added in order, then the slices'.
+    Row b depends on scan b alone."""
+    B, A8, _ = anchors_b.shape
+    P = pool_b.shape[1]
+    dev = anchors_b.device
+    f32 = torch.float32
+    an = anchors_b[..., None, :]                                # (B, A8, 1, 8)
+    pl = pool_b[:, None]                                        # (B, 1, P, 8)
+    in_box = ((pl[..., 0] >= an[..., 2]) & (pl[..., 0] <= an[..., 3])
+              & (pl[..., 1] >= an[..., 4]) & (pl[..., 1] <= an[..., 5]))
+    dr = pl[..., 2] - an[..., 0]
+    dc = pl[..., 3] - an[..., 1]
+    dist = torch.sqrt(dr * dr + dc * dc)                        # (B, A8, P)
+    lim = float(torch.tensor(roi_radius, dtype=f32) - 1e-2)     # as in f32
+    counted = in_box & (dist < lim) & (pl[..., 5] > 0)
+    counts = counted.sum(-1).to(f32)
+
+    # slot of each counted pixel: (slice, index in its chunk mod phases)
+    per = max(1, -(-P // (CLUSTER * RING_THREADS)) * RING_THREADS)
+    pix = torch.arange(P, device=dev)
+    part = pix // per
+    start = part * per + (pix - part * per) // RING_CHUNK * RING_CHUNK
+    c = counted.to(torch.int64)
+    before = torch.cumsum(c, -1) - c               # counted pixels before p
+    i_chunk = before - before.gather(-1, start.expand(B, A8, P))
+    n_slots = CLUSTER * RING_PHASES
+    slot = torch.where(counted, part * RING_PHASES + i_chunk % RING_PHASES,
+                       n_slots)
+    # each slot's pixels in pixel order: sorted by (slot, pixel)
+    order = torch.sort(slot * P + pix, dim=-1).indices
+    n_in = torch.zeros((B, A8, n_slots + 1), dtype=torch.int64,
+                       device=dev).scatter_add_(-1, slot, c)[..., :n_slots]
+    first = torch.cumsum(n_in, -1) - n_in
+    w = pl[..., 4].expand(B, A8, P)
+    acc = torch.zeros((B, A8, n_slots, centers.shape[0]), dtype=f32,
+                      device=dev)
+    for k in range(int(n_in.max()) if n_in.numel() else 0):
+        p_k = order.gather(-1, (first + k).clamp(max=P - 1))
+        x = centers - dist.gather(-1, p_k)[..., None]
+        g = torch.exp(-0.5 * (x * x)) * INV_SQRT_2PI
+        acc = torch.where((k < n_in)[..., None],
+                          acc + w.gather(-1, p_k)[..., None] * g, acc)
+    acc = acc.reshape(B, A8, CLUSTER, RING_PHASES, -1)
+    divs = torch.zeros_like(acc[:, :, 0, 0])
+    for r in range(CLUSTER):
+        v = torch.zeros_like(divs)
+        for i in range(RING_PHASES):
+            v = v + acc[:, :, r, i]
+        divs = divs + v
     return divs, counts
 
 
+def ring_key_divs_plain(anchors, pool, centers, roi_radius: float):
+    """One scan's `ring_key_divs_batch_plain`: anchors (A8, 8), pool (P, 8)
+    -> divs (A8, n_div), counts (A8,)."""
+    divs, counts = ring_key_divs_batch_plain(anchors[None], pool[None],
+                                             centers, roi_radius)
+    return divs[0], counts[0]
+
+
+def _ring_launch(name, anchors_b, pool_b, centers, roi_radius: float):
+    """One launch of the ring kernel over the B scans of (B, A8, 8) anchors
+    and a (B, P, 8) pool."""
+    if anchors_b.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {anchors_b.device}")
+    B, A8, P = anchors_b.shape[0], anchors_b.shape[1], pool_b.shape[1]
+    _check("anchors", anchors_b, torch.float32, (B, A8, 8))
+    _check("pool", pool_b, torch.float32, (B, P, 8))
+    _check("centers", centers, torch.float32, (N_DIV,))
+    if pool_b.device != anchors_b.device or centers.device != anchors_b.device:
+        raise ValueError(f"{name}: inputs on different devices")
+    if not 0 < B <= 65535 or A8 > 65535:
+        raise ValueError(f"{name}: unsupported B={B} A8={A8}")
+    if pool_b.data_ptr() % 16:
+        raise ValueError(f"{name}: pool is not 16-byte aligned (the kernel "
+                         "loads each row as two float4s)")
+    lib = build()
+    divs = torch.empty((B, A8, N_DIV), dtype=torch.float32,
+                       device=anchors_b.device)
+    counts = torch.empty((B, A8), dtype=torch.float32, device=anchors_b.device)
+    rc = lib.cc_ring_key_divs_batch(
+        anchors_b.data_ptr(), pool_b.data_ptr(), centers.data_ptr(),
+        divs.data_ptr(), counts.data_ptr(), B, A8, P, float(roi_radius),
+        _stream(anchors_b.device))
+    _raise_on(rc, name)
+    return divs, counts
+
+
+def ring_key_divs(anchors, pool, centers, roi_radius: float):
+    """Kernel wrapper of `ring_key_divs_plain` (same signature and outputs,
+    bit-identical): the B = 1 launch of the batched kernel."""
+    if anchors.device.type == "cpu":
+        return ring_key_divs_plain(anchors, pool, centers, roi_radius)
+    divs, counts = _ring_launch("ring_key_divs", anchors[None], pool[None],
+                                centers, roi_radius)
+    ring_key_divs.launches += 1
+    return divs[0], counts[0]
+
+
 ring_key_divs.launches = 0
+
+
+def ring_key_divs_batch(anchors_b, pool_b, centers, roi_radius: float):
+    """Kernel wrapper of `ring_key_divs_batch_plain` (same signature and
+    outputs, bit-identical): one launch for the B scans of a block or a
+    serving chunk, row b equal to `ring_key_divs` of scan b."""
+    if anchors_b.device.type == "cpu":
+        return ring_key_divs_batch_plain(anchors_b, pool_b, centers,
+                                         roi_radius)
+    out = _ring_launch("ring_key_divs_batch", anchors_b, pool_b, centers,
+                       roi_radius)
+    ring_key_divs_batch.launches += 1
+    return out
+
+
+ring_key_divs_batch.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -319,5 +412,6 @@ def search_tilemin_path(keys_q) -> str:
 
 def reset_launches() -> None:
     ring_key_divs.launches = 0
+    ring_key_divs_batch.launches = 0
     search_tilemin.launches = 0
     search_tilemin_batch.launches = 0

@@ -49,7 +49,6 @@ from contour_context_tpu_torch import db as tdb
 from contour_context_tpu_torch.kernel_times import kernel_durations_us
 from contour_context_tpu_torch.ops import descriptor as td
 from contour_context_tpu_torch.ops import kernels
-from contour_context_tpu_torch.types import device_const
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "contour_context_tpu_torch")
@@ -63,7 +62,8 @@ def lane_poses(lane: int, n: int, dy: float = 0.0):
 
 
 def build_split(points, cfg: PipelineConfig, sync) -> dict:
-    """build_descriptor's stages, timed one by one (ms)."""
+    """build_descriptor's stages on one scan (P, 4), as it runs them (a
+    batch of one), timed one by one (ms)."""
     cm = cfg.cm
     out = {}
 
@@ -75,17 +75,16 @@ def build_split(points, cfg: PipelineConfig, sync) -> dict:
         out[name] = 1e3 * (time.perf_counter() - t0)
         return r
 
-    pts = td.dequantize_points(points)
+    pts = td.dequantize_points(points[None])
     bev, rowf, colf = timed("raster", lambda: td.rasterize_bev(pts, cm))
 
     def cc():
-        grads = device_const(tuple(cm.lv_grads), torch.float32, bev.device)
-        masks = bev.reshape(cm.n_row, cm.n_col)[None] > grads[:, None, None]
+        masks = td.level_masks(bev, cm)
         return masks, td.cc_labels(masks)
 
     masks, labels = timed("cc", cc)
     tab = timed("tables", lambda: td.component_tables(
-        labels, masks.reshape(cm.n_levels, -1), bev, rowf, colf, cm))
+        labels, masks.flatten(-2), bev, rowf, colf, cm))
     _, anch_valid, _ = timed("keys", lambda: td.make_keys(tab, bev, rowf,
                                                           colf, cm))
     timed("bcis", lambda: td.make_bcis(tab, anch_valid, cm))
@@ -132,16 +131,18 @@ def host_syncs(fn) -> int:
 
 def block_split(db, points_b, cfg: PipelineConfig) -> dict:
     """The query side of one block step on `db`'s state, with a device
-    synchronisation around each part, in ms: the B descriptor builds, the
-    batched key search (one tile-min launch and its stage 2), the batched
-    tail (hint cap -> check 1 -> cascade -> merge -> GMM -> LM, one
-    `query_from_hits` call for the B queries) and, beside it, the same B
-    queries through the same function one at a time (B = 1 each), with the
-    records of both. On a CUDA device also each part's device operations
-    (kernel launches and copies), the ms the card is busy with them under
-    the profiler, and the host syncs of the batched tail and
-    of the B single calls; None on the CPU. Every query runs at the DB's searchable
-    prefix; nothing is appended."""
+    synchronisation around each part, in ms: the batched descriptor build
+    of the B clouds (one `build_descriptors` call), the batched key search
+    (one tile-min launch and its stage 2), the batched tail (hint cap ->
+    check 1 -> cascade -> merge -> GMM -> LM, one `query_from_hits` call for
+    the B queries) and, beside the build and the tail, the same B clouds and
+    queries through the same functions one at a time (B = 1 each), with the
+    descriptors and records of both. On a CUDA device also each part's
+    device operations (kernel launches and copies), the ms the card is busy
+    with them under the profiler, and the host syncs of the batched build,
+    of the B single builds (in all and the most of one), of the batched
+    tail and of the B single tails; None on the CPU. Every query runs at the
+    DB's searchable prefix; nothing is appended."""
     dev = db.device
     cuda = dev.type == "cuda"
 
@@ -156,10 +157,16 @@ def block_split(db, points_b, cfg: PipelineConfig) -> dict:
 
     pts = torch.as_tensor(points_b).to(dev)
     B = pts.shape[0]
+
     def build():
         return td.build_descriptors(pts, cfg.cm, cfg.gmm)
 
+    def builds_one_by_one():
+        return [td.build_descriptor(p, cfg.cm, cfg.gmm) for p in pts]
+
+    build()                # first use of the batch's shapes: allocator
     descs, t_build = timed(build)
+    ones, t_builds = timed(builds_one_by_one)
     sb = db.state[1].expand(B).contiguous()
 
     def search():
@@ -179,15 +186,23 @@ def block_split(db, points_b, cfg: PipelineConfig) -> dict:
     tail()                 # first use of the batch's shapes: allocator, caches
     recs, t_tail = timed(tail)
     recs_1, t_ones = timed(tails_one_by_one)
-    out = {"B": B, "build_ms": t_build, "search_ms": t_search,
-           "tails_ms": t_tail, "tails_one_by_one_ms": t_ones,
+    out = {"B": B, "build_ms": t_build, "builds_one_by_one_ms": t_builds,
+           "search_ms": t_search, "tails_ms": t_tail,
+           "tails_one_by_one_ms": t_ones, "descs": descs,
+           "descs_one_by_one": type(descs)(*[torch.stack(xs)
+                                             for xs in zip(*ones)]),
            "records": recs, "records_one_by_one": recs_1}
-    for name, fn in (("build", build), ("search", search), ("tail", tail),
+    for name, fn in (("build", build), ("builds_one_by_one",
+                                        builds_one_by_one),
+                     ("search", search), ("tail", tail),
                      ("one_by_one", tails_one_by_one)):
         out[name + "_device_ops"], out[name + "_device_busy_ms"] = \
             device_ops(fn) if cuda else (None, None)
-        if fn in (tail, tails_one_by_one):
+        if fn is not search:
             out[name + "_host_syncs"] = host_syncs(fn) if cuda else None
+    out["single_build_host_syncs_max"] = max(
+        host_syncs(lambda: td.build_descriptor(p, cfg.cm, cfg.gmm))
+        for p in pts) if cuda else None
     return out
 
 

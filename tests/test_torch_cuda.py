@@ -4,10 +4,16 @@ This file imports no jax, so it runs where only torch is installed:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
-- both kernels against their plain versions (ring divs to 1e-5 and counts
-  exact; tile minima bit-equal), at the main path's shapes and at the edge
-  shapes (a ragged pool, an empty anchor box; searchable_n 0, 1, mid-store
-  and full, NA % 8 != 0 and an unaligned store on the scalar path);
+- both kernels against their plain versions, bit for bit (the ring's plain
+  version sums in the kernel's order), at the main path's shapes and at the
+  edge shapes (a ragged pool, an empty anchor box; searchable_n 0, 1,
+  mid-store and full, NA % 8 != 0 and an unaligned store on the scalar
+  path);
+- the batched ring key bit-equal to its plain version and to one single
+  launch a scan at B = 1, 16 and 17, with a zero cloud's empty pool in the
+  batch; a block of 16 built batched on the card against the same block
+  built on the CPU (ints exactly, floats in the descriptor bands), with one
+  ring launch;
 - the batched tile-min against its plain version at the smoke's shapes
   (bf16 and f32, the vector and the scalar path, mixed limits), B = 1 equal
   to the single-query kernel, a B that is no multiple of the kernel's query
@@ -59,17 +65,14 @@ def cuda():
 
 
 def _ring_inputs(device):
-    cfg = ContourManagerConfig(max_points=16384)
+    from contour_context_tpu_torch import kernel_times as kt
+
+    cfg = PipelineConfig(cm=ContourManagerConfig(max_points=16384))
     pts = torch.from_numpy(pad_points(
         render_scan(make_world(0), (0.0, 0.0, 0.0), seed=1),
-        cfg.max_points)).to(device)
-    bev, rowf, colf = td.rasterize_bev(pts, cfg)
-    masks = bev.reshape(cfg.n_row, cfg.n_col)[None] > \
-        torch.tensor(cfg.lv_grads, device=device)[:, None, None]
-    tab = td.component_tables(td.cc_labels(masks),
-                              masks.reshape(cfg.n_levels, -1), bev, rowf,
-                              colf, cfg)
-    return td.ring_inputs(tab, bev, rowf, colf, cfg)[:3]
+        cfg.cm.max_points)).to(device)
+    anchors, pool, centers = kt.ring_inputs_of(pts[None], cfg)
+    return anchors[0], pool[0], centers
 
 
 @pytest.mark.cuda
@@ -77,7 +80,7 @@ def test_kernels_match_plain_on_card(cuda):
     anchors, pool, centers = _ring_inputs(cuda)
     d0, n0 = kernels.ring_key_divs(anchors, pool, centers, 10.0)
     d1, n1 = kernels.ring_key_divs_plain(anchors, pool, centers, 10.0)
-    torch.testing.assert_close(d0, d1, rtol=1e-5, atol=1e-5)
+    assert torch.equal(d0, d1)
     assert torch.equal(n0, n1) and float(n1.sum()) > 0
     rng = np.random.default_rng(4)
     kb = rng.uniform(0.1, 5.0, (8192, 6, 6, 10)).astype(np.float32)
@@ -98,7 +101,7 @@ def test_kernels_match_plain_on_card(cuda):
 @pytest.mark.parametrize("n_pool", [4096, 4001, 37])
 def test_ring_edge_shapes_on_card(cuda, n_pool):
     """A pool length that is no multiple of the block (or of the cluster's
-    slices), and an anchor whose box is empty: counts exact, divs 1e-5."""
+    slices), and an anchor whose box is empty: bit-equal."""
     anchors, pool, centers = _ring_inputs(cuda)
     anchors = anchors.clone()
     anchors[0, 2], anchors[0, 3] = 1.0, 0.0        # r_min > r_max
@@ -106,11 +109,69 @@ def test_ring_edge_shapes_on_card(cuda, n_pool):
     d0, n0 = kernels.ring_key_divs(anchors, pool, centers, 10.0)
     d1, n1 = kernels.ring_key_divs_plain(anchors, pool, centers, 10.0)
     torch.cuda.synchronize()
-    torch.testing.assert_close(d0, d1, rtol=1e-5, atol=1e-5)
+    assert torch.equal(d0, d1)
     assert torch.equal(n0, n1) and float(n0[0]) == 0.0
     with pytest.raises(ValueError):                # float4 rows need 16 B
         kernels.ring_key_divs(anchors, pool.reshape(-1)[1:1 + 8 * 30]
                               .view(30, 8), centers, 10.0)
+
+
+def _block_clouds(n=16):
+    cfg = PipelineConfig(cm=ContourManagerConfig(max_points=16384))
+    world = make_world(11, n_structs=220, extent=160.0)
+    clouds = np.stack([pad_points(render_scan(
+        world, (10.0 * (i % 8) + 0.4 * (i // 8), 0.3 * (i // 8), 0.0),
+        seed=500 + i), 16384) for i in range(n)])
+    return cfg, clouds
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 16, 17])
+def test_ring_batch_matches_plain_and_singles_on_card(cuda, B):
+    """One batched launch bit-equal to its plain version and to one single
+    launch a scan; for B > 1 row 1 is a zero cloud's pool (no pixel ok)."""
+    from contour_context_tpu_torch import kernel_times as kt
+
+    cfg, clouds = _block_clouds(B)
+    if B > 1:
+        clouds[1] = 0.0
+    anchors, pool, centers = kt.ring_inputs_of(
+        torch.from_numpy(clouds).to(cuda), cfg)
+    kernels.reset_launches()
+    kt.hold_ring_batch(anchors, pool, centers, cfg.cm.roi_radius, f"B {B}")
+    assert kernels.ring_key_divs_batch.launches == 1
+    assert kernels.ring_key_divs.launches == B
+    assert B == 1 or not pool[1, :, 5].any()
+    with pytest.raises(ValueError):                # float4 rows need 16 B
+        kernels.ring_key_divs_batch(
+            anchors[:1], pool.reshape(-1)[1:1 + 8 * 30].view(1, 30, 8),
+            centers, 10.0)
+
+
+@pytest.mark.cuda
+def test_block_built_batched_on_card_matches_cpu(cuda):
+    """A block of 16 built in one batch on the card against the same block
+    on the CPU: ints and bools exactly, floats in the descriptor bands of
+    tests/test_torch_descriptor.py; one ring launch for the block."""
+    cfg, clouds = _block_clouds(16)
+    kernels.reset_launches()
+    g = td.build_descriptors(torch.from_numpy(clouds).to(cuda), cfg.cm,
+                             cfg.gmm)
+    assert kernels.ring_key_divs_batch.launches == 1
+    assert kernels.ring_key_divs.launches == 0
+    c = td.build_descriptors(torch.from_numpy(clouds), cfg.cm, cfg.gmm)
+    loose = ("com_r", "eig_vecs", "manual_cov", "gmm_pack", "tab12", "keys")
+    for name, x, y in zip(c._fields, g, c):
+        x = x.cpu()
+        if name == "nei_theta":
+            x, y = x[c.nei_valid], y[c.nei_valid]
+        if x.is_floating_point():
+            torch.testing.assert_close(
+                x, y, rtol=1e-4 if name == "keys" else 1e-5,
+                atol=1e-4 if name in loose else 1e-5, msg=name)
+        else:
+            assert torch.equal(x, y), name
+    assert int(c.n_cont.sum()) > 16 * 20
 
 
 @pytest.mark.cuda
@@ -180,7 +241,8 @@ def test_block_built_map_on_card_matches_cpu(cuda, tmp_path):
         if dev == "cuda":
             assert kernels.search_tilemin_batch.launches == 3
             assert kernels.search_tilemin.launches == 0
-            assert kernels.ring_key_divs.launches == 12
+            assert kernels.ring_key_divs_batch.launches == 3
+            assert kernels.ring_key_divs.launches == 0
         dbs[dev] = db
     c, g = dbs["cpu"], dbs["cuda"]
     a, b = c.recs_store[:12].numpy(), g.recs_store[:12].cpu().numpy()
