@@ -67,7 +67,24 @@ exit code is not 0):
 9. a 64-scan stream with `dynamic_thres=True` on the card equal to the same
    stream on the CPU, the launches and host syncs the option adds to a
    query, and one block of 16 queries with the option on the card equal to
-   the CPU's, with its host syncs.
+   the CPU's, with its host syncs;
+10. the user-facing surface, each path's launches counted from 0 just
+   before it: the stream's first 80 clouds in chains (`step_chain_async`, 4
+   of 16, then 5 + 11 of a 16-row buffer through `step_chain_dyn_async`, the
+   second with a staged `stage_chain_k`), one BlockHandle each, records
+   equal to the stream's, one launch of each kernel a scan; the host spec
+   query (`query_ranged_knn_host`) on 8 revisits at their replayed window
+   states on the card and on a CPU copy, one tile-min launch a query, equal
+   to each other and (found, gidx) to the fused query wherever its hint cap
+   did not overflow, both paths' ms/query; the CLI on phase 5's dataset with
+   `--save-mid-dir`, `--timing-log` and `--trace-dir` (24 dumps and BEV
+   images, a Chrome trace naming both kernels, the native loader built),
+   `eval.pr_mpe.score_outcome` of its outcome, `eval.sweep.run_sweep_id`
+   over two threshold dirs, and `q16_transport`, `block_for_timing` and a
+   mid-stream drain every 8 writing the plain run's outcome file; the
+   online spinner fed 80 scans from a thread, paused and resumed through
+   its control file, its detections equal to the found records of a
+   `step_async` stream of the same scans, nothing dropped.
 The last three lines are the kernel JSON, the card's nvidia-smi name and
 power limit, and {"ok": true, "device": ...}.
 """
@@ -209,12 +226,327 @@ def assert_dbs_close(a, b, n: int, what: str) -> list:
     return off
 
 
+def write_kitti(d: str, clouds, poses) -> tuple:
+    """The clouds (their valid rows, reflectance 0) and poses in the KITTI
+    two-file format under d, 10 Hz timestamps: (pose file, scan list)."""
+    from synth import se3_from_xyt
+
+    pl, ll = [], []
+    for i, p in enumerate(poses):
+        cloud = clouds[i][clouds[i][:, 3] > 0].copy()
+        cloud[:, 3] = 0.0
+        bp = os.path.join(d, "%06d.bin" % i)
+        cloud.tofile(bp)
+        T = se3_from_xyt(p)
+        pl.append("%.6f %s" % (0.1 * i, " ".join(
+            "%.6f" % v for v in T[:3, :4].reshape(-1))))
+        ll.append("%.6f %d %s" % (0.1 * i, i, bp))
+    f_pose, f_laser = os.path.join(d, "p.txt"), os.path.join(d, "l.txt")
+    with open(f_pose, "w") as f:
+        f.write("\n".join(pl))
+    with open(f_laser, "w") as f:
+        f.write("\n".join(ll))
+    return f_pose, f_laser
+
+
+def launch_counts(kernels) -> dict:
+    return {name: getattr(kernels, name).launches
+            for name in ("ring_key_divs", "ring_key_divs_batch",
+                         "search_tilemin", "search_tilemin_batch")}
+
+
+def one_a_scan(n: int) -> dict:
+    """The launches of n scans stepped one at a time."""
+    return {"ring_key_divs": n, "ring_key_divs_batch": 0,
+            "search_tilemin": n, "search_tilemin_batch": 0}
+
+
+def outcome_lines(path: str) -> list:
+    with open(path) as f:
+        return [ln.split("\t") for ln in f.read().splitlines()]
+
+
+def assert_outcomes_close(a_path: str, b_path: str, what: str) -> None:
+    """Two outcome files line by line: TP/FP/FN, ids and paths exactly,
+    correlation to 1e-4, the pose-error columns to 2e-3 (T's band)."""
+    a, b = outcome_lines(a_path), outcome_lines(b_path)
+    assert len(a) == len(b) > 0, (what, len(a), len(b))
+    for la, lb in zip(a, b):
+        assert la[:2] == lb[:2] and la[6:] == lb[6:], (what, la, lb)
+        np.testing.assert_allclose(
+            [float(x) for x in lb[2:6]], [float(x) for x in la[2:6]],
+            rtol=1e-4, atol=2e-3, err_msg=what)
+
+
+def phase_10(cfg, clouds, ring, db, rev0: int, smi: str) -> dict:
+    """The user-facing surface on the card: chains, the host spec query,
+    the full CLI with dumps, timing log and trace, scoring and a sweep, the
+    pipeline options, and the online spinner. Returns the launches of each
+    path, each counted from 0 just before it."""
+    import threading
+
+    from contour_context_tpu_torch import db as tdb
+    from contour_context_tpu_torch.__main__ import main as cli_main
+    from contour_context_tpu_torch.eval.evaluator import ContLCDEvaluator
+    from contour_context_tpu_torch.eval.pr_mpe import score_outcome
+    from contour_context_tpu_torch.eval.sweep import (gen_thres_dirs_manual,
+                                                      run_sweep_id)
+    from contour_context_tpu_torch.online import OnlineSpinner
+    from contour_context_tpu_torch.ops import descriptor as td
+    from contour_context_tpu_torch.ops import kernels
+    from contour_context_tpu_torch import pipeline as tpipe
+    from contour_context_tpu_torch.profile_step import lane_poses
+    from contour_context_tpu_torch.utils.native_loader import (
+        library_path, native_available)
+
+    dev = torch.device("cuda", 0)
+    by_path = {}
+
+    # ---- chains: 4 chains of 16, then 5 + 11 of a 16-row buffer ---------
+    n_ch = 80
+    db_c = tdb.ContourDB(cfg, capacity=8192, device="cuda")
+    ts = [0.1 * i for i in range(n_ch)]
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    handles = []
+    for k in range(0, 64, 16):
+        h = db_c.step_chain_async(torch.from_numpy(np.stack(
+            clouds[k:k + 16])).to(dev), list(range(k, k + 16)), ts[k:k + 16])
+        assert isinstance(h, tdb.BlockHandle) and h.row0 == k, h
+        handles.append(h)
+    buf = torch.from_numpy(np.stack(clouds[64:80])).to(dev)
+    handles.append(db_c.step_chain_dyn_async(buf, list(range(64, 69)),
+                                             ts[64:80]))
+    buf2 = torch.cat([buf[5:], buf[:5]])
+    ts2 = ts[69:80] + [0.0] * 5
+    handles.append(db_c.step_chain_dyn_async(
+        buf2, list(range(69, 80)), ts2,
+        k_dev=tdb.ContourDB.stage_chain_k(11, device="cuda")))
+    torch.cuda.synchronize()
+    chain_ms = 1e3 * (time.perf_counter() - t0) / n_ch
+    by_path["chains"] = launch_counts(kernels)
+    assert by_path["chains"] == one_a_scan(n_ch), by_path["chains"]
+    tdb.drain_block_handles(handles)
+    assert [h.row0 for h in handles] == [0, 16, 32, 48, 64, 69]
+    got = sum((h.get() for h in handles), [])
+    assert len(got) == n_ch and db_c.n == n_ch
+    ring_c = db_c.recs_store[:n_ch].cpu().numpy()
+    assert_records_close(ring_c, ring[:n_ch], "chains vs the stream")
+    bit = bool(np.array_equal(ring_c, ring[:n_ch]))
+    log(f"chains: {n_ch} clouds in 4 chains of 16 and 5 + 11 of a 16-row "
+        f"buffer (the second with a staged k): 6 BlockHandles, launches "
+        f"{by_path['chains']}; records equal the stream's first {n_ch} rows "
+        f"(found, gidx and counters exactly, "
+        f"{'bit for bit' if bit else 'floats in the record bands'}); "
+        f"{chain_ms:.3f} ms/scan (host clock) ({smi})")
+
+    # ---- the host spec query on 8 revisits, card and CPU ----------------
+    store_c = type(db.store)(*[x.cpu() for x in db.store])
+    kq_c, ts_c, tb = db.keys_q.cpu(), db.ts_store.cpu(), cfg.db.tb
+    # 4 found revisits, and 4 scans whose stream query kept every valid
+    # hit (overflow_hints 0), found ones first, once the window has opened
+    revisits = [r for r in range(rev0, rev0 + LANE_SCANS) if ring[r, 0] > 0.5]
+    opened = [r for r in range(len(ring)) if ring[r, 6] > 0
+              and ring[r, 11] == 0]
+    opened = sorted(opened, key=lambda r: (ring[r, 0] < 0.5, r))
+    rows = revisits[::max(1, len(revisits) // 4)][:4] + opened[:4]
+    assert len(rows) == 8, rows
+
+    def view(store, kq, ts_store, state, n, device):
+        """A DB sharing the stream's tensors, at window state `state`."""
+        v = tdb.ContourDB(cfg, capacity=db.capacity, device=device)
+        v.store, v.keys_q, v.ts_store, v.state, v.n = (store, kq, ts_store,
+                                                        state, n)
+        v.recs_store = torch.zeros((db.capacity, 18), device=device)
+        v.seq_of_gidx = list(db.seq_of_gidx)
+        return v
+
+    host_ms, fused_ms, n_held, n_tm = [], [], 0, 0
+    kernels.reset_launches()
+    for row in rows:
+        state = torch.zeros(2, dtype=torch.int32)
+        for j in range(row):
+            state[0] = j + 1
+            tdb.update_window(state, ts_c, ts_c[j], tb.min_elapse,
+                              tb.max_elapse)
+        v_g = view(db.store, db.keys_q, db.ts_store, state.to(dev), row,
+                   "cuda")
+        v_c = view(store_c, kq_c, ts_c, state.clone(), row, "cpu")
+        q_g = td.build_descriptor(torch.from_numpy(clouds[row]).to(dev),
+                                  cfg.cm, cfg.gmm)
+        q_c = type(q_g)(*[x.cpu() for x in q_g])
+        torch.cuda.synchronize()
+        before = kernels.search_tilemin.launches
+        t0 = time.perf_counter()
+        r_g = v_g.query_ranged_knn_host(q_g)
+        torch.cuda.synchronize()
+        host_ms.append(1e3 * (time.perf_counter() - t0))
+        assert kernels.search_tilemin.launches == before + 1
+        n_tm += 1
+        r_c = v_c.query_ranged_knn_host(q_c)
+        assert (r_g is None) == (r_c is None), (row, r_g, r_c)
+        if r_g is not None:
+            assert r_g[0] == r_c[0], (row, r_g, r_c)
+            np.testing.assert_allclose(r_g[1], r_c[1], rtol=1e-4, atol=1e-4)
+            np.testing.assert_allclose(r_g[2], r_c[2], rtol=1e-4, atol=2e-3)
+        t0 = time.perf_counter()
+        rec = v_g.query_async(q_g).record()
+        torch.cuda.synchronize()
+        fused_ms.append(1e3 * (time.perf_counter() - t0))
+        n_tm += 1
+        if rec.overflow_hints == 0:
+            # the host path caps no hints: held only where the fused
+            # path's cap kept every valid hit
+            n_held += 1
+            assert rec.found == (r_g is not None), (row, rec, r_g)
+            if rec.found:
+                assert rec.gidx == r_g[0], (row, rec, r_g)
+    by_path["host_query"] = launch_counts(kernels)
+    assert by_path["host_query"]["search_tilemin"] == n_tm
+    assert n_held >= 4, n_held
+    log(f"host spec query: {len(rows)} queries (4 found revisits, 4 whose "
+        f"hint cap kept every hit) at their replayed "
+        f"window states, one search_tilemin launch each; card == CPU copy "
+        f"(found and gidx exactly, corr and T in the record bands); found "
+        f"and gidx equal the fused query's on the {n_held} queries whose "
+        f"hint cap did not overflow; host path {np.median(host_ms):.3f} "
+        f"ms/query, fused path {np.median(fused_ms):.3f} ms/query (medians "
+        f"of {len(rows)}, host clock, synchronised) ({smi})")
+
+    # ---- the full CLI, scoring, a sweep, the pipeline options -----------
+    assert native_available(), "the native loader did not build"
+    with tempfile.TemporaryDirectory() as d:
+        f_pose, f_laser = write_kitti(d, clouds, lane_poses(0, 24))
+        f_out = os.path.join(d, "outcome.txt")
+        mid, trace = os.path.join(d, "mid"), os.path.join(d, "trace")
+        log_path = os.path.join(d, "timing.txt")
+        os.makedirs(mid)
+        kernels.reset_launches()
+        cli_main(["--pose", f_pose, "--laser", f_laser, "--outcome", f_out,
+                  "--device", "cuda", "--save-mid-dir", mid, "--timing-log",
+                  log_path, "--trace-dir", trace])
+        by_path["cli"] = launch_counts(kernels)
+        # the unfused path: no query against the empty DB of the first scan
+        assert by_path["cli"] == dict(one_a_scan(24), search_tilemin=23), \
+            by_path["cli"]
+        files = os.listdir(mid)
+        dumps = [f for f in files if f.startswith("contours-")]
+        bevs = [f for f in files if f.startswith("bev-")]
+        assert len(dumps) == 24 and len(bevs) == 24, files
+        assert os.path.getsize(log_path) > 0
+        with open(os.path.join(trace, tpipe.TRACE_FILE)) as f:
+            trace_txt = f.read()
+        assert "ring_key_divs_kernel" in trace_txt
+        assert "search_tilemin_kernel" in trace_txt
+        res = score_outcome(f_pose, f_out, excl_frames=2)
+        log(f"cli: --save-mid-dir wrote {len(dumps)} contour dumps and "
+            f"{len(bevs)} BEV images ({sorted({b[-3:] for b in bevs})}), "
+            f"timing log {os.path.getsize(log_path)} bytes, a Chrome trace "
+            f"of {len(trace_txt)} bytes naming both kernels; native loader "
+            f"{library_path().name}; launches {by_path['cli']}; pr_mpe: "
+            f"max F1 {res.max_f1:.4f}, tp {res.tp_count}")
+        root = os.path.join(d, "sweep")
+        gen_thres_dirs_manual(root, [[3, 0.3, 0.03, -5.01],
+                                     [4, 0.5, 0.05, -4.01]])
+        briefs = []
+        for runid in (0, 1):
+            assert run_sweep_id(root, runid, f_pose, f_laser, "smoke",
+                                device="cuda") == 0
+            with open(os.path.join(root, "%03d" % runid,
+                                   "brief-smoke.txt")) as f:
+                briefs.append(f.read())
+        log(f"sweep: two threshold dirs on the card, briefs (tp fn fp) "
+            f"{briefs}")
+        # the options: their outcome files equal the plain run's
+        ev_args = (f_pose, f_laser, cfg.correlation_thres)
+        plain = os.path.join(d, "plain.txt")
+        p = tpipe.LoopClosurePipeline(cfg, ContLCDEvaluator(*ev_args), 64,
+                                      device="cuda")
+        p.run()
+        p.save_outcome(plain)
+        drain_at = tpipe.DRAIN_BLOCK
+        for name, args, patch in (("q16", (False, None, True), None),
+                                  ("block_for_timing", (True,), None),
+                                  ("DRAIN_BLOCK 8", (), 8)):
+            if patch:
+                tpipe.DRAIN_BLOCK = patch
+            try:
+                p = tpipe.LoopClosurePipeline(
+                    cfg, ContLCDEvaluator(*ev_args), 64, *args,
+                    device="cuda")
+                p.run()
+            finally:
+                tpipe.DRAIN_BLOCK = drain_at
+            out = os.path.join(d, "opt.txt")
+            p.save_outcome(out)
+            if name == "q16":
+                assert_outcomes_close(plain, out, name)
+            else:
+                with open(plain) as fa, open(out) as fb:
+                    assert fa.read() == fb.read(), name
+        log("pipeline options: q16_transport, block_for_timing and a "
+            "mid-stream drain every 8 write the plain run's outcome file")
+
+    # ---- the online spinner on the card -------------------------------
+    feed = [(clouds[i], i, 0.1 * i) for i in range(64)] + [
+        (clouds[rev0 + i], 64 + i, 0.1 * (rev0 + i)) for i in range(16)]
+    ref = tdb.ContourDB(cfg, capacity=8192, device="cuda")
+    for pts, seq, t in feed:
+        ref.step_async(pts, seq, t)
+    rec_ref = ref.recs_store[:len(feed)].cpu().numpy()
+    with tempfile.TemporaryDirectory() as d:
+        ctrl = os.path.join(d, "status")
+        sp = OnlineSpinner(cfg, capacity=8192, control_file=ctrl,
+                           device="cuda")
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sp.start()
+
+        def feeder():
+            for k, (pts, seq, t) in enumerate(feed):
+                assert sp.feed(pts, seq, t, timeout=300)
+                if k == 40:
+                    with open(ctrl, "w") as f:
+                        f.write("pause")
+                    deadline = time.time() + 120
+                    while not sp._paused.is_set() and \
+                            time.time() < deadline:
+                        time.sleep(0.01)
+                    with open(ctrl, "w") as f:
+                        f.write("resume")
+
+        th = threading.Thread(target=feeder)
+        th.start()
+        th.join()
+        sp.finish()
+        torch.cuda.synchronize()
+        online_ms = 1e3 * (time.perf_counter() - t0) / len(feed)
+    by_path["online"] = launch_counts(kernels)
+    assert by_path["online"] == one_a_scan(len(feed)), by_path["online"]
+    assert sp.dropped == 0 and sp.n_processed == len(feed)
+    found = [k for k in range(len(feed)) if rec_ref[k, 0] > 0.5]
+    assert [d.q_seq for d in sp.detections] == found, sp.detections
+    for det in sp.detections:
+        assert det.cand_seq == int(rec_ref[det.q_seq, 1]), det
+        np.testing.assert_allclose(det.correlation, rec_ref[det.q_seq, 2],
+                                   rtol=1e-4, atol=1e-4)
+    assert len(found) >= 8, found
+    log(f"online: {len(feed)} scans fed from a thread, paused and resumed "
+        f"through the control file; {len(found)} detections equal the found "
+        f"records of a step_async stream of the same scans; dropped "
+        f"{sp.dropped}; launches {by_path['online']}; {online_ms:.3f} "
+        f"ms/scan (host clock, feed to finish) ({smi})")
+    return by_path
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available")
     sys.path.insert(0, os.path.join(ROOT, "tests"))
 
-    from synth import make_world, render_scan, se3_from_xyt
+    from synth import make_world, render_scan
 
     from contour_context_tpu_torch import (ContourDBConfig, PipelineConfig,
                                            pad_points)
@@ -414,21 +746,8 @@ def main() -> None:
     from contour_context_tpu_torch.__main__ import main as cli_main
 
     with tempfile.TemporaryDirectory() as d:
-        pl, ll = [], []
-        for i, p in enumerate(lane_poses(0, 24)):
-            cloud = clouds[i]
-            cloud = cloud[cloud[:, 3] > 0].copy()
-            cloud[:, 3] = 0.0
-            bp = os.path.join(d, "%06d.bin" % i)
-            cloud.tofile(bp)
-            T = se3_from_xyt(p)
-            pl.append("%.6f %s" % (0.1 * i, " ".join(
-                "%.6f" % v for v in T[:3, :4].reshape(-1))))
-            ll.append("%.6f %d %s" % (0.1 * i, i, bp))
-        f_pose, f_laser = os.path.join(d, "p.txt"), os.path.join(d, "l.txt")
+        f_pose, f_laser = write_kitti(d, clouds, lane_poses(0, 24))
         f_out = os.path.join(d, "outcome.txt")
-        open(f_pose, "w").write("\n".join(pl))
-        open(f_laser, "w").write("\n".join(ll))
         cli_main(["--pose", f_pose, "--laser", f_laser, "--outcome", f_out,
                   "--device", "cuda"])
         lines = open(f_out).read().splitlines()
@@ -778,6 +1097,9 @@ def main() -> None:
         f"{sy_block['dynamic']} host syncs with the option, "
         f"{sy_block['static']} without ({smi})")
 
+    # ---- 10. the user-facing surface ------------------------------------
+    by_path = phase_10(cfg, clouds, ring, db, rev0, smi)
+
     for r in rows:
         # the stream launches the single entries, the block build the
         # batched ones
@@ -785,7 +1107,8 @@ def main() -> None:
         r["launches_by_path"] = {
             "stream": launches.get(r["name"], 0),
             "block_build": launches_block[r["name"]],
-            "serving": launches_serve[r["name"]]}
+            "serving": launches_serve[r["name"]],
+            **{path: n[r["name"]] for path, n in by_path.items()}}
     for r, h in ((brow, held), (rrow, held_ring)):
         r["held_on_paths"] = h
         r["max_abs_err"] = max([r["max_abs_err"]]

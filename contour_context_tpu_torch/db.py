@@ -18,8 +18,11 @@ The query behind its search carries a leading B axis (`stages_from_hits` ->
 package's jax.vmap(_query_step_impl): B queries are one batched program with
 the two syncs of one query, and the stream's query is its B = 1 case.
 
-Beside the stream: the unfused API (`query_async` / `add_scan` /
-`push_and_balance`), block mode (`process_block_async`: B scans appended,
+Beside the stream: chains of steps (`step_chain_async`,
+`step_chain_dyn_async`: one BlockHandle over K record-ring rows), the
+unfused API (`query_async` / `add_scan` / `push_and_balance`), the host
+spec query (`query_ranged_knn_host` on `HostCandidateManager`), block mode
+(`process_block_async`: B scans appended,
 their B queries answered as one batch), map serving
 (`localize_block_async`: B clouds against the frozen map), `range_search`,
 and checkpoints (`save` / `load` / `load_chain` / `merge`) in the npz format
@@ -31,12 +34,17 @@ from __future__ import annotations
 import io
 import math
 import zipfile
+from dataclasses import dataclass, field
 from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from contour_context_tpu_torch.config import PipelineConfig
+from contour_context_tpu_torch.config import (
+    DIST_BIN_LAYERS,
+    LAYER_AREA_WEIGHTS,
+    PipelineConfig,
+)
 from contour_context_tpu_torch.ops.candidate import (
     CandidateState,
     dynamic_pass_scan,
@@ -758,6 +766,111 @@ def _stream_savez(path: str, scalars: dict, store: ScanDesc, since: int,
                     f.write(np.ascontiguousarray(block.numpy()).tobytes())
 
 
+# ---------------------------------------------------------------------------
+# host-side CandidateManager (readable spec replica of contour_db.h:264-656;
+# query_ranged_knn_host runs on it, and the device merge is tested against it)
+# ---------------------------------------------------------------------------
+
+@dataclass
+class AnchorProp:
+    T: np.ndarray                      # (3,) x, y, theta
+    constell: dict                     # {(lev, ss, st): perc} first-insert wins
+    vote_cnt: int
+    area_perc: float = 0.0
+    correlation: float = 0.0
+
+
+@dataclass
+class CandidatePose:
+    gidx: int
+    props: List[AnchorProp] = field(default_factory=list)
+    corr_init: float = 0.0
+    sel: Optional[object] = None
+
+    def add_proposal(self, T: np.ndarray, pairs, percs):
+        """addProposal (contour_db.h:286-338): greedy merge within (2 m, 0.3
+        rad)."""
+        for p in self.props:
+            # delta = T_prop^-1 * T_i
+            c, s = math.cos(T[2]), math.sin(T[2])
+            dx, dy = p.T[0] - T[0], p.T[1] - T[1]
+            tx = c * dx + s * dy
+            ty = -s * dx + c * dy
+            dth = p.T[2] - T[2]
+            dth = (dth + math.pi) % (2 * math.pi) - math.pi
+            if math.hypot(tx, ty) < 2.0 and abs(dth) < 0.3:
+                for pr, pc in zip(pairs, percs):
+                    p.constell.setdefault(pr, pc)
+                w1, w2 = p.vote_cnt, len(pairs)
+                p.vote_cnt = w1 + w2
+                trans = (np.array(p.T[:2]) * w1 + np.array(T[:2]) * w2) \
+                    / (w1 + w2)
+                diff = T[2] - p.T[2]
+                if diff < 0:
+                    diff += 2 * math.pi
+                if diff > math.pi:
+                    diff -= 2 * math.pi
+                ang = diff * w2 / (w1 + w2) + p.T[2]
+                p.T = np.array([trans[0], trans[1], ang])
+                return
+        if len(self.props) > 3:
+            return
+        self.props.append(AnchorProp(np.asarray(T, np.float64).copy(),
+                                     {pr: pc for pr, pc in zip(pairs, percs)},
+                                     len(pairs)))
+
+
+class HostCandidateManager:
+    def __init__(self, cfg: PipelineConfig):
+        self.cfg = cfg
+        self.order: List[int] = []         # gidx in first-seen order
+        self.by_gidx = {}
+
+    def add_passing_hint(self, gidx: int, T: np.ndarray, pairs, percs):
+        cand = self.by_gidx.get(gidx)
+        if cand is None:
+            cand = CandidatePose(gidx)
+            self.by_gidx[gidx] = cand
+            self.order.append(gidx)
+        cand.add_proposal(T, pairs, percs)
+
+    def tidy_stats(self):
+        """Per-candidate best-proposal selection + stats (tidyUpCandidates
+        loop head, contour_db.h:503-545). Returns [(cand, area, neg_d), ...]
+        in first-seen order; the caller applies the screens (rising bars
+        under DYNAMIC_THRES)."""
+        cfg = self.cfg
+        out = []
+        for gidx in self.order:
+            cand = self.by_gidx[gidx]
+            idx_sel = 0
+            for i, p in enumerate(cand.props):
+                lev_perc = {}
+                for (lev, ss, st), perc in p.constell.items():
+                    lev_perc[lev] = lev_perc.get(lev, 0.0) + perc
+                p.area_perc = sum(
+                    LAYER_AREA_WEIGHTS[j] * lev_perc.get(DIST_BIN_LAYERS[j],
+                                                         0.0)
+                    for j in range(len(DIST_BIN_LAYERS)))
+                if p.vote_cnt > cand.props[idx_sel].vote_cnt:
+                    idx_sel = i
+            cand.props[0], cand.props[idx_sel] = \
+                cand.props[idx_sel], cand.props[0]
+
+            # distance censor in the sensor frame (getEstSensTF,
+            # correlation.h:287-296)
+            T = cand.props[0].T
+            nr, nc = cfg.cm.n_row, cfg.cm.n_col
+            ox = nr / 2 - 0.5
+            oy = nc / 2 - 0.5
+            c, s = math.cos(T[2]), math.sin(T[2])
+            tx = c * ox - s * oy + T[0] - ox
+            ty = s * ox + c * oy + T[1] - oy
+            neg_d = -math.hypot(tx * cfg.cm.reso_row, ty * cfg.cm.reso_col)
+            out.append((cand, cand.props[0].area_perc, neg_d))
+        return out
+
+
 class ContourDB:
     """Top-level database (reference ContourDB, contour_db.h:658-845) on an
     explicit torch device. A CUDA device without CUDA raises.
@@ -784,6 +897,9 @@ class ContourDB:
         # the f32 ts_store rounds epoch-scale stamps by ~100 s (see save)
         self.ts: List[float] = []
         self.seq_of_gidx: List[int] = []
+        # the host query's LM budget and GMM candidate padding
+        self.max_fine = cfg.db.max_fine_opt
+        self.gmm_pad = 32
         # check-cascade survivor counters (contour_db.h:356-359); map-serving
         # queries (localize_block_async) fill the separate set
         self.counters = self._zero_counters()
@@ -924,10 +1040,44 @@ class ContourDB:
         self.seq_of_gidx.append(int(seq))
         return QueryHandle(self, row)
 
-    def step_chain_async(self, points_k, seqs, ts_k) -> List[QueryHandle]:
-        """K sequential steps; exact per-scan semantics at any spacing."""
-        return [self.step_async(points_k[i], s, ts_k[i])
-                for i, s in enumerate(seqs)]
+    def step_chain_async(self, points_k, seqs, ts_k) -> BlockHandle:
+        """K sequential steps (`points_k` (K, max_points, 4) f32 or q16,
+        `ts_k` K timestamps): exact per-scan semantics at any timestamp
+        spacing, unlike `process_block_async`. One upload for the K clouds;
+        the K records come back through one BlockHandle over the record
+        ring's rows. `step_chain_dyn_async` with k = K."""
+        return self.step_chain_dyn_async(points_k, seqs, ts_k)
+
+    @staticmethod
+    def stage_chain_k(k: int, *, device="cuda"):
+        """A chain length for `step_chain_dyn_async(k_dev=...)`: `(k, int32
+        tensor holding k on the device)`. The host half lets the call check
+        the staged length against len(seqs) without a device fetch."""
+        return int(k), torch.full((), int(k), dtype=torch.int32,
+                                  device=torch.device(device))
+
+    def step_chain_dyn_async(self, points_buf, seqs, ts_k,
+                             k_dev=None) -> BlockHandle:
+        """`step_chain_async` over the first k = len(seqs) rows of a buffer
+        that may be longer: `points_buf` (K, max_points, 4), `ts_k` K
+        timestamps covering the whole buffer (rows past k are ignored).
+        `k_dev` is an optional `stage_chain_k` pair, checked against
+        len(seqs) on the host."""
+        k = len(seqs)
+        if k_dev is not None and int(k_dev[0]) != k:
+            raise ValueError(f"staged k ({int(k_dev[0])}) != len(seqs) ({k})")
+        rows = points_buf.shape[0]
+        if k > rows:
+            raise ValueError(f"{k} seqs for a buffer of {rows} rows")
+        if len(ts_k) != rows:
+            raise ValueError("ts_k must cover the full buffer (rows past k "
+                             "are ignored)")
+        self._ensure_capacity(k)
+        pts = torch.as_tensor(points_buf[:k]).to(self.device)
+        row0 = self.n
+        for i, s in enumerate(seqs):
+            self.step_async(pts[i], s, ts_k[i])
+        return BlockHandle(self.recs_store[row0:row0 + k], self, row0=row0)
 
     def drain(self, handles) -> list:
         """`drain_handles`: per-handle None or (gidx, corr, T3)."""
@@ -970,11 +1120,148 @@ class ContourDB:
         return QueryHandle(self, rec=query_step(
             self.store, self.keys_q, query, self.state, self.cfg))
 
-    def query_ranged_knn(self, query: ScanDesc):
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def query_ranged_knn(self, query: ScanDesc, profiler=None):
         """queryRangedKNN (contour_db.h:698-811): at most one (cand_gidx,
-        correlation, T_delta(3,)) or None. Blocking form of query_async."""
+        correlation, T_delta(3,)) or None. Blocking form of query_async;
+        a `profiler` (utils.profiling.SequentialTimeProfiler) records the
+        query's time, the device synchronised."""
         h = self.query_async(query)
+        if profiler:
+            self._sync()
+            profiler.record("query (fused)")
         return None if h is None else h.get()
+
+    def query_ranged_knn_host(self, query: ScanDesc, profiler=None):
+        """The sequential host CandidateManager path, the readable spec of
+        the query (db.query_ranged_knn_host): the key search through the
+        maintained keys_q on the DB's device (one tile-min launch), the
+        check cascade over every valid hit with no hint cap, the proposal
+        merge, tidy statistics and the dynamic re-gating on the host, then
+        the GMM init correlation (candidates padded to `gmm_pad` rows), the
+        post screens and the LM over the `max_fine` best. Same semantics as
+        `query_ranged_knn` wherever the device path's caps do not overflow.
+        Returns (cand_gidx, correlation, T_delta(3,)) or None."""
+        cfg = self.cfg
+        if self.store is None or self.searchable_n == 0:
+            return None
+        dev = self.device
+        gidx, seq_src, _, valid = search(self.keys_q, query.keys, self.state,
+                                         tuple(cfg.db.q_levels), cfg.db.nnk)
+        if profiler:
+            self._sync()
+            profiler.record("KNN search")
+
+        Q, A, K = gidx.shape
+        i32 = torch.int32
+        level = device_const(tuple(cfg.db.q_levels), i32, dev)[:, None, None] \
+            .expand(Q, A, K).reshape(-1)
+        seq_tgt = torch.arange(A, dtype=i32, device=dev)[None, :, None] \
+            .expand(Q, A, K).reshape(-1)
+        gidx_f = gidx.reshape(-1)
+        H = gidx_f.shape[0]
+        query_b = ScanDesc(*[x[None] for x in query])     # a batch of one
+        res = gather_and_cascade(
+            self.store, query_b,
+            torch.zeros(H, dtype=torch.long, device=dev), gidx_f, level,
+            seq_src.reshape(-1), seq_tgt, valid.reshape(-1), cfg.thres_lb,
+            cfg.db.cont_sim, cfg.db.p_pot)
+        res = CascadeResult(*[x.cpu().numpy() for x in res])
+        gidx_h = gidx_f.cpu().numpy()
+        if profiler:
+            profiler.record("Constell")
+
+        if cfg.db.dynamic_thres:
+            # sequential re-gating with rising bars (contour_db.h:439-458)
+            lb, ub = cfg.thres_lb, cfg.thres_ub
+            lbs = np.array([lb.sim_constell.i_ovlp_sum,
+                            lb.sim_constell.i_ovlp_max_one,
+                            lb.sim_constell.i_in_ang_rng,
+                            lb.sim_pair.i_indiv_sim, lb.sim_pair.i_orie_sim])
+            ubs = np.array([ub.sim_constell.i_ovlp_sum,
+                            ub.sim_constell.i_ovlp_max_one,
+                            ub.sim_constell.i_in_ang_rng,
+                            ub.sim_pair.i_indiv_sim, ub.sim_pair.i_orie_sim])
+            sc = np.stack([res.ovlp_sum, res.ovlp_max_one, res.in_ang_rng,
+                           res.i_indiv_sim, res.i_orie_sim], axis=1)
+            pass3 = np.zeros(H, bool)
+            for h in range(H):
+                if res.pass1[h] and (sc[h] >= lbs).all():
+                    pass3[h] = True
+                    lbs = np.minimum(np.maximum(lbs, sc[h, 4]), ubs)
+        else:
+            pass3 = res.pass3
+        mgr = HostCandidateManager(cfg)
+        for h in np.flatnonzero(pass3):
+            sel = np.flatnonzero(res.pair_valid[h])
+            pairs = [(int(res.pair_level[h, i]), int(res.pair_seq_src[h, i]),
+                      int(res.pair_seq_tgt[h, i])) for i in sel]
+            percs = [float(res.pair_area_perc[h, i]) for i in sel]
+            mgr.add_passing_hint(int(gidx_h[h]),
+                                 res.T_delta[h].astype(np.float64), pairs,
+                                 percs)
+        stats = mgr.tidy_stats()
+        if not stats:
+            if profiler:
+                profiler.record("L2 opt")
+            return None
+
+        # batched GMM init correlation (screen 3/3 of tidyUpCandidates)
+        C = len(stats)
+        pad = max(self.gmm_pad, C)
+        cg = np.zeros(pad, np.int64)
+        Ti = np.zeros((pad, 3), np.float32)
+        for i, (cand, _, _) in enumerate(stats):
+            cg[i] = cand.gidx
+            Ti[i] = cand.props[0].T
+        src_gmm = gather_gmm(self.store, torch.from_numpy(cg).to(dev),
+                             tuple(cfg.gmm.levels), cfg.gmm.max_gmm_ellipses)
+        tgt_gmm = gmm_from_desc(query_b, cfg.gmm)        # broadcasts
+        Ti_t = torch.from_numpy(Ti).to(dev)
+        corr0, selp = init_correlation(src_gmm, tgt_gmm, Ti_t,
+                                       scale=cfg.gmm.cov_dilate_scale)
+        corr0 = corr0.cpu().numpy()
+
+        post_lb = cfg.thres_lb.sim_post
+        if cfg.db.dynamic_thres:
+            post_ub = cfg.thres_ub.sim_post
+            bars = np.array([post_lb.area_perc, post_lb.neg_est_dist,
+                             post_lb.correlation])
+            ubars = np.array([post_ub.area_perc, post_ub.neg_est_dist,
+                              post_ub.correlation])
+            keep = []
+            for i, (_, area, neg_d) in enumerate(stats):
+                v = np.array([area, neg_d, corr0[i]])
+                if (v >= bars).all():
+                    keep.append(i)
+                    bars = np.minimum(np.maximum(bars, v), ubars)
+        else:
+            keep = [i for i, (_, area, neg_d) in enumerate(stats)
+                    if area >= post_lb.area_perc
+                    and neg_d >= post_lb.neg_est_dist
+                    and corr0[i] >= post_lb.correlation]
+        if not keep:
+            if profiler:
+                profiler.record("L2 opt")
+            return None
+        # fineOptimize (contour_db.h:604-648): refine up to max_fine_opt,
+        # ranked by init correlation
+        keep.sort(key=lambda i: -corr0[i])
+        keep = keep[:self.max_fine]
+        kidx = torch.tensor(keep, dtype=torch.long, device=dev)
+        corr_f, T_f = optimize_correlation(
+            GmmScan(*[x[kidx] for x in src_gmm]), tgt_gmm, Ti_t[kidx],
+            selp[kidx], scale=cfg.gmm.cov_dilate_scale,
+            iters=cfg.gmm.gn_iters)
+        corr_f, T_f = corr_f.cpu().numpy(), T_f.cpu().numpy()
+        best = int(np.argmax(corr_f))
+        if profiler:
+            profiler.record("L2 opt")
+        return (int(cg[keep[best]]), float(corr_f[best]),
+                T_f[best].astype(np.float64))
 
     def range_search(self, query: ScanDesc, max_dist_sq: float,
                      cap: int = 256):

@@ -85,6 +85,11 @@ class ContLCDEvaluator:
     def curr_scan(self) -> LaserScanInfo:
         return self.laser_info[self.p_lidar_curr]
 
+    def peek_next(self) -> Optional[LaserScanInfo]:
+        """The scan after the cursor, if any (for loader prefetching)."""
+        i = self.p_lidar_curr + 1
+        return self.laser_info[i] if i < len(self.laser_info) else None
+
     def add_prediction(self, q_seq: int, est_corr: float,
                        cand_seq: Optional[int] = None,
                        T_est_delta_2d: Optional[np.ndarray] = None,
@@ -149,3 +154,22 @@ class ContLCDEvaluator:
                 f.write("%d\t%s\t%g\t%g\t%g\t%g\t%s\t%s\n" % (
                     rec.tfpn, pair, rec.correlation,
                     rec.est_err[0], rec.est_err[1], rec.est_err[2], path_tgt, path_src))
+
+    def save_reindexed_dataset(self, sav_pose: str, sav_laser: str,
+                               hz: float = 10.0) -> int:
+        """MulRan stationary-time reindexing (the reference's commented
+        "save gt pose and bin path" block, evaluator.h:201-232 + README
+        "Additional steps"): rewrite the ASSOCIATED scan list with uniform
+        i/hz timestamps. MulRan vehicles idle at red lights, so wall-clock
+        gaps make the >=15 s exclusion window inconsistent in frame terms;
+        after reindexing the window is a fixed frame gap. Returns the scan
+        count; feed the two new files back as fpath_sens_gt_pose /
+        fpath_lidar_bins."""
+        # %.6f (not the reference dump's %.2f) so high-rate reindexing never
+        # collides adjacent timestamps under the 10 ms association tolerance
+        with open(sav_laser, "w") as f4, open(sav_pose, "w") as f5:
+            for i, info in enumerate(self.laser_info):
+                f4.write("%.6f %d %s\n" % (i / hz, i, info.fpath))
+                f5.write("%.6f %s\n" % (i / hz, " ".join(
+                    "%.6f" % info.sens_pose[j // 4, j % 4] for j in range(12))))
+        return len(self.laser_info)

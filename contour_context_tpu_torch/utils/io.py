@@ -1,15 +1,19 @@
-"""Host-side data plane: the KITTI `.bin` reader and the two-file dataset format.
+"""Host-side data plane: KITTI/MulRan `.bin` readers and the two-file dataset format.
 
-The port's own copy of what it uses of `contour_context_tpu/utils/io.py`.
+The port's own copy of `contour_context_tpu/utils/io.py`.
+
 Reference behaviors:
 - `.bin` reader: raw float32 x 4 (x, y, z, reflectance) -> xyz (pointcloud_util.h:11-50).
 - dataset format (evaluator.h:47-52):
     file 1: `ts r00 r01 r02 tx r10 r11 r12 ty r20 r21 r22 tz` per line (sensor gt pose)
     file 2: `ts seq bin_path` per line, ordered by ts AND seq.
+- format generators for KITTI odometry and MulRan (gen_batch_bin_configs.py).
 """
 
 from __future__ import annotations
 
+import math
+import os
 from dataclasses import dataclass
 from typing import List, Optional
 
@@ -150,3 +154,194 @@ def associate_scans_with_gt(
             if (d < gt_dist_thres).any():
                 infos[i].has_gt_positive_lc = True
     return infos
+
+
+# ---------------------------------------------------------------------------
+# Dataset-format generators (parity with scripts/gen_batch_bin_configs.py)
+# ---------------------------------------------------------------------------
+
+def _rot_xyz(roll_deg: float, pitch_deg: float, yaw_deg: float) -> np.ndarray:
+    """Rz(yaw) * Ry(pitch) @ Rx(roll), angles in degrees.
+
+    NOTE: the reference uses `rotz(yaw) * roty(pitch) @ rotx(roll)` where the
+    first `*` on np.ndarray is ELEMENTWISE (gen_batch_bin_configs.py:44).  We
+    reproduce that exact arithmetic for byte-level parity of generated files.
+    """
+    def rx(t):
+        c, s = np.cos(t), np.sin(t)
+        return np.array([[1, 0, 0], [0, c, -s], [0, s, c]])
+
+    def ry(t):
+        c, s = np.cos(t), np.sin(t)
+        return np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]])
+
+    def rz(t):
+        c, s = np.cos(t), np.sin(t)
+        return np.array([[c, -s, 0], [s, c, 0], [0, 0, 1]])
+
+    d = np.pi / 180.0
+    return rz(yaw_deg * d) * ry(pitch_deg * d) @ rx(roll_deg * d)
+
+
+MULRAN_LIDAR_TO_BASE_6D = (1.7042, -0.021, 1.8047, 0.0001, 0.0003, 179.6654)
+
+
+def gen_mulran_dataset(dir_bins: str, f_global_pose: str, sav_pos: str, sav_lid: str) -> None:
+    """Format a MulRan sequence into the two-file input format.
+
+    Parity with gen_mulran (gen_batch_bin_configs.py:12-98): poses are re-based to
+    the first lidar frame via the (quirky, see _rot_xyz) base->lidar calibration.
+    """
+    se3 = MULRAN_LIDAR_TO_BASE_6D
+    rot = _rot_xyz(se3[3], se3[4], se3[5])
+    T_lb = np.eye(4)
+    T_lb[:3, :3] = rot
+    T_lb[:3, 3] = se3[:3]
+
+    tss, poses = [], []
+    T_wl0_inv = None
+    with open(f_global_pose) as cf:
+        for row in cf:
+            parts = row.strip().split(",")
+            if len(parts) != 13:
+                continue
+            try:
+                ts_sec = float(parts[0]) * 1e-9
+                tf12 = np.array([float(a) for a in parts[1:]])
+            except ValueError:
+                continue
+            T_wb = np.vstack([tf12.reshape(3, 4), [0, 0, 0, 1]])
+            T_wl = T_wb @ np.linalg.inv(T_lb)
+            if T_wl0_inv is None:
+                T_wl0_inv = np.linalg.inv(T_wl)
+            T = T_wl0_inv @ T_wl
+            tss.append(ts_sec)
+            poses.append(T[:3, :].reshape(-1))
+    dat = np.hstack([np.array(tss).reshape(-1, 1), np.vstack(poses)])
+    np.savetxt(sav_pos, dat, "%.6f")
+
+    bins = sorted(f for f in os.listdir(dir_bins) if f.endswith(".bin"))
+    with open(sav_lid, "w") as f1:
+        f1.write("\n".join(
+            "%.6f %d %s" % (int(fn.split(".")[0]) * 1e-9, i, os.path.join(dir_bins, fn))
+            for i, fn in enumerate(bins)))
+
+
+def format_mulran_as_kitti(f_bin_info: str, dir_as_kitti: str) -> int:
+    """Copy the listed MulRan .bin files into a KITTI-layout directory as
+    %06d.bin (scripts/format_mulran_as_kitti.py). Returns the copy count."""
+    import shutil
+
+    with open(f_bin_info) as f:
+        bins = [ln.strip() for ln in f if ln.strip()]
+    os.makedirs(dir_as_kitti, exist_ok=True)
+    for i, src in enumerate(bins):
+        shutil.copy2(src, os.path.join(dir_as_kitti, "%06d.bin" % i))
+    return len(bins)
+
+
+def raw_kitti_ts_to_seconds(ts_path: str, float_path: str) -> None:
+    """KITTI-raw human-readable timestamps -> float seconds, one per line
+    (scripts/raw_ts_to_sec.py). Sub-microsecond digits are truncated like the
+    reference's `line[:-4]` slice."""
+    import datetime
+
+    out = []
+    with open(ts_path) as f:
+        for line in f:
+            line = line.rstrip("\n")
+            if not line:
+                continue
+            dt = datetime.datetime.strptime(line[:-4], "%Y-%m-%d %H:%M:%S.%f")
+            out.append("%s\n" % dt.timestamp())
+    with open(float_path, "w") as f:
+        f.writelines(out)
+
+
+def read_oxts_poses(kitti_raw_dir: str, date: str, seq: str):
+    """KITTI-raw OXTS (GNSS/IMU) -> velodyne-frame SE(3) poses.
+
+    Parity with ReadKITTILiDAR (io_bin.h:28-148): mercator projection with
+    the first frame's latitude scale, zyx Euler rotation, re-based to the
+    first frame, composed with the imu->velodyne extrinsic from
+    calib_imu_to_velo.txt. Returns a list of 4x4 float64 poses (T_w_velod).
+    """
+    calib_path = os.path.join(kitti_raw_dir, date, "calib_imu_to_velo.txt")
+    R_iv = np.eye(3)
+    t_iv = np.zeros(3)
+    with open(calib_path) as f:
+        for line in f:
+            parts = line.split()
+            if parts and parts[0] == "R:":
+                R_iv = np.array([float(x) for x in parts[1:10]]).reshape(3, 3)
+            elif parts and parts[0] == "T:":
+                t_iv = np.array([float(x) for x in parts[1:4]])
+    T_imu_velod = np.eye(4)
+    T_imu_velod[:3, :3] = R_iv
+    T_imu_velod[:3, 3] = t_iv
+
+    oxts_dir = os.path.join(kitti_raw_dir, date, seq, "oxts", "data")
+    poses = []
+    scale = None
+    trans_orig = None
+    er = 6378137.0
+    idx = 0
+    while True:
+        p = os.path.join(oxts_dir, "%010d.txt" % idx)
+        if not os.path.exists(p):
+            break
+        dat = np.loadtxt(p).reshape(-1)
+        lat, lon, alt, roll, pitch, yaw = dat[:6]
+        if scale is None:
+            scale = math.cos(lat * math.pi / 180.0)
+        trans = np.array([scale * lon * math.pi * er / 180.0,
+                          scale * er * math.log(math.tan((90 + lat) * math.pi / 360.0)),
+                          alt])
+        cr, sr = math.cos(roll), math.sin(roll)
+        cp, sp = math.cos(pitch), math.sin(pitch)
+        cy, sy = math.cos(yaw), math.sin(yaw)
+        Rx = np.array([[1, 0, 0], [0, cr, -sr], [0, sr, cr]])
+        Ry = np.array([[cp, 0, sp], [0, 1, 0], [-sp, 0, cp]])
+        Rz = np.array([[cy, -sy, 0], [sy, cy, 0], [0, 0, 1]])
+        R = Rz @ Ry @ Rx
+        if trans_orig is None:
+            trans_orig = trans.copy()
+        T_w_imu = np.eye(4)
+        T_w_imu[:3, :3] = R
+        T_w_imu[:3, 3] = trans - trans_orig
+        poses.append(T_w_imu @ np.linalg.inv(T_imu_velod))
+        idx += 1
+    return poses
+
+
+def gen_kitti_dataset(dir_bins: str, f_pose: str, f_times: str, f_calib: str,
+                      sav_pos: str, sav_lid: str, addr_bin_beg: int = 0) -> None:
+    """Format KITTI odometry (SemanticKITTI poses + calib) into the two-file format.
+
+    Parity with gen_kitti (gen_batch_bin_configs.py:101-159): gt sensor pose =
+    T_leftcam_pose @ T_leftcam_velod per scan, timestamps from times.txt.
+    """
+    bins = sorted(
+        os.path.join(dir_bins, f) for f in os.listdir(dir_bins) if f.endswith(".bin"))
+    times = np.loadtxt(f_times)
+    poses_cam = np.loadtxt(f_pose).reshape(-1, 3, 4)
+
+    T_cv = np.eye(4)
+    with open(f_calib) as f:
+        for line in f:
+            if line.startswith("Tr:"):
+                T_cv[:3, :4] = np.array([float(x) for x in line.split()[1:]]).reshape(3, 4)
+                break
+
+    n = min(len(times), len(poses_cam), len(bins) - addr_bin_beg)
+    lines_pos, lines_lid = [], []
+    for i in range(n):
+        T_cam = np.vstack([poses_cam[i], [0, 0, 0, 1]])
+        T_velo = T_cam @ T_cv  # velodyne pose in cam0-world frame
+        vals = " ".join("%.6f" % v for v in T_velo[:3, :4].reshape(-1))
+        lines_pos.append("%.6f %s" % (times[i], vals))
+        lines_lid.append("%.6f %d %s" % (times[i], i, bins[i + addr_bin_beg]))
+    with open(sav_pos, "w") as f:
+        f.write("\n".join(lines_pos))
+    with open(sav_lid, "w") as f:
+        f.write("\n".join(lines_lid))

@@ -1,6 +1,9 @@
-"""Small SE(2)/SE(3) host helpers (numpy, float64) for the evaluation.
+"""Small SE(2)/SE(3) host helpers (numpy, float64).
 
-The port's own copy of what it uses of `contour_context_tpu/utils/se2.py`.
+The port's own copy of `contour_context_tpu/utils/se2.py`.
+
+The pipeline's heavy math runs on device; these are for host-side bookkeeping
+(evaluation, proposal clustering) where exactness matters more than speed.
 """
 
 from __future__ import annotations
@@ -15,12 +18,21 @@ def se2_mat(x: float, y: float, theta: float) -> np.ndarray:
     return np.array([[c, -s, x], [s, c, y], [0.0, 0.0, 1.0]])
 
 
+def se2_params(T: np.ndarray):
+    return float(T[0, 2]), float(T[1, 2]), math.atan2(T[1, 0], T[0, 0])
+
+
 def se2_inv(T: np.ndarray) -> np.ndarray:
     R = T[:2, :2]
     out = np.eye(3)
     out[:2, :2] = R.T
     out[:2, 2] = -R.T @ T[:2, 2]
     return out
+
+
+def clamp_ang(ang: float) -> float:
+    """Wrap to [-pi, pi) (algos.h:48-51)."""
+    return ang - math.floor((ang + math.pi) / (2 * math.pi)) * 2 * math.pi
 
 
 def bev_T_delta_to_sensor(T_delta: np.ndarray, n_row: int, n_col: int,
@@ -67,3 +79,38 @@ def eval_metric_est(T_delta: np.ndarray, gt_src_3d: np.ndarray, gt_tgt_3d: np.nd
 
     T_gt_2d = se2_mat(T_rel[0, 3], T_rel[1, 3], math.atan2(R_rect[1, 0], R_rect[0, 0]))
     return se2_inv(T_gt_2d) @ T_est_sens
+
+
+def estimate_tf_2pt(s1, s2, t1, t2) -> np.ndarray:
+    """Closed-form SE(2) from two point correspondences (algos.h:29-43).
+
+    Rotation aligns the segment s1->s2 with t1->t2; translation places the
+    segment midpoints onto each other. Used by the reference's legacy
+    (non-umeyama) path; provided for completeness."""
+    s1, s2, t1, t2 = (np.asarray(v, np.float64) for v in (s1, s2, t1, t2))
+    vs = s2 - s1
+    vt = t2 - t1
+    ang = math.atan2(vs[0] * vt[1] - vs[1] * vt[0], float(vs @ vt))
+    T = se2_mat(0.0, 0.0, ang)
+    T[:2, 2] = 0.5 * (t1 + t2 - T[:2, :2] @ (s1 + s2))
+    return T
+
+
+def umeyama_2d(src: np.ndarray, tgt: np.ndarray) -> np.ndarray:
+    """Rigid (no-scale) 2-D umeyama: T with tgt ~= T @ src (contour_mng.h:1267).
+
+    Closed-form Kabsch on 2x2; numpy float64 host version (the device twin is
+    the atan2 closed form inline in ops/cascade.run_cascade).
+    """
+    mu_s = src.mean(axis=0)
+    mu_t = tgt.mean(axis=0)
+    H = (tgt - mu_t).T @ (src - mu_s)
+    U, _, Vt = np.linalg.svd(H)
+    d = np.sign(np.linalg.det(U @ Vt))
+    S = np.diag([1.0, d])
+    R = U @ S @ Vt
+    t = mu_t - R @ mu_s
+    out = np.eye(3)
+    out[:2, :2] = R
+    out[:2, 2] = t
+    return out

@@ -38,7 +38,17 @@ This file imports no jax, so it runs where only torch is installed:
   per scan; the LM's inputs of each found query, replayed on the card and
   on a CPU copy of the store, agree (indices and masks exactly, floats to
   1e-5), so the pose band covers the LM alone (tests/test_torch_gmm.py
-  holds the float32 LM against float64 on the same inputs).
+  holds the float32 LM against float64 on the same inputs);
+- chains on the card (`step_chain_dyn_async`, a staged k): one BlockHandle
+  a chain, one launch of each kernel a scan, records equal to the CPU's in
+  the record bands;
+- the host spec query on the card equal to the same queries on the CPU,
+  one tile-min launch a query;
+- the online spinner on the card: its detections equal the found records
+  of a step_async stream, and a kernel wrapper's error on the spin thread
+  reaches finish();
+- `run_chained` on the card staging its groups through the native block
+  reader: the outcome of `run`.
 """
 
 import numpy as np
@@ -450,3 +460,152 @@ def test_stream_on_card_matches_cpu(cuda):
         for x, y in zip((r_g.T0,) + tuple(r_g.src) + tuple(r_g.tgt),
                         (r_c.T0,) + tuple(r_c.src) + tuple(r_c.tgt)):
             torch.testing.assert_close(x.cpu(), y, rtol=1e-5, atol=1e-5)
+
+
+def _revisit_clouds():
+    cfg = PipelineConfig(cm=ContourManagerConfig(max_points=16384))
+    world = make_world(11, n_structs=220, extent=160.0)
+    poses = [(10.0 * i, 0.0, 0.0) for i in range(8)] + [
+        (10.5, 0.8, 0.2), (30.0, -1.0, -0.15), (50.2, 0.7, 0.1),
+        (20.3, 0.5, -0.1)]
+    return cfg, np.stack([pad_points(render_scan(world, p, seed=500 + i),
+                                     16384) for i, p in enumerate(poses)])
+
+
+@pytest.mark.cuda
+def test_chain_block_handle_on_card(cuda):
+    """A chain of 5 out of a 12-row buffer and one of 7 with a staged k:
+    one BlockHandle each, each kernel launched once a scan, the records
+    equal to the same chains on the CPU in the record bands."""
+    cfg, clouds = _revisit_clouds()
+    ts = np.cumsum([1.0, 2.0, 16.0, 1.0, 30.0, 1.5,
+                    1.0, 20.0, 2.0, 16.0, 1.0, 25.0]).astype(np.float32)
+    recs = {}
+    for dev in ("cpu", "cuda"):
+        db = tdb.ContourDB(cfg, capacity=16, device=dev)
+        kernels.reset_launches()
+        pts = torch.from_numpy(clouds).to(dev)
+        h1 = db.step_chain_dyn_async(pts, list(range(5)), ts)
+        h2 = db.step_chain_dyn_async(
+            pts[5:], list(range(5, 12)), ts[5:],
+            k_dev=tdb.ContourDB.stage_chain_k(7, device=dev))
+        assert isinstance(h1, tdb.BlockHandle) and h2.row0 == 5
+        assert len(h1.get() + h2.get()) == 12
+        if dev == "cuda":
+            assert kernels.ring_key_divs.launches == 12
+            assert kernels.search_tilemin.launches == 12
+        recs[dev] = db.recs_store[:12].cpu().numpy()
+    _assert_records(recs["cuda"], recs["cpu"])
+    assert (recs["cpu"][:, 0] > 0.5).sum() >= 2
+
+
+@pytest.mark.cuda
+def test_host_query_on_card_matches_cpu(cuda):
+    """query_ranged_knn_host on the card against the same query on a CPU
+    copy of the DB: one tile-min launch a query; found and gidx exactly,
+    corr to 1e-4, T to 2e-3 cells (the record bands)."""
+    from contour_context_tpu_torch.config import ContourDBConfig
+
+    cfg, clouds = _revisit_clouds()
+    cfg = PipelineConfig(cm=cfg.cm, db=ContourDBConfig(max_check_cands=1024))
+    dbs = {d: tdb.ContourDB(cfg, capacity=16, device=d)
+           for d in ("cpu", "cuda")}
+    n_found = 0
+    for i in range(12):
+        res = {}
+        for dev, db in dbs.items():
+            desc = td.build_descriptor(torch.from_numpy(clouds[i]).to(dev),
+                                       cfg.cm, cfg.gmm)
+            kernels.reset_launches()
+            res[dev] = db.query_ranged_knn_host(desc)
+            if dev == "cuda" and db.searchable_n > 0:
+                assert kernels.search_tilemin.launches == 1
+            db.add_scan(desc, i, 6.0 * i)
+            db.push_and_balance(6.0 * i)
+        a, b = res["cpu"], res["cuda"]
+        assert (a is None) == (b is None), (i, a, b)
+        if a is not None:
+            n_found += 1
+            assert a[0] == b[0]
+            np.testing.assert_allclose(b[1], a[1], rtol=1e-4, atol=1e-4)
+            np.testing.assert_allclose(b[2], a[2], rtol=1e-4, atol=2e-3)
+    assert n_found >= 3
+
+
+@pytest.mark.cuda
+def test_online_spinner_on_card(cuda):
+    """The spinner on the card (each scan uploaded on the spin thread):
+    its detections equal the found records of a step_async stream of the
+    same scans on the card; a launch failure on the spin thread reaches
+    finish()."""
+    from contour_context_tpu_torch.online import OnlineSpinner
+
+    cfg, clouds = _revisit_clouds()
+    ref = tdb.ContourDB(cfg, capacity=16, device="cuda")
+    for i in range(12):
+        ref.step_async(clouds[i], i, 6.0 * i)
+    rec = ref.recs_store[:12].cpu().numpy()
+    sp = OnlineSpinner(cfg, capacity=16, drain_block=2, device="cuda")
+    sp.start()
+    for i in range(12):
+        assert sp.feed(clouds[i], i, 6.0 * i, timeout=120)
+    sp.finish()
+    assert sp.n_processed == 12 and sp.dropped == 0
+    found = np.nonzero(rec[:, 0] > 0.5)[0]
+    assert [d.q_seq for d in sp.detections] == list(found)
+    for d in sp.detections:
+        assert d.cand_seq == int(rec[d.q_seq, 1])
+        np.testing.assert_allclose(d.correlation, rec[d.q_seq, 2], rtol=1e-4,
+                                   atol=1e-4)
+    # a search store the kernel refuses (float16): its wrapper raises on
+    # the spin thread, and finish() re-raises it
+    sp2 = OnlineSpinner(cfg, capacity=16, device="cuda")
+    sp2.db._ensure_capacity(1)
+    sp2.db.keys_q = sp2.db.keys_q.to(torch.float16)
+    sp2.start()
+    sp2.feed(clouds[0], 0, 0.0)
+    with pytest.raises((TypeError, ValueError), match="search_tilemin"):
+        sp2.finish()
+    assert sp2.n_processed == 0
+
+
+@pytest.mark.cuda
+def test_native_loader_stages_groups_on_card(cuda, tmp_path, monkeypatch):
+    """run_chained on the card reads each group through the native block
+    reader into a pinned slot: the outcome equals run()'s."""
+    from synth import se3_from_xyt
+
+    from contour_context_tpu_torch.eval.evaluator import ContLCDEvaluator
+    from contour_context_tpu_torch.pipeline import LoopClosurePipeline
+    from contour_context_tpu_torch.utils import native_loader
+
+    assert native_loader.native_available()
+    cfg, clouds = _revisit_clouds()
+    pl, ll = [], []
+    for i in range(12):
+        c = clouds[i][clouds[i][:, 3] > 0].copy()
+        bp = str(tmp_path / ("%06d.bin" % i))
+        c.tofile(bp)
+        pl.append("%.6f %s" % (6.0 * i, " ".join("%.6f" % v for v in
+                                                  se3_from_xyt((0, 0, 0))
+                                                  [:3, :4].reshape(-1))))
+        ll.append("%.6f %d %s" % (6.0 * i, i, bp))
+    (tmp_path / "p.txt").write_text("\n".join(pl))
+    (tmp_path / "l.txt").write_text("\n".join(ll))
+    calls = []
+    real = native_loader.read_block_into
+    monkeypatch.setattr(native_loader, "read_block_into",
+                        lambda paths, out, **kw: calls.append(len(paths))
+                        or real(paths, out, **kw))
+    outs = []
+    for mode in ("run", "chained"):
+        ev = ContLCDEvaluator(str(tmp_path / "p.txt"),
+                              str(tmp_path / "l.txt"), cfg.correlation_thres)
+        pipe = LoopClosurePipeline(cfg, ev, 16, fused_step=True,
+                                   device="cuda")
+        pipe.run() if mode == "run" else pipe.run_chained(chain=5)
+        pipe.save_outcome(str(tmp_path / f"{mode}.txt"))
+        outs.append([ln.split("\t")[:2] for ln in
+                     (tmp_path / f"{mode}.txt").read_text().splitlines()])
+    assert calls == [5, 5]
+    assert outs[0] == outs[1] and len(outs[0]) == 12

@@ -126,9 +126,10 @@ def test_port_never_imports_jax():
     imports every port module, builds its config from the port's copy and a
     descriptor, and ends with no module of either loaded."""
     mods = ["config", "types", "utils.io", "utils.se2", "utils.profiling",
-            "eval.evaluator", "ops.kernels", "ops.cascade", "ops.candidate",
-            "ops.gmm", "ops.descriptor", "db", "pipeline", "__main__",
-            "profile_step", "kernel_times"]
+            "utils.dumps", "utils.native_loader", "eval.evaluator",
+            "eval.pr_mpe", "eval.sweep", "ops.kernels", "ops.cascade",
+            "ops.candidate", "ops.gmm", "ops.descriptor", "db", "pipeline",
+            "online", "liveview", "__main__", "profile_step", "kernel_times"]
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
