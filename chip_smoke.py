@@ -84,7 +84,22 @@ exit code is not 0):
    mid-stream drain every 8 writing the plain run's outcome file; the
    online spinner fed 80 scans from a thread, paused and resumed through
    its control file, its detections equal to the found records of a
-   `step_async` stream of the same scans, nothing dropped.
+   `step_async` stream of the same scans, nothing dropped;
+11. sharded serving and search (contour_context_tpu_torch/parallel.py),
+   the launches of each path counted from 0 just before it: a world of one
+   rank over NCCL in this process (`sharded_search` on phase 3's tile-min
+   fixture with f32 keys, `sharded_query_step` on the stream's first two
+   found revisits, the 132 revisit clouds served by
+   `sharded_localize_block` in chunks of 16 on the merged map, each equal
+   to the single-device f32-key path; the host syncs of one chunk), then a
+   world of two ranks over gloo, both on this card, spawned: each loads
+   the merged map from its checkpoint, shards it and serves the 132
+   clouds, serves the first chunk again from the map cut to an odd row
+   count, and runs one `sharded_process_block` of 16 revisit descriptors
+   over the sharded stream DB; every rank's records equal the
+   single-device f32-key ones, and each rank reports its launches of each
+   kernel, its shard bytes and its peak allocated bytes; ms/query of both
+   worlds beside the single-device serving of this call.
 The last three lines are the kernel JSON, the card's nvidia-smi name and
 power limit, and {"ok": true, "device": ...}.
 """
@@ -539,6 +554,369 @@ def phase_10(cfg, clouds, ring, db, rev0: int, smi: str) -> dict:
         f"{sp.dropped}; launches {by_path['online']}; {online_ms:.3f} "
         f"ms/scan (host clock, feed to finish) ({smi})")
     return by_path
+
+
+def _chunks(points, B: int):
+    """The clouds padded with zero clouds to whole chunks of B, as
+    `localize_block_async` pads its tail."""
+    n = points.shape[0]
+    out = np.zeros((-(-n // B) * B,) + points.shape[1:], points.dtype)
+    out[:n] = points
+    return out
+
+
+def _phase11_rank(mesh, job: dict) -> dict:
+    """One spawned rank of phase 11 (world 2 over gloo, on the one card):
+    the merged map loaded from its checkpoint and sharded, the revisit
+    clouds served in chunks, an uneven shard of the map cut to an odd row
+    count, one block step over the sharded stream DB. Returns the records,
+    the rank's launches of each kernel, its shard and peak bytes."""
+    import torch.distributed as dist
+
+    from contour_context_tpu_torch import db as tdb
+    from contour_context_tpu_torch import kernel_times as kt
+    from contour_context_tpu_torch import parallel as par
+    from contour_context_tpu_torch.ops import descriptor as td
+    from contour_context_tpu_torch.ops import kernels
+
+    cfg, B, dev = job["cfg"], job["chunk"], mesh.device
+    ql = tuple(cfg.db.q_levels)
+    out = {}
+    m = tdb.ContourDB.load(job["map"], cfg, device=dev)
+    shard = par.shard_store(m.store, mesh)
+    cut = job["cut"]
+    shard_u = par.shard_store(type(m.store)(*[x[:cut] for x in m.store]),
+                              mesh)
+    state, state_u = m.state, torch.tensor([cut, cut], dtype=torch.int32,
+                                           device=dev)
+    del m
+    torch.cuda.empty_cache()
+    pts = _chunks(np.load(job["clouds"]), B)
+    n = job["n_clouds"]
+    par.sharded_localize_block(shard, state, pts[:B], cfg, mesh)  # warm-up
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dist.barrier()
+    t0 = time.perf_counter()
+    recs = [par.sharded_localize_block(shard, state, pts[i:i + B], cfg, mesh)
+            for i in range(0, len(pts), B)]
+    torch.cuda.synchronize()
+    dist.barrier()
+    out["ms_per_query"] = 1e3 * (time.perf_counter() - t0) / n
+    out["launches"] = launch_counts(kernels)
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    out["records"] = torch.cat(recs)[:n].cpu()
+    out["shard_bytes"] = (sum(x.nbytes for x in shard.store)
+                          + shard.keys_q.nbytes)
+    out["n_loc"] = shard.store.keys.shape[0]
+    out["uneven"] = par.sharded_localize_block(shard_u, state_u, pts[:B],
+                                               cfg, mesh).cpu()
+    out["uneven_n_loc"] = shard_u.store.keys.shape[0]
+    # the batched tile-min against its plain version on this rank's f32
+    # shard, with the first chunk's query keys (after the counts)
+    descs = td.build_descriptors(torch.from_numpy(pts[:B]).to(dev), cfg.cm,
+                                 cfg.gmm)
+    lv = list(ql)
+    out["held_err"] = kt.hold_batch(
+        shard.keys_q, ql, descs.keys[:, lv].to(torch.float32).contiguous(),
+        state[1].expand(B).contiguous(), f"rank {mesh.rank}'s map shard")
+    del shard, shard_u, descs
+    torch.cuda.empty_cache()
+    s = tdb.ContourDB.load(job["stream"], cfg, capacity=job["capacity"],
+                           device=dev)
+    bshard = par.shard_store(s.store, mesh)
+    ts_store, st, recs_store, n0 = s.ts_store, s.state, s.recs_store, s.n
+    del s
+    descs = type(bshard.store)(*[x.to(dev) for x in job["block_descs"]])
+    kernels.reset_launches()
+    out["block"] = par.sharded_process_block(
+        bshard, ts_store, st, recs_store, descs,
+        torch.tensor(job["block_ts"], dtype=torch.float32, device=dev), n0,
+        cfg, mesh).cpu()
+    out["block_launches"] = launch_counts(kernels)
+    out["block_state"] = st.cpu()
+    out["block_rows"] = (bshard.base, bshard.store.keys.shape[0])
+    return out
+
+
+def phase_11(cfg, clouds, db, served, rev0: int, smi: str) -> dict:
+    """Sharded serving and search on the card (contour_context_tpu_torch/
+    parallel.py): a world of one rank over NCCL in this process, then a
+    world of two ranks over gloo, both on the one card, spawned. Returns
+    the launches of each kernel on the sharded paths, by world and rank."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from contour_context_tpu_torch import db as tdb
+    from contour_context_tpu_torch import kernel_times as kt
+    from contour_context_tpu_torch import parallel as par
+    from contour_context_tpu_torch.ops import descriptor as td
+    from contour_context_tpu_torch.ops import kernels
+    from contour_context_tpu_torch.profile_step import host_syncs
+
+    dev = torch.device("cuda", 0)
+    B = 16
+    ql = tuple(cfg.db.q_levels)
+    cfg32 = dataclasses.replace(cfg, cm=dataclasses.replace(
+        cfg.cm, keys_bf16=False))
+    revisit = np.stack(clouds[rev0:])
+    n_rev = revisit.shape[0]
+    pts = _chunks(revisit, B)
+    launches = {}
+    with tempfile.TemporaryDirectory() as d:
+        f_map, f_stream = (os.path.join(d, f) for f in ("map.npz",
+                                                         "stream.npz"))
+        served.save(f_map)
+        db.save(f_stream)
+        np.save(os.path.join(d, "revisit.npy"), revisit)
+        # the single-device references: the same checkpoints with f32 keys_q
+        map32 = tdb.ContourDB.load(f_map, cfg32, device="cuda")
+        assert map32.keys_q.dtype == torch.float32
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev1 = torch.cuda.Event(enable_timing=True)
+
+        def serve_single():
+            """The single-device f32-key serving: ms/query, records."""
+            torch.cuda.synchronize()
+            ev0.record()
+            recs = map32.localize_block_async(revisit, chunk=B).recs
+            ev1.record()
+            torch.cuda.synchronize()
+            return ev0.elapsed_time(ev1) / n_rev, recs.cpu().numpy()
+
+        def right_place(recs):
+            return sum(1 for i in range(n_rev) if recs[i, 0] > 0.5 and abs(
+                served.session_of_gidx[int(recs[i, 1])][1] - i) <= 3)
+
+        single_ms, recs32 = serve_single()
+
+        # ---- world 1 over NCCL, in this process ------------------------
+        dist.init_process_group("nccl", init_method="file://"
+                                + os.path.join(d, "init1"), rank=0,
+                                world_size=1)
+        try:
+            mesh = par.make_mesh(device=dev)
+            # the tile-min fixture of phase 3 with f32 keys at
+            # searchable_n 7000
+            kb, qk = kt.tile_store(8192)
+            kq32 = kt.q_layout(kb, torch.float32, dev)
+            keys = torch.from_numpy(kb).to(dev)
+            fixture = type(db.store)(*[
+                keys if f == "keys" else keys.new_zeros((keys.shape[0], 0))
+                for f in db.store._fields])
+            sh_fix = par.shard_store(fixture, mesh)
+            state = torch.tensor([8192, 7000], dtype=torch.int32, device=dev)
+            q = torch.from_numpy(qk).to(dev)
+            kernels.reset_launches()
+            got = par.sharded_search(sh_fix.keys_q, q, state[1], ql,
+                                     cfg.db.nnk, mesh)
+            launches["search_fixture"] = launch_counts(kernels)
+            want = tdb.search(kq32, q, state, ql, cfg.db.nnk)
+            for a, b in zip(got, want):
+                assert torch.equal(a, b), "sharded search on the fixture"
+            assert torch.equal(sh_fix.keys_q, kq32)
+            del sh_fix, fixture, keys, kq32
+            log(f"sharded search (world 1, NCCL): the tile-min fixture "
+                f"(6, 10, 49152) f32 at searchable_n 7000, "
+                f"{int(want[3].sum())} valid hits: bit-equal to the "
+                f"single-device search with f32 keys_q; launches "
+                f"{launches['search_fixture']}")
+
+            # two found revisits of the stream at their replayed window
+            # states, on the sharded stream DB
+            sh_s = par.shard_store(db.store, mesh)
+            kq_s = tdb.keys_to_q_layout(db.store.keys).contiguous()
+            ts_c, tb = db.ts_store.cpu(), cfg.db.tb
+            ring = db.recs_store.cpu().numpy()
+            rows = [r for r in range(rev0, rev0 + LANE_SCANS)
+                    if ring[r, 0] > 0.5][:2]
+            cases = []
+            for row in rows:
+                st = torch.zeros(2, dtype=torch.int32)
+                for j in range(row):
+                    st[0] = j + 1
+                    tdb.update_window(st, ts_c, ts_c[j], tb.min_elapse,
+                                      tb.max_elapse)
+                st = st.to(dev)
+                desc = td.build_descriptor(torch.from_numpy(clouds[row])
+                                           .to(dev), cfg.cm, cfg.gmm)
+                cases.append((row, desc, st, tdb.query_step(
+                    db.store, kq_s, desc, st, cfg32)))
+            kernels.reset_launches()
+            recs_q = [par.sharded_query_step(sh_s, desc, st, cfg32, mesh)
+                      for _, desc, st, _ in cases]
+            launches["query_step"] = launch_counts(kernels)
+            assert launches["query_step"] == dict(
+                one_a_scan(len(rows)), ring_key_divs=0), launches
+            n_bit = 0
+            for (row, _, _, ref), rec in zip(cases, recs_q):
+                assert_records_close(rec.cpu()[None], ref.cpu()[None],
+                                     f"sharded query of scan {row}")
+                assert rec[0] > 0.5, row
+                n_bit += int(torch.equal(rec, ref))
+            log(f"sharded query step (world 1, NCCL): the stream's first "
+                f"two found revisits {rows} on the sharded stream DB equal "
+                f"the single-device f32-key records ({n_bit} of "
+                f"{len(rows)} bit for bit; found, gidx and counters "
+                f"exactly); launches {launches['query_step']}")
+            del sh_s, kq_s
+
+            # serving: the 132 revisit clouds in chunks on the sharded map
+            sh_m = par.shard_store(map32.store, mesh)
+            got0 = par.sharded_localize_block(sh_m, map32.state, pts[:B],
+                                              cfg32, mesh)
+            assert_records_close(got0.cpu().numpy(), recs32[:B],
+                                 "sharded localization, first chunk")
+            bit0 = bool(np.array_equal(got0.cpu().numpy(), recs32[:B]))
+            kernels.reset_launches()
+            torch.cuda.synchronize()
+            ev0.record()
+            recs1 = [par.sharded_localize_block(sh_m, map32.state,
+                                                pts[i:i + B], cfg32, mesh)
+                     for i in range(0, len(pts), B)]
+            ev1.record()
+            torch.cuda.synchronize()
+            w1_ms = ev0.elapsed_time(ev1) / n_rev
+            launches["world1"] = launch_counts(kernels)
+            n_chunks = len(pts) // B
+            assert launches["world1"] == {
+                "ring_key_divs": 0, "ring_key_divs_batch": n_chunks,
+                "search_tilemin": 0, "search_tilemin_batch": n_chunks}, \
+                launches["world1"]
+            recs1 = torch.cat(recs1)[:n_rev].cpu().numpy()
+            assert_records_close(recs1, recs32, "sharded serving, world 1")
+            bit1 = bool(np.array_equal(recs1, recs32))
+            syncs = host_syncs(lambda: par.sharded_localize_block(
+                sh_m, map32.state, pts[:B], cfg32, mesh))
+            err = kt.hold_batch(
+                sh_m.keys_q, ql, td.build_descriptors(
+                    torch.from_numpy(pts[:B]).to(dev), cfg.cm, cfg.gmm)
+                .keys[:, list(ql)].to(torch.float32).contiguous(),
+                map32.state[1].expand(B).contiguous(),
+                "world 1's map shard")
+            del sh_m
+        finally:
+            dist.destroy_process_group()
+        # the single-device serving again, after world 1: the two bracket it
+        single_ms_after, again = serve_single()
+        assert_records_close(again, recs32, "single-device serving again")
+        log(f"sharded serving (world 1, NCCL): {n_rev} revisit clouds in "
+            f"{n_chunks} chunks of {B} on the {map32.n}-row merged map "
+            f"sharded to one rank: launches {launches['world1']}; records "
+            f"equal the single-device f32-key serving's (the first chunk "
+            f"{'bit for bit' if bit0 else 'in the record bands'}, all "
+            f"{'bit for bit' if bit1 else 'in the record bands'}); "
+            f"{syncs} host syncs a chunk; the batched tile-min bit-equal to "
+            f"its plain version on the shard (max abs err {err})")
+
+        # ---- world 2 over gloo, both ranks on this card, spawned -------
+        cut = served.n - 1
+        block_rows = list(range(len(clouds) - B, len(clouds)))
+        block_descs = td.build_descriptors(torch.from_numpy(
+            np.stack([clouds[r] for r in block_rows])).to(dev), cfg.cm,
+            cfg.gmm)
+        n0 = db.n
+        block_ts = [0.1 * (n0 + i) for i in range(B)]
+        job = dict(cfg=cfg32, chunk=B, map=f_map, stream=f_stream,
+                   clouds=os.path.join(d, "revisit.npy"), n_clouds=n_rev,
+                   cut=cut, capacity=db.capacity, block_ts=block_ts,
+                   block_descs=type(block_descs)(*[x.cpu()
+                                                   for x in block_descs]))
+        kernels.build()     # the ranks load the library built here
+        t0 = time.perf_counter()
+        per_rank = par.spawn_ranks(_phase11_rank, 2, (job,),
+                                   backend="gloo", device="cuda:0")
+        spawn_s = time.perf_counter() - t0
+        # the single-device references of the uneven map and the block
+        u = type(map32.store)(*[x[:cut] for x in map32.store])
+        descs0 = td.build_descriptors(torch.from_numpy(pts[:B]).to(dev),
+                                      cfg.cm, cfg.gmm)
+        rec_u = tdb.query_step_batch(
+            u, tdb.keys_to_q_layout(u.keys).contiguous(), descs0,
+            torch.full((B,), cut, dtype=torch.int32, device=dev), cfg32)
+        s32 = tdb.ContourDB.load(f_stream, cfg32, capacity=db.capacity,
+                                 device="cuda")
+        rec_b = s32.process_block_async(
+            block_descs, [n0 + i for i in range(B)], block_ts).recs
+        state_b = s32.state.cpu()
+        del s32, u
+    rec_u, rec_b = rec_u.cpu().numpy(), rec_b.cpu().numpy()
+    bits = {}
+    for r, res in enumerate(per_rank):
+        got = res["records"].numpy()
+        assert_records_close(got, recs32, f"world 2 rank {r} serving")
+        assert_records_close(res["uneven"].numpy(), rec_u,
+                             f"world 2 rank {r}, map cut to {cut} rows")
+        assert_records_close(res["block"].numpy(), rec_b,
+                             f"world 2 rank {r} block step")
+        assert torch.equal(res["block_state"], state_b), r
+        assert res["launches"] == launches["world1"], (r, res["launches"])
+        assert res["block_launches"] == {
+            "ring_key_divs": 0, "ring_key_divs_batch": 0,
+            "search_tilemin": 0, "search_tilemin_batch": 1}, res
+        assert res["held_err"] == 0.0
+        bits[r] = [bool(np.array_equal(got, recs32)),
+                   bool(np.array_equal(res["uneven"].numpy(), rec_u)),
+                   bool(np.array_equal(res["block"].numpy(), rec_b))]
+        launches[f"world2_rank{r}"] = {
+            k: res["launches"][k] + res["block_launches"][k]
+            for k in res["launches"]}
+    for a, b in (("records", "records"), ("uneven", "uneven"),
+                 ("block", "block")):
+        assert torch.equal(per_rank[0][a], per_rank[1][b]), a
+    right = right_place(per_rank[0]["records"].numpy())
+    assert right >= n_rev // 2, right
+    # why world 2's serving floats are not bit-equal: each rank builds 8
+    # clouds of a chunk where the single device builds 16
+    halves = [td.build_descriptors(torch.from_numpy(pts[i:i + B // 2])
+                                   .to(dev), cfg.cm, cfg.gmm)
+              for i in (0, B // 2)]
+    whole = td.build_descriptors(torch.from_numpy(pts[:B]).to(dev), cfg.cm,
+                                 cfg.gmm)
+    off_8 = desc_leaves_close(
+        whole._fields, [torch.cat(x) for x in zip(*halves)], whole,
+        whole.nei_valid.cpu(), "two builds of 8 vs one of 16")
+    found_b = int((rec_b[:, 0] > 0.5).sum())
+    assert found_b >= B // 2, found_b
+    row_bytes = sum(getattr(map32.store, f)[:1].nbytes
+                    for f in par.TAIL_LEAVES)
+    Q, A = len(ql), map32.store.keys.shape[2]
+    hc = min(cfg.db.max_check_cands, Q * A * min(cfg.db.nnk, map32.n * A))
+    u_rows = min(B * hc + 1, map32.n)
+    for r, res in enumerate(per_rank):
+        log(f"world 2 rank {r} (gloo, cuda:0): rows "
+            f"[{r * res['n_loc']}, {(r + 1) * res['n_loc']}) of the map, "
+            f"shard {res['shard_bytes']} bytes, peak allocated "
+            f"{res['peak_bytes']} bytes while serving; launches serving "
+            f"{res['launches']}, block step {res['block_launches']}; "
+            f"records bit-equal to the single-device f32 ones (serving, "
+            f"uneven, block): {bits[r]}")
+    log(f"sharded serving (world 2, gloo, both ranks on one card, "
+        f"spawned in {spawn_s:.1f} s): {n_rev} revisit clouds in chunks of "
+        f"{B}, each rank building {B // 2} a chunk: records equal the "
+        f"single-device f32-key serving's on both ranks (found, gidx and "
+        f"counters exactly, floats in the record bands: two builds of "
+        f"{B // 2} give one of {B}'s descriptors bit for bit but for "
+        f"{off_8 or 'no leaf'}), found at the right place {right}/{n_rev} "
+        f"(the single-device f32-key serving {right_place(recs32)}); the map "
+        f"cut to {cut} rows "
+        f"({per_rank[0]['uneven_n_loc']} a shard, padded) equals the "
+        f"single-device records of the cut map; one sharded_process_block "
+        f"of {B} revisit descriptors over the sharded stream DB ({n0} rows "
+        f"of {db.capacity}) equals the single-device block with "
+        f"keys_bf16=False ({found_b}/{B} found), window state "
+        f"{state_b.tolist()}")
+    log(f"sharded serving ms/query: world 1 (NCCL) {w1_ms:.3f}, world 2 "
+        f"(gloo, through the host) {per_rank[0]['ms_per_query']:.3f} "
+        f"(rank 0, host clock between barriers), the single-device f32-key "
+        f"serving {single_ms:.3f} before world 1 and {single_ms_after:.3f} "
+        f"after it (CUDA events), all in this call; the row "
+        f"gather moves {u_rows} rows x {row_bytes} bytes from each of the "
+        f"world's ranks a chunk of {B} ({u_rows * row_bytes} bytes a rank) "
+        f"({smi})")
+    return launches
 
 
 def main() -> None:
@@ -1100,6 +1478,9 @@ def main() -> None:
     # ---- 10. the user-facing surface ------------------------------------
     by_path = phase_10(cfg, clouds, ring, db, rev0, smi)
 
+    # ---- 11. sharded serving and search ---------------------------------
+    sharded = phase_11(cfg, clouds, db, served, rev0, smi)
+
     for r in rows:
         # the stream launches the single entries, the block build the
         # batched ones
@@ -1108,7 +1489,9 @@ def main() -> None:
             "stream": launches.get(r["name"], 0),
             "block_build": launches_block[r["name"]],
             "serving": launches_serve[r["name"]],
-            **{path: n[r["name"]] for path, n in by_path.items()}}
+            **{path: n[r["name"]] for path, n in by_path.items()},
+            "sharded": sum(n[r["name"]] for n in sharded.values())}
+        r["sharded_launches"] = {k: n[r["name"]] for k, n in sharded.items()}
     for r, h in ((brow, held), (rrow, held_ring)):
         r["held_on_paths"] = h
         r["max_abs_err"] = max([r["max_abs_err"]]

@@ -14,6 +14,11 @@ up to the revisits, then on revisit scans 4.. it reports:
   descriptor build (split into raster, CC labels, contour tables, keys,
   BCIs and GMM summary + packing), the key search, search -> hints ->
   check 1 -> cascade -> merge, the whole query, and the whole step;
+- the same scans' query cut at each `depth` stage gate of `db.query_step`
+  (search, hints, check1, cascade, merge, init, then the whole record):
+  the median time of each exact production prefix and the difference
+  between successive prefixes, the method of the JAX package's
+  scripts/headline_split_bench.py;
 - `torch.profiler` over `--profile-scans` scans: device-busy ms and kernel
   launches per scan, the top operators, and each CUDA kernel of the port
   (`ring_key_divs_kernel`, `search_tilemin_kernel`) with its launches and
@@ -311,6 +316,8 @@ def run(device: str = "cuda", lane_scans: int = 132, reps: int = 20,
              "query_step", "step_async")
     times = {n: [] for n in names}
     split = []
+    prefixes = tdb.DEPTHS + ("record",)
+    depth_times = {d: [] for d in prefixes}
 
     def timed(name, fn):
         sync()
@@ -332,9 +339,18 @@ def run(device: str = "cuda", lane_scans: int = 132, reps: int = 20,
             db.store, db.keys_q, desc, db.state, cfg))
         timed("query_step", lambda: tdb.query_step(
             db.store, db.keys_q, desc, db.state, cfg))
+        for d in prefixes:
+            sync()
+            t0 = time.perf_counter()
+            tdb.query_step(db.store, db.keys_q, desc, db.state, cfg,
+                           depth=None if d == "record" else d)
+            sync()
+            depth_times[d].append(1e3 * (time.perf_counter() - t0))
         timed("step_async", step)
     res = {"device": str(dev), "scans": [first, first + reps - 1],
            "stage_ms": {n: statistics.median(v) for n, v in times.items()},
+           "depth_ms": {d: statistics.median(v)
+                        for d, v in depth_times.items()},
            "build_split_ms": {n: statistics.median(s[n] for s in split)
                               for n in split[0]}}
 
@@ -377,6 +393,11 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
               max_points=args.max_points, capacity=args.capacity)
     for name, ms in res["stage_ms"].items():
         print(f"{name:>24}: {ms:9.3f} ms median over {args.reps}")
+    prev = 0.0
+    for d, ms in res["depth_ms"].items():
+        print(f"query prefix to {d:>7}: {ms:9.3f} ms median over "
+              f"{args.reps}, stage delta {ms - prev:+9.3f} ms")
+        prev = ms
     print("build split ms: " + " ".join(
         f"{n} {ms:.3f}" for n, ms in res["build_split_ms"].items()))
     print(res["profile_table"])

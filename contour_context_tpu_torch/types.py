@@ -80,9 +80,10 @@ def device_const(values: tuple, dtype: torch.dtype,
     return torch.tensor(values, dtype=dtype, device=device)
 
 
-def scan_desc_from_numpy(desc, device="cpu") -> ScanDesc:
+def scan_desc_from_numpy(desc, device="cuda") -> ScanDesc:
     """Any ScanDesc-shaped NamedTuple of array-likes (e.g. a JAX ScanDesc
-    after jax.device_get) -> torch ScanDesc on `device`, leaf for leaf."""
+    after jax.device_get) -> torch ScanDesc on `device` (the card unless
+    the caller asks for another), leaf for leaf."""
     return ScanDesc(*[torch.from_numpy(np.array(x, copy=True)).to(device)
                       for x in desc])
 

@@ -124,7 +124,7 @@ def test_a_port_checkpoint_loads_in_jax(jax_db, tmp_path):
 def _desc(descs, i):
     """Scan i's JAX-built descriptor with the port's own derived leaves (as
     the port's build packs them)."""
-    d = scan_desc_from_numpy(descs[i])
+    d = scan_desc_from_numpy(descs[i], device="cpu")
     return d._replace(tab12=td.tab12_of(d),
                       gmm_pack=td.gmm_pack_of(d, CFG.gmm))
 
@@ -275,8 +275,8 @@ def test_merge_matches_jax(jax_db):
         np.asarray(jm.keys_q).view(np.int16).copy()))
     rec_j = np.asarray(_query_step(jm.store, q, jm.state, JCFG, jm.keys_q))
     rec_t = tdb.query_step(m.store, m.keys_q,
-                           scan_desc_from_numpy(jax.device_get(q)), m.state,
-                           CFG).numpy()
+                           scan_desc_from_numpy(jax.device_get(q), "cpu"),
+                           m.state, CFG).numpy()
     exact = [0, 1] + list(range(6, 18))
     np.testing.assert_array_equal(rec_t[exact], rec_j[exact])
     np.testing.assert_allclose(rec_t[2], rec_j[2], rtol=1e-4, atol=1e-4)
@@ -302,3 +302,20 @@ def test_merge_refuses_mixed_layouts_and_nothing(jax_db):
         tdb.ContourDB.merge([tdb.ContourDB(CFG, 4, device="cpu")])
     with pytest.raises(ValueError, match="empty DB"):
         tdb.ContourDB(CFG, 4, device="cpu").save("unused.npz")
+
+
+def test_scan_desc_from_numpy_defaults_to_the_card(jax_db):
+    """Carrying a JAX descriptor into the port lands on the card unless the
+    caller asks for another device, like every other entry point: where
+    CUDA is missing the default raises instead of taking the CPU."""
+    import inspect
+
+    assert inspect.signature(scan_desc_from_numpy).parameters[
+        "device"].default == "cuda"
+    desc = jax_db[1][0]
+    if torch.cuda.is_available():
+        assert scan_desc_from_numpy(desc).keys.is_cuda
+    else:
+        with pytest.raises((RuntimeError, AssertionError)):
+            scan_desc_from_numpy(desc)
+    assert scan_desc_from_numpy(desc, device="cpu").keys.device.type == "cpu"

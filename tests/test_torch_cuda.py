@@ -48,7 +48,12 @@ This file imports no jax, so it runs where only torch is installed:
   of a step_async stream, and a kernel wrapper's error on the spin thread
   reaches finish();
 - `run_chained` on the card staging its groups through the native block
-  reader: the outcome of `run`.
+  reader: the outcome of `run`;
+- the multi-GPU layer at a world of one rank over NCCL in this process:
+  `sharded_search`, `sharded_query_step` and `sharded_localize_block` on
+  the card equal the single-device paths with f32 keys_q bit for bit (the
+  same code on the same rows of the same card), through the tile-min and
+  the batched ring kernels.
 """
 
 import numpy as np
@@ -609,3 +614,88 @@ def test_native_loader_stages_groups_on_card(cuda, tmp_path, monkeypatch):
                      (tmp_path / f"{mode}.txt").read_text().splitlines()])
     assert calls == [5, 5]
     assert outs[0] == outs[1] and len(outs[0]) == 12
+
+
+@pytest.fixture
+def nccl_mesh(cuda, tmp_path):
+    """A world of one rank over NCCL in this process, on the card."""
+    import torch.distributed as dist
+
+    from contour_context_tpu_torch import parallel as par
+
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/init",
+                            rank=0, world_size=1)
+    try:
+        yield par.make_mesh(device=cuda)
+    finally:
+        dist.destroy_process_group()
+
+
+def _f32_map(cuda):
+    """The revisit world's first 8 scans in a card DB with f32 keys_q (the
+    sharded path's single-device reference), and the config."""
+    cfg, clouds = _revisit_clouds()
+    cfg = PipelineConfig(cm=ContourManagerConfig(max_points=16384,
+                                                 keys_bf16=False))
+    db = tdb.ContourDB(cfg, capacity=16, device="cuda")
+    for i in range(8):
+        db.step_async(clouds[i], i, 6.0 * i)
+    assert db.keys_q.dtype == torch.float32 and db.searchable_n > 0
+    return cfg, clouds, db
+
+
+@pytest.mark.cuda
+def test_sharded_search_on_card_matches_single(nccl_mesh):
+    from contour_context_tpu_torch import parallel as par
+
+    cfg, clouds, db = _f32_map(nccl_mesh.device)
+    desc = td.build_descriptor(torch.from_numpy(clouds[8]).to("cuda"),
+                               cfg.cm, cfg.gmm)
+    shard = par.shard_store(db.store, nccl_mesh)
+    kernels.reset_launches()
+    got = par.sharded_search(shard.keys_q, desc.keys, db.state[1],
+                             tuple(cfg.db.q_levels), cfg.db.nnk, nccl_mesh)
+    assert kernels.search_tilemin.launches == 1
+    want = tdb.search(db.keys_q, desc.keys, db.state,
+                      tuple(cfg.db.q_levels), cfg.db.nnk)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert int(want[3].sum()) > 0
+
+
+@pytest.mark.cuda
+def test_sharded_query_step_on_card_matches_single(nccl_mesh):
+    from contour_context_tpu_torch import parallel as par
+
+    cfg, clouds, db = _f32_map(nccl_mesh.device)
+    shard = par.shard_store(db.store, nccl_mesh)
+    n_found = 0
+    for i in (8, 10, 11):
+        desc = td.build_descriptor(torch.from_numpy(clouds[i]).to("cuda"),
+                                   cfg.cm, cfg.gmm)
+        kernels.reset_launches()
+        got = par.sharded_query_step(shard, desc, db.state, cfg, nccl_mesh)
+        assert kernels.search_tilemin.launches == 1
+        want = tdb.query_step(db.store, db.keys_q, desc, db.state, cfg)
+        assert torch.equal(got, want), (i, got, want)
+        n_found += int(want[0] > 0.5)
+    assert n_found >= 1
+
+
+@pytest.mark.cuda
+def test_sharded_localize_block_on_card_matches_single(nccl_mesh):
+    from contour_context_tpu_torch import parallel as par
+
+    cfg, clouds, db = _f32_map(nccl_mesh.device)
+    shard = par.shard_store(db.store, nccl_mesh)
+    kernels.reset_launches()
+    got = par.sharded_localize_block(shard, db.state, clouds[8:12], cfg,
+                                     nccl_mesh)
+    assert kernels.ring_key_divs_batch.launches == 1
+    assert kernels.search_tilemin_batch.launches == 1
+    descs = td.build_descriptors(torch.from_numpy(clouds[8:12]).to("cuda"),
+                                 cfg.cm, cfg.gmm)
+    want = tdb.query_step_batch(db.store, db.keys_q, descs,
+                                db.state[1].expand(4).contiguous(), cfg)
+    assert torch.equal(got, want), (got, want)
+    assert int((want[:, 0] > 0.5).sum()) >= 1

@@ -136,7 +136,7 @@ def test_dynamic_thres_record_matches_jax(carried):
     rec_j = np.asarray(_query_step(jdb.store, qdesc, jdb.state, JDYN,
                                    jdb.keys_q))
     db = tdb.ContourDB.from_numpy_state(TDYN, device="cpu", **host)
-    q = scan_desc_from_numpy(jax.device_get(qdesc))
+    q = scan_desc_from_numpy(jax.device_get(qdesc), device="cpu")
     rec_t = tdb.query_step(db.store, db.keys_q, q, db.state, TDYN).numpy()
     exact = [0, 1] + list(range(6, 18))
     np.testing.assert_array_equal(rec_t[exact], rec_j[exact])
@@ -169,7 +169,7 @@ def test_range_search_matches_jax(carried, keys_bf16):
     h = dict(host, keys_q=None)
     db = tdb.ContourDB.from_numpy_state(tcfg, device="cpu", **h)
     assert db.keys_q.dtype == (torch.bfloat16 if keys_bf16 else torch.float32)
-    q = scan_desc_from_numpy(jax.device_get(qdesc))
+    q = scan_desc_from_numpy(jax.device_get(qdesc), device="cpu")
     for radius, cap in ((3.0, 256), (60.0, 7), (1e9, 12), (1e-9, 8)):
         hits_j, n_j = jq.range_search(qdesc, radius, cap=cap)
         hits_t, n_t = db.range_search(q, radius, cap=cap)

@@ -26,6 +26,9 @@ def test_profile_step_runs_on_cpu(tmp_path):
     assert set(res["build_split_ms"]) == {"raster", "cc", "tables", "keys",
                                           "bcis", "gmm"}
     assert all(ms > 0 for ms in res["stage_ms"].values())
+    assert list(res["depth_ms"]) == ["search", "hints", "check1", "cascade",
+                                     "merge", "init", "record"]
+    assert all(ms > 0 for ms in res["depth_ms"].values())
     assert "aten::" in res["profile_table"]
     assert "device_busy_ms_per_scan" not in res      # CUDA only
     assert out.read_text().startswith("{")

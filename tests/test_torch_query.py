@@ -161,7 +161,7 @@ def test_query_stages_match_jax(carried, case):
     host, qdesc, _ = carried
     name, cfg, _, (n_valid, ovf, aft1, g_h, res_j, st_j) = case
     db = _port_db(host, cfg=cfg)
-    q = scan_desc_from_numpy(jax.device_get(qdesc))
+    q = scan_desc_from_numpy(jax.device_get(qdesc), device="cpu")
     qs = tdb.query_stages(db.store, db.keys_q, q, db.state, cfg)
     _cmp("n_valid", qs.n_valid, n_valid, True)
     _cmp("overflow_hints", qs.overflow_hints, ovf, True)
@@ -183,9 +183,8 @@ def test_query_record_matches_jax(carried, case):
     host, qdesc, _ = carried
     name, cfg, rec_j, _ = case
     db = _port_db(host, cfg=cfg)
-    rec_t = tdb.query_step(db.store, db.keys_q,
-                           scan_desc_from_numpy(jax.device_get(qdesc)),
-                           db.state, cfg).numpy()
+    q = scan_desc_from_numpy(jax.device_get(qdesc), device="cpu")
+    rec_t = tdb.query_step(db.store, db.keys_q, q, db.state, cfg).numpy()
     assert rec_t.shape == (tdb.RECORD_WIDTH,)
     exact = [0, 1] + list(range(6, 18))       # found, gidx, counters
     np.testing.assert_array_equal(rec_t[exact], rec_j[exact])
@@ -198,7 +197,7 @@ def test_query_record_matches_jax(carried, case):
 def test_grow_keeps_the_query(carried):
     host, qdesc, _ = carried
     db = _port_db(host)
-    q = scan_desc_from_numpy(jax.device_get(qdesc))
+    q = scan_desc_from_numpy(jax.device_get(qdesc), device="cpu")
     rec0 = tdb.query_step(db.store, db.keys_q, q, db.state, TCFG)
     kq0 = db.keys_q.clone()
     db._grow(40)
@@ -222,7 +221,7 @@ def test_device_and_unported_options_raise(carried):
     host, qdesc, _ = carried
     dyn = _configs(dynamic_thres=True)[1]
     db = _port_db(host, cfg=dyn)
-    q = scan_desc_from_numpy(jax.device_get(qdesc))
+    q = scan_desc_from_numpy(jax.device_get(qdesc), device="cpu")
     r_dyn = tdb.unpack_record(
         tdb.query_step(db.store, db.keys_q, q, db.state, dyn).numpy())
     r = tdb.unpack_record(

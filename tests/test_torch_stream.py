@@ -129,7 +129,8 @@ def test_port_never_imports_jax():
             "utils.dumps", "utils.native_loader", "eval.evaluator",
             "eval.pr_mpe", "eval.sweep", "ops.kernels", "ops.cascade",
             "ops.candidate", "ops.gmm", "ops.descriptor", "db", "pipeline",
-            "online", "liveview", "__main__", "profile_step", "kernel_times"]
+            "online", "liveview", "__main__", "profile_step", "kernel_times",
+            "parallel"]
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
