@@ -29,9 +29,14 @@ exit code is not 0):
    16 single launches that answer the same queries;
 3c. the batched ring key (one launch for the B scans of a block) bit-equal
    to its plain version and to one single launch a scan, at B = 1, with a
-   zero cloud (an empty pool) in the batch and at B = 17; its device time
-   at the stream's first block of 16 beside its bound and the 16 single
-   launches of the same scans;
+   zero cloud (an empty pool) in the batch, at B = 17, with every pixel
+   counting for every anchor, at pools of 1, 4095 and 4097 rows and at
+   65535 anchors a scan; its device time at the stream's first block of 16
+   beside its bound and the 16 single launches of the same scans; then
+   both batched kernels across sizes (kernel_times.scaling_rows: the ring
+   at B = 1, 4, 16, 64 and at 9 and 18 anchors, the tile-min at B = 4, 16,
+   64, with every limit 0 and on a capacity-65536 map), each beside its
+   bytes, operations, bound and share;
 6. a map built in blocks: the stream's first 264 clouds through
    `block_chain_pts_async` in 16 blocks of 16 and an 8-scan tail through
    `step_async`; records and window state must equal the stream's first 264
@@ -1000,6 +1005,13 @@ def main() -> None:
         f"{rrow['ms']:.4f} ms against {rrow['singles_ms']:.4f} ms for the 16 "
         f"(host + launch), plain {rrow['plain_ms']:.4f} ms; bit-equal to "
         f"the plain version and to the single launches ({smi})")
+    for r in kt.scaling_rows(dev, cfg, ring_case):
+        ops = (f"{r['exps']:.0f} expf" if "exps" in r
+               else f"{r['flops']} flop")
+        log(f"scaling: {r['case']}: device {r['device_us_warm']:.3f} us warm, "
+            f"{r['device_us_cold']:.3f} us cold (torch.profiler, mean of 50); "
+            f"{r['bytes']} B, {ops}, bound {r['bound_us']:.4f} us by "
+            f"{r['bound_by']}, share {r['share_of_bound']:.4f} cold ({smi})")
     kb, qk = kt.tile_store(8192)
     kq = kt.q_layout(kb, torch.bfloat16, dev)
     ql = tuple(cfg.db.q_levels)

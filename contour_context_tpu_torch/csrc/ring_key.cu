@@ -5,7 +5,7 @@
 // through ring_key_divs_pallas; under jax.vmap(build_descriptor) in block
 // mode and map serving, one batched pallas_call). For scan b, anchor a and
 // division d:
-//   divs[b, a, d] = sum_p w[b, a, p] * exp(-0.5 (c_d - dist[b, a, p])^2)
+//   divs[b, a, d] = sum_p w[b, p] * exp(-0.5 (c_d - dist[b, a, p])^2)
 //                   / sqrt(2 pi)
 // where a pool pixel p of scan b counts (w = its `higher` weight) iff it
 // lies in the anchor's RoI box, dist < roi_radius - 0.01 and its ok flag is
@@ -14,43 +14,73 @@
 //
 // What bounds it on the card: at the main path's shape (36 anchors x 4096
 // pool pixels x 35 divisions a scan) the function must read 137.5 KB a scan
-// and take one expf per (counted pixel, division): under 0.4 M at most, 24 K
-// in the smoke stream's first scan. Either is a fraction of a microsecond,
-// far under a launch's own device-side cost, so no launch for one scan can
-// reach half its bound: the goal is the launch floor, and the batch entry
-// (gridDim.z = B) pays that floor once for a block of scans instead of once
-// a scan.
+// and take one expf per (counted pixel, division): 2.2 MB and 0.45 M expf
+// for a block of 16, a bound of 0.66 us by bytes. One scan's bound (0.04
+// us) is far under a launch's own device-side cost (~1 us), so one scan can
+// only aim at the launch floor; a block of scans can aim at its bytes.
 //
-// Design. What the work costs here is the box-test sweep: every anchor
-// reads its scan's whole 128 KB pool (from L2 after the first reader). A
-// cluster of kCluster CTAs takes one anchor, each CTA a contiguous slice of
-// the pool, so 4 x 36 = 144 CTAs a scan share the sweep instead of 36 SMs.
-// Each thread loads its pixel's 32-byte row as two float4s (neighbouring
-// threads on neighbouring rows) and four pixels at a time, so four rows are
-// in flight. Box, radius (FMA-free: dist must round like the plain
-// version's, or a pixel on the RoI radius could count in one and not the
-// other) and ok are tested for each pixel; the few that count (~20 of 4096
-// for an average anchor) are compacted as (dist, w) into shared memory, in
-// pixel order, by a warp ballot and a block scan of the warp counts. Then
-// the (pixel, division) pairs of the compacted list are swept on full
-// warps: thread t owns division t mod 35 for the pixels j = t / 35 (mod 7),
-// on 245 of 256 threads, with one accumulator each and no divergent 35-exp
-// branch. Each division's 7 partials are summed in a fixed order, and CTA
-// rank 0 of the cluster adds the CTAs' partial sums over distributed shared
-// memory in rank order. No float atomics and no fast-math, and every sub,
-// mul and add of the sweep and the sums is rounded on its own (__f*_rn: no
-// FMA contraction): the order is fixed, so ring_key_divs_batch_plain
-// (ops/kernels.py) repeats it op for op and equals the kernel bit for bit.
-// Scan b is blockIdx.z: its anchors, pool and outputs start at row b, so a
-// row of a batched launch is bit-equal to a launch of that scan alone. The
-// wrapper checks that `pool` is 16-byte aligned (every scan's rows then are).
+// Design. One cluster of kCluster = 8 CTAs of 512 threads
+// takes one scan: grid (kCluster, B), 128 CTAs for a block of 16, two CTAs
+// an SM at most (64 registers, 18.8 KB of shared memory), so the 16
+// clusters land in one wave. The pool is cut into stripes of kStripe = 8
+// rows and stripe s goes to CTA s mod kCluster, so each row leaves device
+// memory once, read by one thread, and the pool's ok pixels
+// (select_topk_stable puts them first: 110-210 of 4096 in the smoke's
+// scans) spread over all 8 CTAs instead of landing in one slice. A thread
+// loads its row of each 4096-row chunk (two float4s; the first chunk is in
+// flight while the anchors load), and the CTA compacts the ok rows into
+// shared memory in pixel order (one ballot a warp, a shuffle scan of the
+// 16 warp counts in every warp, two barriers). Warp w then owns anchors w,
+// w + 16, ... of a pass of kGroup = 48: it tests them all against 32 ok
+// rows at a time (lane r, row r; in the box, FMA-free distance, radius)
+// and adds each anchor's hits in row order, lane d holding divisions d and
+// 32 + d: the hits' distances and weights come over shuffles, kHitGroup =
+// 4 at a time, so their expfs overlap while the adds stay in order. No hit
+// list, no term buffer and no barrier inside the pass; a pool longer than
+// 4096 rows is taken chunk by chunk with the sums carried in registers.
+// Last, each warp pushes its sums and counts straight into the shared
+// memory of the rank that owns them (value i = a * 36 + e to rank
+// i / kOwn, in the row of the sending rank) with st.async, which counts
+// the bytes on the owner's mbarrier; the owner waits on its own barrier
+// for the pass's bytes, not on the whole cluster, and adds the 8 rows in
+// rank order. A cluster barrier is left only at the start (every CTA has
+// started and armed its barrier before anyone pushes) and between passes
+// of more than kGroup anchors (the last pass is read before the next
+// overwrites it). No float atomics and no fast-math,
+// every sub, mul and add is rounded on its own (__f*_rn: no FMA
+// contraction), so
+//   divs[b, a, d] = (((0 + S_0) + S_1) + ...) + S_7, where S_r is the sum,
+//   from 0 in pixel order, of the terms of the pixels of rank r's stripes,
+// which ring_key_divs_batch_plain (ops/kernels.py) repeats op for op: the
+// kernel equals it bit for bit. Scan b's anchors, pool and outputs start at
+// row b, so a row of a batched launch is bit-equal to a launch of that scan
+// alone. The wrapper checks that `pool` is 16-byte aligned (every scan's
+// rows then are); the plain version's split (CLUSTER, RING_STRIPE) is held
+// to kCluster and kStripe by a CPU test that reads them from this file.
 //
-// Measured on the H100 (PERF.md, kernel_times.py; warm, the smoke's first
-// scan): one CTA per anchor 8.3 us, a cluster of 2 5.5 us, of 4 4.3 us
-// (the one-CTA-per-anchor kernel this replaces: 6.8 us). With an empty pool
-// the kernel still takes 2.5-2.7 us (the launch, the anchor loads, the
-// barriers and the cluster's reduction) against 1.0 us for a one-element
-// fill: that, not the sweep, is what is left for one scan.
+// Measured on the H100 (PERF.md, kernel_times.py; warm / cold, the smoke's
+// first block of 16 and its first scan). The previous design gave each
+// (scan, anchor) a 4-CTA cluster that swept the scan's whole 128 KB pool:
+// one scan 4.3 / 5.5 us (one CTA per anchor 8.3 warm, a cluster of 2 5.5;
+// the one-CTA-per-anchor kernel before it 6.8), an empty pool 2.5-2.8; at B
+// = 16 (the scan as gridDim.z) 17.8 / 18.8 us, growing with anchors x B (9,
+// 18, 36 anchors: 6.6, 10.6, 17.9 warm; B = 64: 60): 2304 CTAs in three
+// waves, each anchor re-reading its scan's pool, 75 MB through L2 to read
+// 2.2 MB. The designs tried since, in order: a hit list in shared memory
+// (ballot masks, a block scan, a fill), swept by 256 threads a pair (anchor,
+// division) each, 10.6 / 12.3 at B = 16 and 8.7 / 9.6 for one scan; the
+// terms computed at once into a buffer and summed a pair a thread, 512
+// threads, 10.4 / 11.1 and 6.8 / 7.2 (clock64 stamps: five
+// barrier-separated, latency-bound phases took 6000 of 11000 cycles); a warp
+// an anchor as above, 7.6 / 8.5 and 5.1 / 5.5, and with the tests of a
+// warp's anchors overlapped and 64 registers (two CTAs an SM: at 80
+// registers one CTA an SM fits and the 16 clusters need two waves, 10.1 us)
+// 7.0 / 7.8 and 4.7 / 5.2; one scan was then ~0.3 us slower warm than the
+// previous design (5.31 against 4.76 us a launch inside the stream), the
+// cluster barrier after the partials ~0.8 us of it (clock64). The push on
+// mbarriers in its place (kept): a block of 16 6.5 / 7.3, one scan 4.25 /
+// 4.66, an empty pool 2.6 / 3.1, 4.80 us a launch inside the stream. What
+// is left for one scan: ~0.9 us of first loads and the anchor loop.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -60,138 +90,288 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int kDiv = 35;
-constexpr int kThreads = 256;
+constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
-constexpr int kPhases = kThreads / kDiv;       // 7: pixels j = t / 35 mod 7
-constexpr int kUnroll = 4;                     // pixels in flight a thread
-constexpr int kRound = kUnroll * kThreads;     // 1024 pixels a round
-constexpr int kChunk = 4 * kRound;             // pixels compacted at once
-constexpr int kCluster = 4;                    // CTAs per anchor
+constexpr int kCluster = 8;                    // CTAs a scan
+constexpr int kStripe = 8;                     // rows a stripe
+constexpr int kRows = 512;                     // rows a CTA a chunk, 1 a thread
+constexpr int kChunk = kCluster * kRows;       // 4096 pool rows a chunk
+constexpr int kWords = kRows / 32;             // 32-row words of a chunk
+constexpr int kGroup = 48;                     // anchors a pass
+constexpr int kSlots = (kGroup + kWarps - 1) / kWarps;  // anchors a warp
+constexpr int kVals = kGroup * (kDiv + 1);     // sums and counts a pass
+constexpr int kOwn = (kVals + kCluster - 1) / kCluster;  // a rank's share
+constexpr int kHitGroup = 4;                   // hits whose terms overlap
 constexpr float kInvSqrt2Pi = 0.3989422804014327f;
+static_assert(kRows <= kThreads && kRows % 32 == 0, "whole row words");
+static_assert(kWords <= 32, "one warp scans the row words");
+static_assert(kRows % kStripe == 0, "whole stripes a CTA");
+static_assert(kDiv <= 64, "two divisions a lane");
 
-__global__ void __launch_bounds__(kThreads)
+// dist of pool row x (p_r, p_c, rowf, colf) from the anchor centre: every
+// op rounded on its own, as the plain version computes it
+__device__ __forceinline__ float pixel_dist(const float4 x, const float* an) {
+  const float dr = x.z - an[0], dc = x.w - an[1];
+  return sqrtf(__fadd_rn(__fmul_rn(dr, dr), __fmul_rn(dc, dc)));
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// the same shared address in the CTA of cluster rank r
+__device__ __forceinline__ unsigned map_rank(unsigned addr, int r) {
+  unsigned out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(out) : "r"(addr), "r"(r));
+  return out;
+}
+
+// one thread: this pass expects `bytes` of partials on the barrier
+__device__ __forceinline__ void expect_bytes(unsigned bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+// v into rank-mapped address dst, counted on the rank's barrier rbar
+__device__ __forceinline__ void push(unsigned dst, float v, unsigned rbar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, "
+      "[%2];\n" :: "r"(dst), "r"(__float_as_uint(v)), "r"(rbar) : "memory");
+}
+
+// until the barrier's phase of this parity completes: the pass's pushes
+// into this CTA are then visible to it
+__device__ __forceinline__ void wait_parity(unsigned bar, unsigned parity) {
+  unsigned done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+        "%2;\nselp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+}
+
+// bytes of partials rank r receives in a pass of ng anchors
+__device__ __forceinline__ unsigned pass_bytes(int ng, int r) {
+  const int n = min(max(ng * (kDiv + 1) - r * kOwn, 0), kOwn);
+  return static_cast<unsigned>(n * kCluster * 4);
+}
+
+// w * exp(-(c - dist)^2 / 2) / sqrt(2 pi), every op rounded on its own
+__device__ __forceinline__ float ring_term(float c, float dist, float w) {
+  const float x = __fsub_rn(c, dist);
+  return __fmul_rn(
+      w, __fmul_rn(expf(__fmul_rn(-0.5f, __fmul_rn(x, x))), kInvSqrt2Pi));
+}
+
+__global__ void __launch_bounds__(kThreads, 2)
 ring_key_divs_kernel(const float* __restrict__ anchors,
                      const float4* __restrict__ pool,
                      const float* __restrict__ centers,
                      float* __restrict__ divs, float* __restrict__ counts,
-                     int P, float roi_radius) {
+                     int A8, int P, float roi_radius) {
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
-  // (scan, anchor) row of this cluster; the scan's pool starts at row b * P
-  const long long row =
-      static_cast<long long>(blockIdx.z) * gridDim.y + blockIdx.y;
-  pool += 2 * static_cast<long long>(blockIdx.z) * P;
+  const long long b = blockIdx.y;
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-  const float* an = anchors + row * 8;
-  const float v0 = an[0], v1 = an[1];
-  const float r_min = an[2], r_max = an[3], c_min = an[4], c_max = an[5];
-  const float lim = roi_radius - 1e-2f;
-
-  __shared__ float2 s_list[kChunk];            // (dist, w) of counted pixels
-  __shared__ int s_warp_n[kUnroll * kWarps];
-  __shared__ int s_warp_off[kUnroll * kWarps];
-  __shared__ int s_round_n;
-  __shared__ float s_cen[kDiv];
-  __shared__ float s_phase[kPhases][kDiv];
-  __shared__ float s_part[kDiv + 1];           // read by rank 0 over DSMEM
-  if (t < kDiv) s_cen[t] = centers[t];
-
-  // this CTA's slice of the pool: contiguous, in rank order, a multiple of
-  // the block so that neighbouring threads read neighbouring rows
-  const int per =
-      (P + kCluster * kThreads - 1) / (kCluster * kThreads) * kThreads;
-  const int lo = rank * per;
-  const int hi = min(P, lo + per);
-  const int d = t % kDiv, ph = t / kDiv;
-  const bool sweeper = t < kPhases * kDiv;
   const unsigned lt_mask = (1u << lane) - 1u;
-  float acc = 0.f;
-  int n_counted = 0;
+  const float lim = roi_radius - 1e-2f;
+  pool += 2 * b * P;
+  anchors += 8 * b * A8;
 
-  for (int c0 = lo; c0 < hi; c0 += kChunk) {
-    const int c1 = min(hi, c0 + kChunk);
-    int n = 0;                                 // entries in s_list
-    for (int r0 = c0; r0 < c1; r0 += kRound) {
-      float2 e[kUnroll];
-      bool hit[kUnroll];
+  __shared__ float4 s_pa[kRows];               // ok rows: p_r, p_c, rowf, colf
+  __shared__ float s_pw[kRows];                // and their weights
+  __shared__ float s_an[kGroup][8];
+  __shared__ float s_recv[kCluster][kOwn];     // partials, written by ranks
+  __shared__ int s_row_n[kWords];
+  __shared__ alignas(8) unsigned long long s_bar;  // a pass's partials in
+  const unsigned bar = smem_addr(&s_bar);
+  if (t == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" :: "r"(bar)
+                 : "memory");
+    expect_bytes(bar, pass_bytes(min(kGroup, A8), rank));
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // every CTA of the cluster must have started, and armed its barrier,
+  // before another stores into its shared memory: arrive now, wait before
+  // the first store
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+  // lane d's divisions d and 32 + d (the second for d < 3 only)
+  const float cen0 = centers[lane];
+  const float cen1 = lane + 32 < kDiv ? centers[lane + 32] : 0.f;
+
+  const int n_chunks = (P + kChunk - 1) / kChunk;
+  // local row t of chunk c is pool row
+  // c * kChunk + ((t / kStripe) * kCluster + rank) * kStripe + t % kStripe
+  const long long row0 = ((t / kStripe) * kCluster + rank) * kStripe +
+                         t % kStripe;
+  float4 x0 = make_float4(0.f, 0.f, 0.f, 0.f);
+  float w = 0.f;
+  bool ok = false;
+  if (t < kRows && row0 < P) {                 // chunk 0, in flight
+    x0 = pool[2 * row0];                       // p_r, p_c, rowf, colf
+    const float4 x1 = pool[2 * row0 + 1];      // higher, ok, -, -
+    w = x1.x;
+    ok = x1.y > 0.f;
+  }
+  int n_ok = 0;
+  bool waited = false;
+  unsigned parity = 0;
+  for (int g0 = 0; g0 < A8; g0 += kGroup) {
+    const int ng = min(kGroup, A8 - g0);
+    for (int i = t; i < ng * 8; i += kThreads)
+      s_an[i >> 3][i & 7] = anchors[static_cast<long long>(g0) * 8 + i];
+    // slot s of this warp is anchor warp + kWarps * s of the pass; lane d
+    // holds its sums of divisions d and 32 + d, and its count
+    float acc0[kSlots], acc1[kSlots];
+    int cnt[kSlots];
 #pragma unroll
-      for (int j = 0; j < kUnroll; ++j) {
-        const int p = r0 + j * kThreads + t;
-        hit[j] = false;
-        if (p < c1) {
-          const float4 x0 = pool[2 * p];       // p_r, p_c, rowf, colf
-          const float4 x1 = pool[2 * p + 1];   // higher, ok, -, -
-          const bool in_box = x0.x >= r_min && x0.x <= r_max &&
-                              x0.y >= c_min && x0.y <= c_max;
-          const float dr = x0.z - v0, dc = x0.w - v1;
-          const float dist =
-              sqrtf(__fadd_rn(__fmul_rn(dr, dr), __fmul_rn(dc, dc)));
-          hit[j] = in_box && dist < lim && x1.y > 0.f;
-          e[j] = make_float2(dist, x1.x);
+    for (int k = 0; k < kSlots; ++k) {
+      acc0[k] = acc1[k] = 0.f;
+      cnt[k] = 0;
+    }
+
+    for (int c = 0; c < n_chunks; ++c) {
+      if (g0 == 0 || n_chunks > 1) {
+        if (c > 0 || g0 > 0) {
+          const long long p = static_cast<long long>(c) * kChunk + row0;
+          ok = false;
+          if (t < kRows && p < P) {
+            x0 = pool[2 * p];
+            const float4 x1 = pool[2 * p + 1];
+            w = x1.x;
+            ok = x1.y > 0.f;
+          }
         }
-      }
-      unsigned ballot[kUnroll];
-#pragma unroll
-      for (int j = 0; j < kUnroll; ++j) {
-        ballot[j] = __ballot_sync(0xffffffffu, hit[j]);
-        if (lane == 0) s_warp_n[j * kWarps + warp] = __popc(ballot[j]);
-      }
-      __syncthreads();
-      if (warp == 0) {                         // scan of the 32 warp counts,
-        const int v = s_warp_n[lane];          // ordered (j, warp): pixel order
-        int incl = v;
+        // the chunk's ok rows, compacted in local row (= pixel) order
+        const unsigned bal = __ballot_sync(0xffffffffu, ok);
+        if (lane == 0 && warp < kWords) s_row_n[warp] = __popc(bal);
+        __syncthreads();                       // s_row_n (and s_an)
+        int v = lane < kWords ? s_row_n[lane] : 0;
+        const int own = v;
 #pragma unroll
         for (int off = 1; off < 32; off <<= 1) {
-          const int u = __shfl_up_sync(0xffffffffu, incl, off);
-          if (lane >= off) incl += u;
+          const int u = __shfl_up_sync(0xffffffffu, v, off);
+          if (lane >= off) v += u;
         }
-        s_warp_off[lane] = n + incl - v;
-        if (lane == 31) s_round_n = incl;
+        n_ok = __shfl_sync(0xffffffffu, v, 31);
+        const int base = __shfl_sync(0xffffffffu, v - own, warp & 31);
+        if (ok) {
+          const int k = base + __popc(bal & lt_mask);
+          s_pa[k] = x0;
+          s_pw[k] = w;
+        }
+        __syncthreads();                       // s_pa, s_pw
+      } else {
+        __syncthreads();                       // s_an
       }
-      __syncthreads();
-#pragma unroll
-      for (int j = 0; j < kUnroll; ++j)
-        if (hit[j])
-          s_list[s_warp_off[j * kWarps + warp] + __popc(ballot[j] & lt_mask)] =
-              e[j];
-      n += s_round_n;
-    }
-    __syncthreads();                           // s_list complete
-    n_counted += n;
-    if (sweeper) {
-      const float cd = s_cen[d];
-      for (int j = ph; j < n; j += kPhases) {
-        const float2 e = s_list[j];
-        const float x = __fsub_rn(cd, e.x);
-        const float g = __fmul_rn(expf(__fmul_rn(-0.5f, __fmul_rn(x, x))),
-                                  kInvSqrt2Pi);
-        acc = __fadd_rn(acc, __fmul_rn(e.y, g));
-      }
-    }
-    __syncthreads();                           // before s_list is refilled
-  }
 
-  if (sweeper) s_phase[ph][d] = acc;
-  __syncthreads();
-  if (t < kDiv) {
-    float v = 0.f;
+      // a warp tests its anchors against 32 ok rows at once (lane r, row
+      // r), then adds each anchor's hits in row order, kHitGroup at a time
+      // (their exps overlap, the adds stay in order)
+      for (int w0 = 0; w0 < n_ok; w0 += 32) {
+        const int r = w0 + lane;
+        const bool in_chunk = r < n_ok;
+        float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+        float wr = 0.f;
+        if (in_chunk) {
+          x = s_pa[r];
+          wr = s_pw[r];
+        }
+        float dist[kSlots];
+        unsigned m[kSlots];
 #pragma unroll
-    for (int i = 0; i < kPhases; ++i) v = __fadd_rn(v, s_phase[i][t]);
-    s_part[t] = v;
-  } else if (t == kDiv) {
-    s_part[kDiv] = static_cast<float>(n_counted);
+        for (int k = 0; k < kSlots; ++k) {
+          const int a = warp + kWarps * k;     // the same on the warp
+          bool hit = false;
+          dist[k] = 0.f;
+          if (a < ng && in_chunk) {
+            const float* an = s_an[a];
+            const bool in_box = x.x >= an[2] && x.x <= an[3] &&
+                                x.y >= an[4] && x.y <= an[5];
+            dist[k] = pixel_dist(x, an);
+            hit = in_box && dist[k] < lim;
+          }
+          m[k] = __ballot_sync(0xffffffffu, hit);
+        }
+#pragma unroll
+        for (int k = 0; k < kSlots; ++k) {
+          cnt[k] += __popc(m[k]);
+          while (m[k]) {
+            float dh[kHitGroup], wh[kHitGroup];
+            int nh = 0;
+#pragma unroll
+            for (int i = 0; i < kHitGroup; ++i) {
+              const int h = m[k] ? __ffs(m[k]) - 1 : 0;
+              nh += m[k] != 0;
+              m[k] &= m[k] - 1;
+              dh[i] = __shfl_sync(0xffffffffu, dist[k], h);
+              wh[i] = __shfl_sync(0xffffffffu, wr, h);
+            }
+            float t0[kHitGroup], t1[kHitGroup];
+#pragma unroll
+            for (int i = 0; i < kHitGroup; ++i) {
+              t0[i] = ring_term(cen0, dh[i], wh[i]);
+              t1[i] = ring_term(cen1, dh[i], wh[i]);
+            }
+#pragma unroll
+            for (int i = 0; i < kHitGroup; ++i)
+              if (i < nh) {
+                acc0[k] = __fadd_rn(acc0[k], t0[i]);
+                acc1[k] = __fadd_rn(acc1[k], t1[i]);
+              }
+          }
+        }
+      }
+      __syncthreads();                         // before s_pa is refilled
+    }
+
+    // value i = a * 36 + e (e < 35: division e, e = 35: the count) is
+    // summed by rank i / kOwn: each CTA pushes its partial there, in the
+    // row of its own rank, counted on the owner's barrier; once its bytes
+    // are in, the owner adds the rows in rank order
+    if (waited) {
+      cluster.sync();                          // the last pass is read
+      if (t == 0) expect_bytes(bar, pass_bytes(ng, rank));
+    } else {
+      asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+      waited = true;
+    }
+    const unsigned recv = smem_addr(&s_recv[rank][0]);
+#pragma unroll
+    for (int k = 0; k < kSlots; ++k) {
+      const int a = warp + kWarps * k;
+      if (a < ng) {
+        const int v0 = a * (kDiv + 1) + lane;
+        push(map_rank(recv + 4 * (v0 % kOwn), v0 / kOwn), acc0[k],
+             map_rank(bar, v0 / kOwn));
+        if (lane + 32 <= kDiv) {               // divisions 32.. and the count
+          const int v1 = v0 + 32;
+          push(map_rank(recv + 4 * (v1 % kOwn), v1 / kOwn),
+               lane + 32 < kDiv ? acc1[k] : static_cast<float>(cnt[k]),
+               map_rank(bar, v1 / kOwn));
+        }
+      }
+    }
+    wait_parity(bar, parity);
+    parity ^= 1u;
+    const int n_val = ng * (kDiv + 1);
+    for (int j = t; j < kOwn && rank * kOwn + j < n_val; j += kThreads) {
+      float v = 0.f;
+#pragma unroll
+      for (int r = 0; r < kCluster; ++r) v = __fadd_rn(v, s_recv[r][j]);
+      const int i = rank * kOwn + j;
+      const int a = i / (kDiv + 1), e = i - a * (kDiv + 1);
+      const long long row = b * A8 + g0 + a;
+      if (e < kDiv)
+        divs[row * kDiv + e] = v;
+      else
+        counts[row] = v;
+    }
   }
-  cluster.sync();
-  if (rank == 0 && t <= kDiv) {
-    float v = 0.f;
-    for (int r = 0; r < kCluster; ++r)
-      v = __fadd_rn(v, cluster.map_shared_rank(s_part, r)[t]);
-    if (t < kDiv)
-      divs[row * kDiv + t] = v;
-    else
-      counts[row] = v;
-  }
-  cluster.sync();                              // keep s_part alive for rank 0
+  if (!waited)                                 // A8 == 0 never launches
+    asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
 }
 
 }  // namespace
@@ -204,9 +384,11 @@ extern "C" int cc_ring_key_divs_batch(const void* anchors, const void* pool,
                                       void* counts, int n_scans,
                                       int n_anchors, int n_pool,
                                       float roi_radius, void* stream) {
+  if (n_scans > 65535 || n_pool < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (n_scans <= 0 || n_anchors <= 0) return 0;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(kCluster, n_anchors, n_scans);
+  cfg.gridDim = dim3(kCluster, n_scans);
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = 0;
   cfg.stream = static_cast<cudaStream_t>(stream);
@@ -220,8 +402,8 @@ extern "C" int cc_ring_key_divs_batch(const void* anchors, const void* pool,
   const cudaError_t err = cudaLaunchKernelEx(
       &cfg, ring_key_divs_kernel, static_cast<const float*>(anchors),
       static_cast<const float4*>(pool), static_cast<const float*>(centers),
-      static_cast<float*>(divs), static_cast<float*>(counts), n_pool,
-      roi_radius);
+      static_cast<float*>(divs), static_cast<float*>(counts), n_anchors,
+      n_pool, roi_radius);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

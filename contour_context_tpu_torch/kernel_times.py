@@ -1,7 +1,7 @@
 """Device times of the port's CUDA kernels beside their bounds.
 
     python -m contour_context_tpu_torch.kernel_times [--reps 200]
-        [--out FILE]
+        [--out FILE] [--compare ROOT ...]
 
 Run from the repository root on a machine with a CUDA card (it renders a
 scan with `tests/synth.py`). `chip_smoke.py` runs the same measurement in
@@ -30,7 +30,9 @@ first pose. Batched ring (`measure_ring_batch`): the 16 scans of the smoke
 stream's first block, B = 16 in one launch, beside the summed device time
 of the 16 single launches of the same scans; `ring_batch_edge_cases` holds
 it bit-equal to its plain version and to the single launches at B = 1, with
-a zero cloud (a serving pad: an empty pool) in the batch and at B = 17.
+a zero cloud (a serving pad: an empty pool) in the batch, at B = 17, with
+every pixel counting for every anchor, at pools of 1, 4095 and 4097 rows
+and at 65535 anchors a scan.
 Tile-min: a bf16 (6, 10, 49152) store (capacity 8192) at searchable_n 7000
 (the fixture, a long drive) and 246 (the smoke stream's last scans, 3% of
 capacity). Batched tile-min (`measure_batch`): the same store, B = 16
@@ -38,6 +40,13 @@ queries with searchable_b spread over 0, 246, 7000 and values between, its
 device time beside the summed device time of the 16 single-query launches
 that answer the same queries. `edge_cases` holds each kernel against its
 plain version at the edge shapes and names the path each took.
+
+Then `scaling_rows`: both batched kernels across the sizes their paths
+give them (the ring at B = 1-64 and at 9-36 anchors, the tile-min at B =
+4-64 and on a capacity-65536 map), each beside its bytes, operations,
+bound and share. `--compare ROOT ...` times the kernels of other checkouts (an unpacked commit: `git archive <commit> | tar -x -C
+ROOT`, in a gitignored directory) through the same rows in the same
+process, in turns, for an A/B on one card.
 """
 
 from __future__ import annotations
@@ -100,21 +109,43 @@ def call_ms(fn, reps: int = 20) -> float:
     return float(np.median(times))
 
 
-def kernel_durations_us(prof, name: str) -> list:
+def kernel_durations_us(prof, name: str, window: Optional[str] = None) -> list:
     """Device durations (us) of the CUDA kernels whose name holds *name* in
-    a torch.profiler profile, one per launch the profiler recorded."""
-    return [e.time_range.elapsed_us() for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and name in e.name]
+    a torch.profiler profile, one per launch the profiler recorded, in the
+    order the launches started. With *window*, the name of a
+    `torch.profiler.record_function` range of the profile, only the kernels
+    that started inside that range count: the profiler can hand a record
+    of an earlier profile to a later one, and such a record lies outside."""
+    evs = prof.events()
+    lo, hi = -np.inf, np.inf
+    if window is not None:
+        span = next(e.time_range for e in evs if e.name == window and
+                    e.device_type == torch.autograd.DeviceType.CPU)
+        lo, hi = span.start, span.end
+    ks = sorted((e for e in evs
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and name in e.name and lo <= e.time_range.start <= hi),
+                key=lambda e: e.time_range.start)
+    return [e.time_range.elapsed_us() for e in ks]
+
+
+LEAD_CALLS = 3           # calls of fn that open each profiled window
+WINDOW = "kernel_times.window"
 
 
 def device_us(fn, name: str, reps: int, cold: bool, per_call: int = 1) -> float:
     """Mean device duration (us) a call of fn spends in the kernels named
     *name* (per_call launches a call, summed), over reps calls, from
-    torch.profiler's kernel records; cold writes 64 MB between calls. The
-    profiler can lose records (seen on the H100: 199 or 10 of 200 kept): a
-    window that lost any is reported on stderr and profiled again, at most
-    three times, and never averaged."""
+    torch.profiler's kernel records; cold writes 64 MB between calls. Each
+    profiled window opens with LEAD_CALLS calls made the same way, and only
+    records that started inside the window count. The profiler can lose
+    records (seen on the H100: 199 or 10 of 200 kept; 49 of 50 again and
+    again in one short window), so only whole calls are averaged: at
+    per_call 1 a record is a whole call, and the mean is over the last reps
+    records if the window kept at least reps; at per_call > 1 a lost record
+    cannot be told to its call, and a window is taken only if it kept every
+    record of its LEAD_CALLS + reps calls. Any other window is reported on
+    stderr and profiled again, at most five times, and never averaged."""
     flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.int32, device="cuda") \
         if cold else None
     for _ in range(5):
@@ -122,20 +153,25 @@ def device_us(fn, name: str, reps: int, cold: bool, per_call: int = 1) -> float:
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    for _ in range(3):
+    n_all = (LEAD_CALLS + reps) * per_call
+    least = reps if per_call == 1 else n_all
+    for _ in range(5):
         with torch.profiler.profile(activities=acts) as prof:
-            for i in range(reps):
-                if flush is not None:
-                    flush.fill_(i)
-                fn()
-            torch.cuda.synchronize()
-        durs = kernel_durations_us(prof, name)
-        if len(durs) == reps * per_call:
-            return float(np.sum(durs)) / reps
-        print(f"torch.profiler kept {len(durs)} of {reps * per_call} records "
-              f"of {name}: profiling again", file=sys.stderr, flush=True)
-    raise RuntimeError(f"profiler saw {len(durs)} launches of {name}, "
-                       f"expected {reps * per_call}")
+            with torch.profiler.record_function(WINDOW):
+                for i in range(LEAD_CALLS + reps):
+                    if flush is not None:
+                        flush.fill_(i)
+                    fn()
+                torch.cuda.synchronize()
+        durs = kernel_durations_us(prof, name, WINDOW)
+        if least <= len(durs) <= n_all:
+            return float(np.sum(durs[-reps * per_call:])) / reps
+        n_out = len(kernel_durations_us(prof, name)) - len(durs)
+        print(f"torch.profiler kept {len(durs)} records of {name} in the "
+              f"window ({n_out} outside), {least}-{n_all} wanted: profiling "
+              "again", file=sys.stderr, flush=True)
+    raise RuntimeError(f"profiler saw {len(durs)} launches of {name} in the "
+                       f"window, wanted {least}-{n_all}")
 
 
 def _bound(n_bytes: float, t_ops_s: float) -> tuple:
@@ -471,21 +507,68 @@ def measure_ring_batch(dev, cfg: PipelineConfig, case=None,
     return _shares(row)
 
 
+def ring_worst_case(dev, B: int = 2, A8: int = 36, P: int = 4096):
+    """anchors (B, A8, 8), pool (B, P, 8) in which every pixel counts for
+    every anchor (all ok, all inside every box and within the radius), and
+    ring_inputs' centres: the most hits the kernel can meet (numpy, from a
+    seed)."""
+    rng = np.random.default_rng(7)
+    an = np.zeros((B, A8, 8), np.float32)
+    an[..., :2] = 75.0 + rng.uniform(-0.5, 0.5, (B, A8, 2))
+    an[..., 3] = an[..., 5] = 149.0
+    an[..., 6] = 1.0
+    pool = np.zeros((B, P, 8), np.float32)
+    pool[..., 2:4] = 75.0 + rng.uniform(-6.0, 6.0, (B, P, 2))
+    pool[..., :2] = np.floor(pool[..., 2:4])
+    pool[..., 4] = rng.integers(1, 5, (B, P))
+    pool[..., 5] = 1.0
+    centers = (np.arange(kernels.N_DIV, dtype=np.float32) + 0.5) * \
+        np.float32(10.0 / kernels.N_DIV)
+    return tuple(torch.from_numpy(x).to(dev) for x in (an, pool, centers))
+
+
+def ring_random_case(dev, B: int, A8: int, P: int, seed: int = 0):
+    """anchors (B, A8, 8) with 22x22 boxes and a pool (B, P, 8) of random
+    pixels, 80% ok, on the 150x150 grid (numpy, from a seed)."""
+    rng = np.random.default_rng(seed)
+    an = np.zeros((B, A8, 8), np.float32)
+    an[..., :2] = rng.uniform(20, 130, (B, A8, 2))
+    an[..., 2], an[..., 3] = an[..., 0] - 11, an[..., 0] + 11
+    an[..., 4], an[..., 5] = an[..., 1] - 11, an[..., 1] + 11
+    an[..., 6] = 1.0
+    pool = np.zeros((B, P, 8), np.float32)
+    pool[..., 2:4] = rng.uniform(0, 150, (B, P, 2))
+    pool[..., :2] = np.floor(pool[..., 2:4])
+    pool[..., 4] = rng.integers(0, 5, (B, P))
+    pool[..., 5] = rng.random((B, P)) < 0.8
+    return torch.from_numpy(an).to(dev), torch.from_numpy(pool).to(dev)
+
+
 def ring_batch_edge_cases(dev, cfg: PipelineConfig, case=None) -> list:
     """The batched ring against its plain version and its single launches,
-    bit for bit: B = 1, a zero cloud (an empty pool) inside a batch, and
-    B = 17 (the block and the zero cloud). Raises on the first mismatch;
-    returns one line per case."""
+    bit for bit: B = 1, a zero cloud (an empty pool) inside a batch, B = 17
+    (the block and the zero cloud), every pixel counting for every anchor,
+    pools of 1, 4095 and 4097 rows (no multiple of the cluster's split) and
+    65535 anchors a scan. Raises on the first mismatch; returns one line
+    per case."""
     roi = cfg.cm.roi_radius
     (anchors, pool, centers), (za, zp, _) = case or ring_block_case(dev, cfg)
+    cases = [("B 1", anchors[:1], pool[:1], centers),
+             ("B 3, a zero cloud in row 1", torch.cat([anchors[:1], za,
+                                                       anchors[1:2]]),
+              torch.cat([pool[:1], zp, pool[1:2]]), centers),
+             ("B 17", torch.cat([anchors, za]), torch.cat([pool, zp]),
+              centers)]
+    wa, wp, wc = ring_worst_case(dev)
+    cases.append(("B 2, every pixel counting for every anchor", wa, wp, wc))
+    for P in (1, 4095, 4097):
+        a, p = ring_random_case(dev, 2, 36, P, seed=P)
+        cases.append((f"B 2, P {P}", a, p, centers))
+    a, p = ring_random_case(dev, 2, 65535, 64, seed=5)
+    cases.append(("B 2, 65535 anchors, P 64", a, p, centers))
     lines = []
-    for label, a, p in (
-            ("B 1", anchors[:1], pool[:1]),
-            ("B 3, a zero cloud in row 1", torch.cat([anchors[:1], za,
-                                                      anchors[1:2]]),
-             torch.cat([pool[:1], zp, pool[1:2]])),
-            ("B 17", torch.cat([anchors, za]), torch.cat([pool, zp]))):
-        hold_ring_batch(a, p, centers, roi, label)
+    for label, a, p, c in cases:
+        hold_ring_batch(a, p, c, roi, label)
         torch.cuda.synchronize()
         lines.append(f"ring_key_divs_batch {label}: bit-equal to the plain "
                      "version and to one single launch a scan")
@@ -566,12 +649,101 @@ def edge_cases(dev, cfg: PipelineConfig) -> list:
     return lines
 
 
+def _row(kmod, label, fn, name, reps, b_us, b_by, n_bytes, ops, ops_name):
+    warm = device_us(fn, name, reps, cold=False)
+    cold = device_us(fn, name, reps, cold=True)
+    return dict(kernel=name, case=label, device_us_warm=warm,
+                device_us_cold=cold, bytes=n_bytes, **{ops_name: ops},
+                bound_us=b_us, bound_by=b_by, share_of_bound=b_us / cold,
+                share_of_bound_warm=b_us / warm,
+                source=os.path.relpath(kmod.__file__, ROOT) if
+                kmod.__file__.startswith(ROOT) else kmod.__file__)
+
+
+def scaling_rows(dev, cfg: PipelineConfig, case=None, kmod=None,
+                 reps: int = 50) -> list:
+    """The two batched kernels across the sizes their paths give them, each
+    row's device time warm and cold (mean of `reps`) beside its bytes,
+    operations, bound and share, computed as `ring_bound` and
+    `tilemin_batch_bound` compute them:
+    - the ring at B = 1, 4, 16 and 64 (the smoke stream's first 16 scans,
+      repeated), and at B = 16 with the first 9, 18 and 36 anchors a scan;
+    - the batched tile-min on the bf16 capacity-8192 fixture at B = 4, 16
+      and 64 (searchable_b BATCH_SN, cut or repeated), at B = 16 with every
+      limit 0 (the kernel's floor: no live tile), and at B = 16 on a
+      capacity-65536 map (keys_q (6, 10, 393216) bf16, 47 MB, random keys
+      from a seeded generator), every query at searchable 60000.
+    `kmod` is the kernel module to time (default this checkout's; see
+    `other_kernels`); the bounds come from this checkout's plain versions."""
+    kmod = kmod or kernels
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    clk = max_sm_clock_hz()
+    roi = cfg.cm.roi_radius
+    (anchors, pool, centers), _ = case or ring_block_case(dev, cfg)
+    rows = []
+    ring_cases = [(f"B {B}", anchors.repeat(4, 1, 1)[:B].contiguous(),
+                   pool.repeat(4, 1, 1)[:B].contiguous())
+                  for B in (1, 4, 16, 64)]
+    ring_cases += [(f"B 16, {n} anchors", anchors[:, :n].contiguous(), pool)
+                   for n in (9, 18)]
+    for label, a, p in ring_cases:
+        _, c_p = kernels.ring_key_divs_batch_plain(a, p, centers, roi)
+        b_us, b_by, exps, n_bytes = ring_bound(a, p, centers, c_p, sms, clk)
+        rows.append(_row(kmod, "ring " + label,
+                         lambda: kmod.ring_key_divs_batch(a, p, centers, roi),
+                         "ring_key_divs_kernel", reps, b_us, b_by, n_bytes,
+                         exps, "exps"))
+    ql = tuple(cfg.db.q_levels)
+    kb, _ = tile_store(8192)
+    kq = q_layout(kb, torch.bfloat16, dev)
+    tile_cases = []
+    for B in (4, 16, 64):
+        sn = (BATCH_SN * 4)[:B]
+        tile_cases.append((f"fixture B {B}", kq, torch.from_numpy(
+            batch_queries(B)[:, list(ql)]).to(dev).contiguous(),
+            torch.tensor(sn, dtype=torch.int32, device=dev)))
+    tile_cases.append(("fixture B 16, every limit 0", kq, tile_cases[1][2],
+                       torch.zeros(16, dtype=torch.int32, device=dev)))
+    gen = torch.Generator(device=dev).manual_seed(3)
+    big = (torch.rand((6, 10, 65536 * 6), generator=gen, device=dev) * 4.9
+           + 0.1).to(torch.bfloat16)
+    tile_cases.append(("capacity 65536, B 16, searchable 60000", big,
+                       tile_cases[1][2],
+                       torch.full((16,), 60000, dtype=torch.int32,
+                                  device=dev)))
+    for label, k, q_b, sb in tile_cases:
+        b_us, b_by, n_bytes, flops = tilemin_batch_bound(k, q_b, sb)
+        rows.append(_row(kmod, "tile-min " + label,
+                         lambda: kmod.search_tilemin_batch(k, ql, q_b, sb),
+                         "search_tilemin_batch_kernel", reps, b_us, b_by,
+                         n_bytes, flops, "flops"))
+    del big
+    return rows
+
+
+def other_kernels(root: str):
+    """The `ops/kernels.py` of another checkout at `root` (an unpacked
+    commit), loaded as a module of its own: it builds from that checkout's
+    csrc/ into that checkout's build/torch_kernels/."""
+    import importlib.util
+
+    path = os.path.join(root, "contour_context_tpu_torch", "ops",
+                        "kernels.py")
+    spec = importlib.util.spec_from_file_location("other_kernels", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def main(argv: Optional[Sequence[str]] = None) -> list:
     ap = argparse.ArgumentParser(
         prog="python -m contour_context_tpu_torch.kernel_times",
         description=__doc__, formatter_class=argparse.RawTextHelpFormatter)
     ap.add_argument("--reps", type=int, default=200)
     ap.add_argument("--out", help="also write the rows here as JSON")
+    ap.add_argument("--compare", metavar="ROOT", nargs="+", default=[],
+                    help="time the scaling rows of the checkouts at ROOT ... "
+                    "too, in turns (each ROOT, this, this, each ROOT again)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available")
@@ -588,12 +760,23 @@ def main(argv: Optional[Sequence[str]] = None) -> list:
         measure_ring_batch(dev, cfg, case, args.reps)]
     for r in rows:
         print(json.dumps(r), flush=True)
+    others = [other_kernels(root) for root in args.compare]
+    for other in others:
+        other.build()
+    order = others + [kernels, kernels] + others[::-1] if others \
+        else [kernels]
+    scaling = []
+    for turn, kmod in enumerate(order):
+        for r in scaling_rows(dev, cfg, case, kmod):
+            r["turn"] = turn
+            scaling.append(r)
+            print(json.dumps(r), flush=True)
     floor = launch_floor_us(dev, args.reps)
     print(f"launch floor: {floor:.3f} us (a one-element fill)", flush=True)
     print(f"card: {smi}", flush=True)
     if args.out:
         with open(args.out, "w") as f:
-            json.dump({"card": smi, "rows": rows,
+            json.dump({"card": smi, "rows": rows, "scaling": scaling,
                        "launch_floor_us": floor}, f, indent=1)
     return rows
 

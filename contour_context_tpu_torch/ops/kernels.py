@@ -111,13 +111,18 @@ def _raise_on(rc: int, name: str) -> None:
 # ring-key contraction
 # ---------------------------------------------------------------------------
 
-# the kernel's split of a scan's pool (csrc/ring_key.cu): CLUSTER contiguous
-# slices, one a CTA, each compacted RING_CHUNK pixels at a time, whose
-# counted pixels add into RING_PHASES partial sums a division in turn
-CLUSTER = 4               # kCluster
-RING_THREADS = 256        # kThreads
-RING_CHUNK = 4096         # kChunk
-RING_PHASES = 7           # kPhases
+# the kernel's split of a scan's pool (csrc/ring_key.cu): a cluster of
+# CLUSTER CTAs a scan, the pool cut into stripes of RING_STRIPE rows, stripe
+# s taken by CTA s mod CLUSTER (kCluster and kStripe there; a CPU test reads
+# both out of the source)
+CLUSTER = 8               # kCluster
+RING_STRIPE = 8           # kStripe
+
+
+def ring_ranks(P: int, device) -> torch.Tensor:
+    """(P,) int64: the CTA of the kernel's cluster that sums pool row p,
+    (p // RING_STRIPE) mod CLUSTER."""
+    return torch.arange(P, device=device) // RING_STRIPE % CLUSTER
 
 
 def ring_key_divs_batch_plain(anchors_b, pool_b, centers, roi_radius: float):
@@ -129,11 +134,10 @@ def ring_key_divs_batch_plain(anchors_b, pool_b, centers, roi_radius: float):
     (B, A8), both f32 (pallas_kernels.ring_key_divs_reference per scan).
 
     The sums run in the kernel's order, each op rounded on its own, so the
-    kernel equals this bit for bit: the pool is cut into CLUSTER slices of
-    `per` pixels and each slice into chunks of RING_CHUNK; the i-th counted
-    pixel of a chunk (in pixel order) adds into partial i mod RING_PHASES of
-    its slice, a slice's partials are added in order, then the slices'.
-    Row b depends on scan b alone."""
+    kernel equals this bit for bit: rank r of the cluster (`ring_ranks`)
+    adds the terms of its counted pixels from 0 in pixel order, then the
+    ranks' sums are added from 0 in rank order. Row b depends on scan b
+    alone."""
     B, A8, _ = anchors_b.shape
     P = pool_b.shape[1]
     dev = anchors_b.device
@@ -149,24 +153,16 @@ def ring_key_divs_batch_plain(anchors_b, pool_b, centers, roi_radius: float):
     counted = in_box & (dist < lim) & (pl[..., 5] > 0)
     counts = counted.sum(-1).to(f32)
 
-    # slot of each counted pixel: (slice, index in its chunk mod phases)
-    per = max(1, -(-P // (CLUSTER * RING_THREADS)) * RING_THREADS)
+    # each rank's counted pixels in pixel order: sorted by (rank, pixel)
     pix = torch.arange(P, device=dev)
-    part = pix // per
-    start = part * per + (pix - part * per) // RING_CHUNK * RING_CHUNK
     c = counted.to(torch.int64)
-    before = torch.cumsum(c, -1) - c               # counted pixels before p
-    i_chunk = before - before.gather(-1, start.expand(B, A8, P))
-    n_slots = CLUSTER * RING_PHASES
-    slot = torch.where(counted, part * RING_PHASES + i_chunk % RING_PHASES,
-                       n_slots)
-    # each slot's pixels in pixel order: sorted by (slot, pixel)
+    slot = torch.where(counted, ring_ranks(P, dev), CLUSTER)
     order = torch.sort(slot * P + pix, dim=-1).indices
-    n_in = torch.zeros((B, A8, n_slots + 1), dtype=torch.int64,
-                       device=dev).scatter_add_(-1, slot, c)[..., :n_slots]
+    n_in = torch.zeros((B, A8, CLUSTER + 1), dtype=torch.int64,
+                       device=dev).scatter_add_(-1, slot, c)[..., :CLUSTER]
     first = torch.cumsum(n_in, -1) - n_in
     w = pl[..., 4].expand(B, A8, P)
-    acc = torch.zeros((B, A8, n_slots, centers.shape[0]), dtype=f32,
+    acc = torch.zeros((B, A8, CLUSTER, centers.shape[0]), dtype=f32,
                       device=dev)
     for k in range(int(n_in.max()) if n_in.numel() else 0):
         p_k = order.gather(-1, (first + k).clamp(max=P - 1))
@@ -174,13 +170,9 @@ def ring_key_divs_batch_plain(anchors_b, pool_b, centers, roi_radius: float):
         g = torch.exp(-0.5 * (x * x)) * INV_SQRT_2PI
         acc = torch.where((k < n_in)[..., None],
                           acc + w.gather(-1, p_k)[..., None] * g, acc)
-    acc = acc.reshape(B, A8, CLUSTER, RING_PHASES, -1)
-    divs = torch.zeros_like(acc[:, :, 0, 0])
+    divs = torch.zeros_like(acc[:, :, 0])
     for r in range(CLUSTER):
-        v = torch.zeros_like(divs)
-        for i in range(RING_PHASES):
-            v = v + acc[:, :, r, i]
-        divs = divs + v
+        divs = divs + acc[:, :, r]
     return divs, counts
 
 

@@ -11,13 +11,16 @@ This file imports no jax, so it runs where only torch is installed:
   path);
 - the batched ring key bit-equal to its plain version and to one single
   launch a scan at B = 1, 16 and 17, with a zero cloud's empty pool in the
-  batch; a block of 16 built batched on the card against the same block
-  built on the CPU (ints exactly, floats in the descriptor bands), with one
-  ring launch;
+  batch, and at B = 1, 2, 16, 17 and 64 on rendered clouds, an empty pool,
+  a pool in which every pixel counts for every anchor, pools of 1, 4095
+  and 4097 rows and 1, 49 and 150 anchors a scan; a block of 16 built
+  batched on the card against the same block built on the CPU (ints
+  exactly, floats in the descriptor bands), with one ring launch;
 - the batched tile-min against its plain version at the smoke's shapes
   (bf16 and f32, the vector and the scalar path, mixed limits), B = 1 equal
   to the single-query kernel, a B that is no multiple of the kernel's query
-  group;
+  group; at B = 1, 3, 4, 5, 16, 17 and 33 with every limit 0, every limit
+  full and mixed limits, bf16 and f32, on both paths;
 - a map built in blocks on the card equal to the same map built on the CPU
   (store and keys_q bit for bit but for the float leaves' device bands, the
   records in the stream's bands), one batched launch a block, and its
@@ -163,6 +166,57 @@ def test_ring_batch_matches_plain_and_singles_on_card(cuda, B):
             centers, 10.0)
 
 
+RING_EDGES = ["real", "empty pool", "all counting", "P 1", "P 4095",
+              "P 4097", "A8 1", "A8 49", "A8 150"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("edge", RING_EDGES)
+@pytest.mark.parametrize("B", [1, 2, 16, 17, 64])
+def test_ring_pool_once_matches_plain_on_card(cuda, B, edge):
+    """The one-read-a-scan ring kernel bit-equal to its plain version and to
+    one single launch a scan, at B = 1, 2, 16, 17 and 64, on rendered
+    clouds (a zero cloud in row 1), an empty pool, a pool in which every
+    pixel counts for every anchor, pools of 1, 4095 and 4097 rows, and 1,
+    49 and 150 anchors a scan (each pass of 48 re-arms the barriers the
+    partials are pushed on)."""
+    from contour_context_tpu_torch import kernel_times as kt
+
+    centers = None
+    if edge in ("real", "empty pool"):
+        cfg, clouds = _block_clouds(min(B, 16))
+        if B > 1:
+            clouds[1] = 0.0
+        anchors, pool, centers = kt.ring_inputs_of(
+            torch.from_numpy(clouds).to(cuda), cfg)
+        reps = -(-B // anchors.shape[0])
+        anchors = anchors.repeat(reps, 1, 1)[:B].contiguous()
+        pool = pool.repeat(reps, 1, 1)[:B].contiguous()
+        if edge == "empty pool":
+            pool = pool[:, :0].contiguous()
+    elif edge == "all counting":
+        anchors, pool, centers = kt.ring_worst_case(cuda, B=B)
+    elif edge.startswith("P "):
+        anchors, pool = kt.ring_random_case(cuda, B, 36, int(edge[2:]),
+                                            seed=B)
+    else:                                  # anchors around passes of 48
+        anchors, pool = kt.ring_random_case(cuda, B, int(edge[3:]), 4096,
+                                            seed=B)
+    if centers is None:
+        centers = (torch.arange(35, dtype=torch.float32, device=cuda) + 0.5) \
+            * (10.0 / 35)
+    kernels.reset_launches()
+    kt.hold_ring_batch(anchors, pool, centers, 10.0, f"B {B} {edge}")
+    torch.cuda.synchronize()
+    assert kernels.ring_key_divs_batch.launches == 1
+    assert kernels.ring_key_divs.launches == B
+    _, counts = kernels.ring_key_divs_batch_plain(anchors, pool, centers, 10.0)
+    if edge == "empty pool":
+        assert not counts.any()
+    if edge == "all counting":
+        assert (counts == pool.shape[1]).all()
+
+
 @pytest.mark.cuda
 def test_block_built_batched_on_card_matches_cpu(cuda):
     """A block of 16 built in one batch on the card against the same block
@@ -234,6 +288,63 @@ def test_tilemin_batch_matches_plain_on_card(cuda):
         kernels.search_tilemin_batch(kq, QL, q_b[:0], sb[:0])
     with pytest.raises(TypeError):
         kernels.search_tilemin_batch(kq, QL, q_b[:4], sb[:4].long())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["vector", "scalar"])
+@pytest.mark.parametrize("dtype", ["bf16", "f32"])
+@pytest.mark.parametrize("limits", ["all 0", "all full", "mixed"])
+@pytest.mark.parametrize("B", [1, 3, 4, 5, 16, 17, 33])
+def test_tilemin_balanced_batch_matches_plain_on_card(cuda, B, limits, dtype,
+                                                      path):
+    """The balanced batched tile-min bit-equal to its plain version at B =
+    1, 3, 4, 5, 16, 17 and 33, with every limit 0, every limit the whole
+    store, or mixed limits (0, 1, mid-store, full and past it), in bf16 and
+    f32, on the vector path (capacity 8192) and the scalar path (capacity
+    65: NA = 390, no multiple of 8); one launch."""
+    from contour_context_tpu_torch import kernel_times as kt
+
+    N = 8192 if path == "vector" else 65
+    kb, _ = kt.tile_store(N, seed=B)
+    kq = kt.q_layout(kb, torch.bfloat16 if dtype == "bf16" else
+                     torch.float32, cuda)
+    assert kernels.search_tilemin_path(kq) == path
+    q_b = torch.from_numpy(kt.batch_queries(B, seed=B)[:, list(QL)]) \
+        .to(cuda).contiguous()
+    if limits == "all 0":
+        sn = [0] * B
+    elif limits == "all full":
+        sn = [N] * B
+    else:
+        pick = (0, 1, N // 2, N, N + 7, 33, N - 1)
+        sn = [pick[(b * 5) % len(pick)] for b in range(B)]
+    sb = torch.tensor(sn, dtype=torch.int32, device=cuda)
+    kernels.reset_launches()
+    kt.hold_batch(kq, QL, q_b, sb, f"B {B} {limits} {dtype} {path}")
+    assert kernels.search_tilemin_batch.launches == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("A", [1, 5, 7, 16])
+def test_tilemin_batch_other_anchor_counts_on_card(cuda, A):
+    """Anchor counts other than the main path's 6 (the kernel's generic
+    path: 8 anchors a reduction), bf16 keys, mixed limits: bit-equal to the
+    plain version."""
+    rng = np.random.default_rng(A)
+    N, B = 300, 19
+    kb = rng.uniform(0.1, 5.0, (N, 6, A, 10)).astype(np.float32)
+    kb[::7] = 0.0
+    kq = tdb.keys_to_q_layout(torch.from_numpy(kb), torch.bfloat16) \
+        .contiguous().to(cuda)
+    q_b = torch.from_numpy(rng.uniform(0.1, 5.0, (B, 3, A, 10))
+                           .astype(np.float32)).to(cuda)
+    q_b[2, 1, A - 1] = 0.0                     # an invalid query anchor
+    sb = torch.from_numpy(rng.integers(0, N + 20, B).astype(np.int32)) \
+        .to(cuda)
+    out = kernels.search_tilemin_batch(kq, QL, q_b, sb)
+    assert torch.equal(out, kernels.search_tilemin_batch_plain(
+        kq, QL, q_b, sb))
+    assert (out[2, 1, A - 1] == kernels.MAX_DIST_SQ).all()
 
 
 @pytest.mark.cuda
