@@ -5,7 +5,8 @@
 Run from the repository root. Phases (each one raises on failure, so the
 exit code is not 0):
 1. CUDA required; the card: name and power limit from nvidia-smi; TF32 off;
-2. build both CUDA kernels from the sources in the checkout (timed);
+2. build the CUDA kernels from the sources in the checkout, one nvcc a
+   source, all started together (timed);
 3. each kernel against its plain torch version on the card at the edge
    shapes, naming the path each took, then at the main path's shapes (ring:
    36 anchors x a 4096-pixel pool of a real scan; tile-min: a bf16
@@ -16,12 +17,25 @@ exit code is not 0):
    the key search on the card equals the CPU's;
 4. the fused stream at the default PipelineConfig (131072-point scans) with
    ContourDB(capacity=8192, device="cuda"): two lanes of 132 scans, then a
-   revisit of lane 0 at 1.5 m lateral offset, 10 Hz timestamps; the launch
-   counts must show both kernels ran once per scan, at least half of the
-   revisits must close on the right place, and two found revisit queries
-   must match the same queries on a CPU copy of the store, with the LM's
-   inputs equal on both devices and the float32 LM held against a float64
-   one on the same inputs;
+   revisit of lane 0 at 1.5 m lateral offset, 10 Hz timestamps, every step
+   a replay of the step's CUDA graph (the first step runs the body eagerly
+   and captures it; the replays after the warm-up run under torch's sync
+   debug mode "error", so a host sync fails the phase); the capture time,
+   ms/scan and the graph pool's bytes, beside the same scans through the
+   eager body the graph captured (ms/scan; store, window and records bit
+   for bit equal); the launch counts must show each of the four kernels of
+   the step (ring, tile-min, CC labels, merge) ran once per scan, replays
+   counted; at least half of the revisits must close on the right place,
+   and two found revisit queries must match the same queries on a CPU copy
+   of the store, with the LM's inputs equal on both devices and the float32
+   LM held against a float64 one on the same inputs; 0 host syncs a scan;
+3d. (after 4) the CC-label kernel bit-equal to its plain version on masks
+   made to stress it (a spiral, a comb, a checkerboard, full, empty,
+   staircases, a random field) and at the main path's shapes (a revisit
+   scan's 6 level masks, the stream's first block's 96), the merge kernel
+   at a revisit query's and 16 revisit queries' inputs on the stream's DB,
+   each with its device time warm and cold, bound and share, call and plain
+   ms; what the always-run cascade chunk costs 8 queries of the stream;
 5. the CLI on 24 scans written in the KITTI two-file format;
 3b. (after 3) the batched tile-min against its plain version on the card:
    bf16 and f32, the vector and the scalar path, B = 1 equal to the
@@ -42,8 +56,14 @@ exit code is not 0):
    `step_async`; records and window state must equal the stream's first 264
    rows (found, gidx and counters exactly), the store and keys_q too, bit
    for bit but for float leaves the script names, held in the descriptor
-   bands; one batched ring launch and one batched tile-min launch a block,
-   one single launch of each a tail scan; both batched kernels bit-equal to
+   bands; each block a replay of the build graph and of the query graph of
+   16 (the blocks after the capture under sync debug mode "error"), beside
+   the same map built through the eager calls (ms/scan; store, window and
+   records bit for bit equal), the capture times and pool bytes; one
+   batched ring launch, one batched tile-min launch, one CC and one merge
+   launch a block, one launch of each single kernel a tail scan; the CC and
+   merge kernels bit-equal to their plain versions on the last full block's
+   and on 16 revisit clouds' tensors; both batched kernels bit-equal to
    their plain versions on what the block build gave them (the last full
    block's anchors and pools; the map's keys_q with that block's query keys
    and replayed limits); its ms/scan is printed between the stream's over
@@ -54,14 +74,23 @@ exit code is not 0):
    host syncs of both: the descriptors must agree (ints exactly, floats in
    the descriptor bands), the records too, the batched build must make no
    more host syncs than the slowest single build and the batched tail at
-   most 2;
+   most 2; then the same block step of 16 as replays of the block-built
+   map's build and query graphs beside the eager bodies (ms, 0 host syncs,
+   launches, the device ops torch.profiler sees in each; records bit for
+   bit equal);
 7. checkpoints: the block-built map saved and loaded on the card, the
    stream DB as a base + a delta of 16 more scans through `load_chain`, each
    equal to its original bit for bit; the block-built map merged with its
    reloaded copy into a serving map of 528 rows;
 8. serving: the 132 revisit clouds through `localize_block_async` in chunks
-   of 16 (the 4-cloud tail padded) against the merged map: one batched
-   ring launch and one batched tile-min launch a chunk (the tile-min
+   of 16 (the 4-cloud tail padded) against the merged map, each chunk a
+   replay of the serving map's build and query graphs (captured by a first
+   chunk before the timing), beside the eager calls (ms/query, records bit
+   for bit equal), a chunk under sync debug mode "error", the capture times
+   and pool bytes; one batched ring launch, one batched tile-min launch,
+   one CC and one merge launch a chunk (the CC and merge kernels bit-equal
+   to their plain versions on the first and the padded last chunk; the
+   tile-min
    bit-equal to its plain version on the merged map's keys_q with the first
    chunk's keys and with the padded last chunk's, the ring on the padded
    chunk's anchors and pools), at least half found at the right place, two
@@ -76,8 +105,9 @@ exit code is not 0):
 10. the user-facing surface, each path's launches counted from 0 just
    before it: the stream's first 80 clouds in chains (`step_chain_async`, 4
    of 16, then 5 + 11 of a 16-row buffer through `step_chain_dyn_async`, the
-   second with a staged `stage_chain_k`), one BlockHandle each, records
-   equal to the stream's, one launch of each kernel a scan; the host spec
+   second with a staged `stage_chain_k`; every chain after the first under
+   sync debug mode "error"), one BlockHandle each, records equal to the
+   stream's, one launch of each kernel a scan; the host spec
    query (`query_ranged_knn_host`) on 8 revisits at their replayed window
    states on the card and on a CPU copy, one tile-min launch a query, equal
    to each other and (found, gidx) to the fused query wherever its hint cap
@@ -270,15 +300,37 @@ def write_kitti(d: str, clouds, poses) -> tuple:
 
 
 def launch_counts(kernels) -> dict:
-    return {name: getattr(kernels, name).launches
-            for name in ("ring_key_divs", "ring_key_divs_batch",
-                         "search_tilemin", "search_tilemin_batch")}
+    """Every kernel's launches counted (graph replays included)."""
+    return kernels.launch_counts()
 
 
 def one_a_scan(n: int) -> dict:
     """The launches of n scans stepped one at a time."""
     return {"ring_key_divs": n, "ring_key_divs_batch": 0,
-            "search_tilemin": n, "search_tilemin_batch": 0}
+            "search_tilemin": n, "search_tilemin_batch": 0,
+            "cc_labels": n, "merge_hints": n}
+
+
+def one_a_block(n: int) -> dict:
+    """The launches of n blocks (or serving chunks): one batched launch of
+    each kernel, one CC and one merge launch."""
+    return {"ring_key_divs": 0, "ring_key_divs_batch": n,
+            "search_tilemin": 0, "search_tilemin_batch": n,
+            "cc_labels": n, "merge_hints": n}
+
+
+def add_counts(*counts) -> dict:
+    return {k: sum(c[k] for c in counts) for k in counts[0]}
+
+
+def no_syncs(fn):
+    """fn under torch's sync debug mode "error": any host sync raises."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
 
 
 def outcome_lines(path: str) -> list:
@@ -330,19 +382,29 @@ def phase_10(cfg, clouds, ring, db, rev0: int, smi: str) -> dict:
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     handles = []
-    for k in range(0, 64, 16):
+
+    def chain(k):
         h = db_c.step_chain_async(torch.from_numpy(np.stack(
-            clouds[k:k + 16])).to(dev), list(range(k, k + 16)), ts[k:k + 16])
+            clouds[k:k + 16])), list(range(k, k + 16)), ts[k:k + 16])
         assert isinstance(h, tdb.BlockHandle) and h.row0 == k, h
         handles.append(h)
+
+    chain(0)                # the first step captures the step's graph
     buf = torch.from_numpy(np.stack(clouds[64:80])).to(dev)
-    handles.append(db_c.step_chain_dyn_async(buf, list(range(64, 69)),
-                                             ts[64:80]))
     buf2 = torch.cat([buf[5:], buf[:5]])
     ts2 = ts[69:80] + [0.0] * 5
-    handles.append(db_c.step_chain_dyn_async(
-        buf2, list(range(69, 80)), ts2,
-        k_dev=tdb.ContourDB.stage_chain_k(11, device="cuda")))
+    k11 = tdb.ContourDB.stage_chain_k(11, device="cuda")
+
+    def rest():
+        for k in range(16, 64, 16):     # host clouds: a pinned upload each
+            chain(k)
+        handles.append(db_c.step_chain_dyn_async(buf, list(range(64, 69)),
+                                                 ts[64:80]))
+        handles.append(db_c.step_chain_dyn_async(
+            buf2, list(range(69, 80)), ts2, k_dev=k11))
+
+    # chains of 16 (and of 5 and 11) after the capture: no host sync
+    no_syncs(rest)
     torch.cuda.synchronize()
     chain_ms = 1e3 * (time.perf_counter() - t0) / n_ch
     by_path["chains"] = launch_counts(kernels)
@@ -448,7 +510,8 @@ def phase_10(cfg, clouds, ring, db, rev0: int, smi: str) -> dict:
                   log_path, "--trace-dir", trace])
         by_path["cli"] = launch_counts(kernels)
         # the unfused path: no query against the empty DB of the first scan
-        assert by_path["cli"] == dict(one_a_scan(24), search_tilemin=23), \
+        assert by_path["cli"] == dict(one_a_scan(24), search_tilemin=23,
+                                      merge_hints=23), \
             by_path["cli"]
         files = os.listdir(mid)
         dumps = [f for f in files if f.startswith("contours-")]
@@ -754,7 +817,8 @@ def phase_11(cfg, clouds, db, served, rev0: int, smi: str) -> dict:
                       for _, desc, st, _ in cases]
             launches["query_step"] = launch_counts(kernels)
             assert launches["query_step"] == dict(
-                one_a_scan(len(rows)), ring_key_divs=0), launches
+                one_a_scan(len(rows)), ring_key_divs=0, cc_labels=0), \
+                launches
             n_bit = 0
             for (row, _, _, ref), rec in zip(cases, recs_q):
                 assert_records_close(rec.cpu()[None], ref.cpu()[None],
@@ -786,9 +850,7 @@ def phase_11(cfg, clouds, db, served, rev0: int, smi: str) -> dict:
             w1_ms = ev0.elapsed_time(ev1) / n_rev
             launches["world1"] = launch_counts(kernels)
             n_chunks = len(pts) // B
-            assert launches["world1"] == {
-                "ring_key_divs": 0, "ring_key_divs_batch": n_chunks,
-                "search_tilemin": 0, "search_tilemin_batch": n_chunks}, \
+            assert launches["world1"] == one_a_block(n_chunks), \
                 launches["world1"]
             recs1 = torch.cat(recs1)[:n_rev].cpu().numpy()
             assert_records_close(recs1, recs32, "sharded serving, world 1")
@@ -858,9 +920,8 @@ def phase_11(cfg, clouds, db, served, rev0: int, smi: str) -> dict:
                              f"world 2 rank {r} block step")
         assert torch.equal(res["block_state"], state_b), r
         assert res["launches"] == launches["world1"], (r, res["launches"])
-        assert res["block_launches"] == {
-            "ring_key_divs": 0, "ring_key_divs_batch": 0,
-            "search_tilemin": 0, "search_tilemin_batch": 1}, res
+        assert res["block_launches"] == dict(
+            one_a_block(1), ring_key_divs_batch=0, cc_labels=0), res
         assert res["held_err"] == 0.0
         bits[r] = [bool(np.array_equal(got, recs32)),
                    bool(np.array_equal(res["uneven"].numpy(), rec_u)),
@@ -1040,24 +1101,27 @@ def main() -> None:
     ev1 = torch.cuda.Event(enable_timing=True)
     ev_map = torch.cuda.Event(enable_timing=True)   # behind the two lanes
     t0 = time.perf_counter()
-    for k, pts in enumerate(clouds):
-        if k == WARMUP:
-            torch.cuda.synchronize()
-            t_warm = time.perf_counter()
-            ev0.record()
-        if k == 2 * LANE_SCANS:
-            ev_map.record()
-        handles.append(db.step_async(pts, k, 0.1 * k))
-    ev1.record()
+    for k in range(WARMUP):         # the first step captures the graph
+        handles.append(db.step_async(clouds[k], k, 0.1 * k))
+    torch.cuda.synchronize()
+    t_warm = time.perf_counter()
+
+    def stream_rest():
+        ev0.record()
+        for k in range(WARMUP, len(clouds)):
+            if k == 2 * LANE_SCANS:
+                ev_map.record()
+            handles.append(db.step_async(clouds[k], k, 0.1 * k))
+        ev1.record()
+
+    # every replay after the capture under sync debug mode "error"
+    no_syncs(stream_rest)
     torch.cuda.synchronize()
     t_end = time.perf_counter()
-    launches = {"ring_key_divs": kernels.ring_key_divs.launches,
-                "search_tilemin": kernels.search_tilemin.launches}
+    launches = launch_counts(kernels)
     n_scans = len(clouds)
-    assert launches["ring_key_divs"] == n_scans, launches
-    assert launches["search_tilemin"] == n_scans, launches
-    assert kernels.ring_key_divs_batch.launches == 0
-    assert kernels.search_tilemin_batch.launches == 0
+    assert launches == one_a_scan(n_scans), launches
+    graph_stream = db.graph_stats()
     ms_scan = ev0.elapsed_time(ev1) / (n_scans - WARMUP)
     ms_scan_map = ev0.elapsed_time(ev_map) / (2 * LANE_SCANS - WARMUP)
     wall_ms = 1e3 * (t_end - t_warm) / (n_scans - WARMUP)
@@ -1076,6 +1140,34 @@ def main() -> None:
             right += 1
         else:
             elsewhere += 1
+    # the same scans through the eager body the graph captured, on a DB of
+    # its own: the graphed records and store must equal it bit for bit
+    db_e = tdb.ContourDB(cfg, capacity=8192, device="cuda")
+    for k in range(WARMUP):
+        db_e._step(clouds[k], k, 0.1 * k, False)
+    torch.cuda.synchronize()
+    ev0.record()
+    for k in range(WARMUP, n_scans):
+        db_e._step(clouds[k], k, 0.1 * k, False)
+    ev1.record()
+    torch.cuda.synchronize()
+    ms_scan_eager = ev0.elapsed_time(ev1) / (n_scans - WARMUP)
+    assert_dbs_equal(db, db_e, n_scans, "graphed stream vs the eager body")
+    assert torch.equal(db.state, db_e.state)
+    assert torch.equal(db.recs_store.view(torch.int32),
+                       db_e.recs_store.view(torch.int32)), \
+        "graphed records vs the eager body's"
+    del db_e
+    log(f"stream graphed: the step's graph captured in "
+        f"{list(graph_stream['capture_s'].values())[0]:.3f} s (the first "
+        f"step runs the body eagerly, then captures it); "
+        f"{ms_scan:.3f} ms/scan graphed against {ms_scan_eager:.3f} ms/scan "
+        f"for the eager body it captured, over scans {WARMUP}..{n_scans - 1} "
+        f"(CUDA events); 0 host syncs a scan (sync debug mode \"error\" "
+        f"over {n_scans - WARMUP} replays); launches {launches} (one of "
+        f"each kernel a scan, replays counted); graph pool "
+        f"{graph_stream['pool_bytes']} bytes; store, keys_q, window and "
+        f"records bit-equal to the eager body's ({smi})")
     log(f"stream: {n_scans} scans, launches {launches}, revisits found in "
         f"the right place {right}/{LANE_SCANS}, elsewhere {elsewhere}; "
         f"first {WARMUP} scans {1e3 * (t_warm - t0) / WARMUP:.2f} ms/scan "
@@ -1131,6 +1223,55 @@ def main() -> None:
 
     syncs = host_syncs(four_more) / 4
     log(f"host syncs per scan: {syncs:g} (torch sync debug mode, 4 scans)")
+    assert syncs == 0, syncs
+
+    # ---- 3d. the CC and merge kernels at the main path's shapes ---------
+    adv = kt.adversarial_masks(cm.n_row, cm.n_col)
+    for name, m in adv.items():
+        kt.hold_cc(torch.from_numpy(m)[None].to(dev), name)
+    kt.hold_cc(torch.from_numpy(np.stack(list(adv.values()))).to(dev),
+               "every adversarial mask in one launch")
+    log(f"cc_labels on {sorted(adv)} (150 x 150), each alone and all in "
+        f"one launch: bit-equal to the plain version")
+    one_rev = torch.from_numpy(clouds[rev0 + 10]).to(dev)[None]
+    block0 = torch.from_numpy(np.stack(clouds[:16])).to(dev)
+    revs16 = torch.from_numpy(np.stack(clouds[rev0 + 16:rev0 + 32])).to(dev)
+    cc_row = kt.measure_cc(kt.masks_of(one_rev, cfg), "a revisit scan")
+    cc_row["block"] = kt.measure_cc(kt.masks_of(block0, cfg),
+                                    "the stream's first block of 16")
+    merge_row = kt.measure_merge(*kt.merge_case(db, one_rev, cfg),
+                                 "a revisit query on the stream's DB")
+    merge_row["block"] = kt.measure_merge(
+        *kt.merge_case(db, revs16, cfg),
+        "16 revisit queries on the stream's DB")
+    for r in (cc_row, cc_row["block"], merge_row, merge_row["block"]):
+        extra = (f"{r['components']} components" if "components" in r else
+                 f"{r['hints']} hints in {r['rows_walked']} rows, the "
+                 f"longest {r['longest_row']}")
+        log(f"{r['name']}: {r['shape']}, {extra}: device "
+            f"{r['device_us_warm']:.3f} us warm, {r['device_us_cold']:.3f} us "
+            f"cold (torch.profiler, mean of 200); bound {r['bound_us']:.4f} "
+            f"us by {r['bound_by']} ({r['bytes']} B), share "
+            f"{r['share_of_bound']:.4f} cold; call {r['ms']:.4f} ms (host + "
+            f"launch), plain {r['plain_ms']:.4f} ms; bit-equal to the plain "
+            f"version ({smi})")
+    rows += [cc_row, merge_row]
+    # the always-run cascade chunk: the cascade of 8 queries across the
+    # stream with every chunk against only the chunks JAX's loop would run
+    casc = []
+    for k in range(20, n_scans, n_scans // 8):
+        (o_all, b_all), (o_own, b_own), n_run = kt.cascade_case(
+            db, torch.from_numpy(clouds[k]).to(dev)[None], cfg)
+        casc.append((k, n_run, o_all, o_own, b_all, b_own))
+    log(f"cascade, every chunk against the query's own chunks (chunks of "
+        f"{cfg.db.cascade_chunk} of {cfg.db.max_check_cands} hint columns), "
+        f"8 queries on the stream's DB (scan, n_valid after check 1, device "
+        f"ops every / own, busy us every / own): "
+        + "; ".join(f"{k} {n} {a} / {o} {1e3 * ba:.1f} / {1e3 * bo:.1f}"
+                    for k, n, a, o, ba, bo in casc)
+        + f"; mean {np.mean([c[2] - c[3] for c in casc]):.1f} ops and "
+        f"{1e3 * np.mean([c[4] - c[5] for c in casc]):.1f} us more a query "
+        f"(torch.profiler) ({smi})")
 
     # ---- 5. the CLI -----------------------------------------------------
     from contour_context_tpu_torch.__main__ import main as cli_main
@@ -1147,31 +1288,59 @@ def main() -> None:
     # ---- 6. a map built in blocks ----------------------------------------
     BLOCK, N_MAP = 16, 2 * LANE_SCANS
     n_full = N_MAP // BLOCK * BLOCK
+    def build_map(m, graphed):
+        """The map in blocks of BLOCK and a tail of single steps, graphed
+        or through the eager bodies; returns the handles, the ms/scan of
+        blocks 2.. (CUDA events: the first block captures the graphs) and
+        the ms/scan of the whole map (every block and the tail over N_MAP
+        scans, the captures included)."""
+        e_all = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        torch.cuda.synchronize()
+        e_all[0].record()
+        hs = [m._block_chain_pts(
+            torch.from_numpy(np.stack(clouds[0:BLOCK]))[None],
+            list(range(BLOCK)), [[0.1 * i for i in range(BLOCK)]], graphed)]
+        torch.cuda.synchronize()
+
+        def rest():
+            ev0.record()
+            for k in range(BLOCK, n_full, BLOCK):
+                hs.append(m._block_chain_pts(
+                    torch.from_numpy(np.stack(clouds[k:k + BLOCK]))[None],
+                    list(range(k, k + BLOCK)),
+                    [[0.1 * i for i in range(k, k + BLOCK)]], graphed))
+            ev1.record()
+
+        # the graphed block steps after the capture under sync debug mode
+        # "error": append, window pushes and the two replays make no sync
+        no_syncs(rest) if graphed else rest()
+        torch.cuda.synchronize()
+        hs += [m._step(clouds[i], i, 0.1 * i, graphed)
+               for i in range(n_full, N_MAP)]
+        e_all[1].record()
+        torch.cuda.synchronize()
+        return (hs, ev0.elapsed_time(ev1) / (n_full - BLOCK),
+                e_all[0].elapsed_time(e_all[1]) / N_MAP)
+
     db_b = tdb.ContourDB(cfg, capacity=8192, device="cuda")
     kernels.reset_launches()
+    block_handles, block_ms, map_ms = build_map(db_b, True)
+    tail = block_handles[n_full // BLOCK:]
+    block_handles = block_handles[:n_full // BLOCK]
     torch.cuda.synchronize()
-    ev0.record()
-    block_handles = []
-    for k in range(0, n_full, BLOCK):
-        block_handles.append(db_b.block_chain_pts_async(
-            torch.from_numpy(np.stack(clouds[k:k + BLOCK]))[None],
-            list(range(k, k + BLOCK)),
-            [[0.1 * i for i in range(k, k + BLOCK)]]))
-    tail = [db_b.step_async(clouds[i], i, 0.1 * i)
-            for i in range(n_full, N_MAP)]
-    ev1.record()
-    torch.cuda.synchronize()
-    block_ms = ev0.elapsed_time(ev1) / N_MAP
-    launches_block = {
-        "ring_key_divs": kernels.ring_key_divs.launches,
-        "ring_key_divs_batch": kernels.ring_key_divs_batch.launches,
-        "search_tilemin": kernels.search_tilemin.launches,
-        "search_tilemin_batch": kernels.search_tilemin_batch.launches}
-    assert launches_block == {"ring_key_divs": N_MAP - n_full,
-                              "ring_key_divs_batch": n_full // BLOCK,
-                              "search_tilemin": N_MAP - n_full,
-                              "search_tilemin_batch": n_full // BLOCK}, \
+    launches_block = launch_counts(kernels)
+    assert launches_block == add_counts(one_a_block(n_full // BLOCK),
+                                        one_a_scan(N_MAP - n_full)), \
         launches_block
+    graph_block = db_b.graph_stats()
+    db_be = tdb.ContourDB(cfg, capacity=8192, device="cuda")
+    _, block_ms_eager, map_ms_eager = build_map(db_be, False)
+    assert_dbs_equal(db_b, db_be, N_MAP, "graphed block build vs eager")
+    assert torch.equal(db_b.state, db_be.state)
+    assert torch.equal(db_b.recs_store.view(torch.int32),
+                       db_be.recs_store.view(torch.int32)), \
+        "graphed block records vs the eager calls'"
+    del db_be
     ring_b = db_b.recs_store[:N_MAP].cpu().numpy()
     assert_records_close(ring_b, ring[:N_MAP], "block-built ring")
     off_map = assert_dbs_close(db_b, db, N_MAP,
@@ -1240,13 +1409,14 @@ def main() -> None:
     # the step is host-bound and the host's speed drifts within a call, so
     # the block build is read between a stream before it and one after it
     db_s = tdb.ContourDB(cfg, capacity=8192, device="cuda")
+    db_s.step_async(clouds[0], 0, 0.0)          # the capture
     torch.cuda.synchronize()
     ev0.record()
-    for i in range(N_MAP):
+    for i in range(1, N_MAP):
         db_s.step_async(clouds[i], i, 0.1 * i)
     ev1.record()
     torch.cuda.synchronize()
-    ms_scan_after = ev0.elapsed_time(ev1) / N_MAP
+    ms_scan_after = ev0.elapsed_time(ev1) / (N_MAP - 1)
     assert torch.equal(db_s.state, db_b.state)
     del db_s
     log(f"block build: {N_MAP} scans in {n_full // BLOCK} blocks of {BLOCK} "
@@ -1254,10 +1424,16 @@ def main() -> None:
         f"records and window state {state.tolist()} equal the stream's "
         f"first {N_MAP} rows; store and keys_q bit-equal to them but for "
         f"{off_map or 'no leaf'} (leaf, max abs difference: in the "
-        f"descriptor bands); {block_ms:.3f} ms/scan (CUDA "
-        f"events); the stream over the same scans in this call: "
-        f"{ms_scan_map:.3f} ms/scan before it (after its {WARMUP}-scan "
-        f"warm-up), {ms_scan_after:.3f} ms/scan after it ({smi})")
+        f"descriptor bands); blocks 2-{n_full // BLOCK}: {block_ms:.3f} "
+        f"ms/scan graphed, {block_ms_eager:.3f} ms/scan for the eager calls "
+        f"(CUDA events; store, window and records bit-equal); the whole "
+        f"map (every block and the {N_MAP - n_full}-scan tail over {N_MAP} "
+        f"scans, captures included): {map_ms:.3f} ms/scan graphed, "
+        f"{map_ms_eager:.3f} eager; captures {graph_block['capture_s']} s, "
+        f"graph pool {graph_block['pool_bytes']} bytes; the stream over the "
+        f"same scans in this call: {ms_scan_map:.3f} ms/scan before it "
+        f"(after its {WARMUP}-scan warm-up), {ms_scan_after:.3f} ms/scan "
+        f"after it (steps 2-{N_MAP}: the first captures) ({smi})")
     # one block of 16 revisit queries on the block-built map: the batched
     # tail against the same 16 queries through the same code at B = 1
     split = block_split(db_b, np.stack(clouds[rev0:rev0 + BLOCK]), cfg)
@@ -1265,7 +1441,7 @@ def main() -> None:
                          split["records_one_by_one"].cpu().numpy(),
                          "batched tail vs the same queries at B = 1")
     assert int((split["records"][:, 0] > 0.5).sum()) >= BLOCK // 2
-    assert split["tail_host_syncs"] <= 2, split["tail_host_syncs"]
+    assert split["tail_host_syncs"] == 0, split["tail_host_syncs"]
     assert split["build_host_syncs"] <= \
         split["single_build_host_syncs_max"], split
     descs_1 = split["descs_one_by_one"]
@@ -1304,6 +1480,69 @@ def main() -> None:
         f"{split['one_by_one_host_syncs']} host syncs); the records of both "
         f"agree: found, gidx and counters exactly, corr and pose in the "
         f"stream's bands ({smi})")
+
+    # the same block step of 16 revisit clouds as replays of the block-built
+    # map's graphs (the build graph and the query graph of 16), nothing
+    # appended, beside the eager bodies they captured
+    pts16 = np.stack(clouds[rev0:rev0 + BLOCK])
+    sb16 = db_b.state[1].expand(BLOCK).contiguous()
+
+    def block_parts(graphed):
+        return db_b._query_batch(db_b._build_batch(pts16, graphed), sb16,
+                                 graphed).clone()
+
+    def timed_ms(fn, reps=5):
+        ts_ = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            ts_.append(1e3 * (time.perf_counter() - t0))
+        return out, float(np.median(ts_))
+
+    recs_g, g_ms = timed_ms(lambda: block_parts(True))
+    recs_e, e_ms = timed_ms(lambda: block_parts(False))
+    assert torch.equal(recs_g.view(torch.int32), recs_e.view(torch.int32)), \
+        "graphed block step vs the eager bodies"
+    assert_records_close(recs_g.cpu().numpy(),
+                         split["records"].cpu().numpy(),
+                         "graphed block step vs the split's")
+    g_launch = launch_counts(kernels)
+    no_syncs(lambda: block_parts(True))
+    torch.cuda.synchronize()
+    g_launch = {k: v - g_launch[k] for k, v in launch_counts(kernels).items()}
+    assert g_launch == one_a_block(1), g_launch
+    g_ops, g_busy = device_ops(lambda: block_parts(True))
+    e_ops, e_busy = device_ops(lambda: block_parts(False))
+    log(f"block step of {BLOCK} revisit clouds as graph replays (the build "
+        f"graph and the query graph of {BLOCK} on the block-built map, a "
+        f"sync around): {g_ms:.2f} ms graphed against {e_ms:.2f} ms for the "
+        f"eager bodies (median of 5, host clock); 0 host syncs (sync debug "
+        f"mode \"error\"); launches {g_launch}; records bit-equal; "
+        f"torch.profiler sees {g_ops} device ops (busy {g_busy:.2f} ms) in "
+        f"the replays and {e_ops} (busy {e_busy:.2f} ms) in the eager "
+        f"bodies ({smi})")
+    held_cc, held_merge = [], []
+
+    def hold_new(points_b, m, what):
+        pts_d = torch.from_numpy(points_b).to(dev)
+        masks = kt.masks_of(pts_d, cfg)
+        held_cc.append({"path": what, "masks": list(masks.shape),
+                        "max_abs_err": kt.hold_cc(masks, what)})
+        hint_of, T, votes = kt.merge_case(m, pts_d, cfg)
+        held_merge.append({"path": what, "hint_of": list(hint_of.shape),
+                           "hints": int((hint_of >= 0).sum()),
+                           "max_abs_err": kt.hold_merge(hint_of, T, votes,
+                                                        what)})
+        log(f"cc_labels and merge_hints on the {what}: masks "
+            f"{tuple(masks.shape)}, hint_of {tuple(hint_of.shape)} "
+            f"({held_merge[-1]['hints']} hints): bit-equal to their plain "
+            f"versions")
+
+    hold_new(np.stack(clouds[n_full - BLOCK:n_full]), db_b,
+             "block build's last full block")
+    hold_new(pts16, db_b, "block step's 16 revisit clouds")
 
     # ---- 7. checkpoint, reload, merge ------------------------------------
     def assert_restored(back, orig, what):
@@ -1349,10 +1588,15 @@ def main() -> None:
 
     # ---- 8. serving ------------------------------------------------------
     revisit = np.stack(clouds[rev0:])
-    kernels.reset_launches()
     torch.cuda.synchronize()
     mem_held = torch.cuda.memory_allocated()  # the DBs of the phases above
     torch.cuda.reset_peak_memory_stats()
+    # the first chunk captures the build and query graphs of 16
+    served.localize_block_async(revisit[:BLOCK], chunk=BLOCK).get()
+    graph_serve = served.graph_stats()
+    served.serving_counters = tdb.ContourDB._zero_counters()
+    kernels.reset_launches()
+    torch.cuda.synchronize()
     ev0.record()
     h_serve = served.localize_block_async(revisit, chunk=BLOCK)
     ev1.record()
@@ -1360,17 +1604,25 @@ def main() -> None:
     serve_ms = ev0.elapsed_time(ev1) / LANE_SCANS
     peak_serve = torch.cuda.max_memory_allocated()
     n_chunks = -(-LANE_SCANS // BLOCK)
-    launches_serve = {
-        "ring_key_divs": kernels.ring_key_divs.launches,
-        "ring_key_divs_batch": kernels.ring_key_divs_batch.launches,
-        "search_tilemin": kernels.search_tilemin.launches,
-        "search_tilemin_batch": kernels.search_tilemin_batch.launches}
+    launches_serve = launch_counts(kernels)
     # one batched build a chunk: the pad clouds build in the last one
-    assert launches_serve == {"ring_key_divs": 0,
-                              "ring_key_divs_batch": n_chunks,
-                              "search_tilemin": 0,
-                              "search_tilemin_batch": n_chunks}, \
-        launches_serve
+    assert launches_serve == one_a_block(n_chunks), launches_serve
+    ev0.record()
+    h_eager = served._localize(revisit, BLOCK, False)
+    ev1.record()
+    torch.cuda.synchronize()
+    serve_ms_eager = ev0.elapsed_time(ev1) / LANE_SCANS
+    assert torch.equal(h_serve.recs.view(torch.int32),
+                       h_eager.recs.view(torch.int32)), \
+        "graphed serving vs the eager calls"
+    no_syncs(lambda: served.localize_block_async(revisit[:BLOCK],
+                                                 chunk=BLOCK))
+    tail_pts_ = np.concatenate([
+        revisit[(n_chunks - 1) * BLOCK:],
+        np.zeros((n_chunks * BLOCK - LANE_SCANS,) + revisit.shape[1:],
+                 revisit.dtype)])
+    hold_new(revisit[:BLOCK], served, "serving map, first chunk")
+    hold_new(tail_pts_, served, "serving map, padded last chunk")
     # the batched kernel against its plain version on what serving gave it:
     # the merged map's keys_q (a partial last tile), every limit the map's
     # n; the first chunk, and the last with its zero pad clouds
@@ -1411,6 +1663,7 @@ def main() -> None:
         revisit[:BLOCK], chunk=BLOCK))
     chunk_syncs = host_syncs(lambda: served.localize_block_async(
         revisit[:BLOCK], chunk=BLOCK))
+    assert chunk_syncs == 0, chunk_syncs
     # the device memory one batched build of a chunk adds at its peak
     pts_chunk = torch.from_numpy(revisit[:BLOCK]).to(dev)
     torch.cuda.synchronize()
@@ -1424,7 +1677,11 @@ def main() -> None:
         f"found at the right place {right}/{LANE_SCANS}; two records equal "
         f"query_async on the card and on a CPU copy of the map; "
         f"range_search {n_g} in range, equal on both; {serve_ms:.3f} "
-        f"ms/query (CUDA events), {chunk_ops} device ops (the card busy "
+        f"ms/query graphed against {serve_ms_eager:.3f} ms/query for the "
+        f"eager calls (CUDA events; records bit-equal; captures "
+        f"{graph_serve['capture_s']} s, graph pool "
+        f"{graph_serve['pool_bytes']} bytes), {chunk_ops} device ops (the "
+        f"card busy "
         f"{chunk_busy:.2f} ms under the profiler) and {chunk_syncs} host "
         f"syncs a chunk of {BLOCK} (builds included), peak allocated "
         f"{peak_serve} bytes, of which {mem_held} held before by this "
@@ -1493,18 +1750,21 @@ def main() -> None:
     # ---- 11. sharded serving and search ---------------------------------
     sharded = phase_11(cfg, clouds, db, served, rev0, smi)
 
+    batched = ("ring_key_divs_batch", "search_tilemin_batch")
     for r in rows:
-        # the stream launches the single entries, the block build the
-        # batched ones
-        r["launches"] = launches.get(r["name"], launches_block[r["name"]])
+        # the stream launches the single entries and the CC and merge
+        # kernels, the block build the batched ones
+        r["launches"] = (launches_block if r["name"] in batched
+                         else launches)[r["name"]]
         r["launches_by_path"] = {
-            "stream": launches.get(r["name"], 0),
+            "stream": launches[r["name"]],
             "block_build": launches_block[r["name"]],
             "serving": launches_serve[r["name"]],
             **{path: n[r["name"]] for path, n in by_path.items()},
             "sharded": sum(n[r["name"]] for n in sharded.values())}
         r["sharded_launches"] = {k: n[r["name"]] for k, n in sharded.items()}
-    for r, h in ((brow, held), (rrow, held_ring)):
+    for r, h in ((brow, held), (rrow, held_ring), (cc_row, held_cc),
+                 (merge_row, held_merge)):
         r["held_on_paths"] = h
         r["max_abs_err"] = max([r["max_abs_err"]]
                                + [x["max_abs_err"] for x in h])

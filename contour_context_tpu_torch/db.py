@@ -9,14 +9,21 @@ query -> addScan -> pushAndBalance order, batch_bin_test.cpp:105-238).
 
 The store, its (L, D, capacity*A) bf16 search-layout key copy `keys_q`, the
 timestamps, the window state [n, searchable_n] and the record ring all live
-on the DB's device; the host keeps a mirror of n for indexing. A scan syncs
-the host three times in eager torch beside its upload (the CC fixpoint check
-of its descriptor, the cascade chunk count, the merge trip count).
+on the DB's device, written at rows read from state[0] on the device; the
+host keeps a mirror of n for its handles. Nothing in a step syncs the host:
+the CC labels and the proposal merge are one kernel launch each, the
+cascade runs every chunk, and a host payload goes up through pinned memory.
+On a CUDA device the step, a block step's build and queries and a serving
+chunk each run as one CUDA graph replay (`graphs.GraphSet`), the port's
+counterpart of the JAX package's one jitted dispatch; the eager bodies the
+graphs capture stay as the private `_step`, `_process_block`,
+`_block_chain_pts` and `_localize` with graphed=False (the CPU, the
+`dynamic_thres` mode, and the card's comparisons).
 
 The query behind its search carries a leading B axis (`stages_from_hits` ->
 `refine_from_hits` -> `query_from_hits`), the counterpart of the JAX
-package's jax.vmap(_query_step_impl): B queries are one batched program with
-the two syncs of one query, and the stream's query is its B = 1 case. A
+package's jax.vmap(_query_step_impl): B queries are one batched program,
+and the stream's query is its B = 1 case. A
 `depth` (one of DEPTHS) stops it at one of _query_step_impl's stage gates
 and returns that gate's probe, so a split times the production prefixes.
 
@@ -63,6 +70,7 @@ from contour_context_tpu_torch.ops.cascade import (
     check_sim_batched,
     run_cascade,
 )
+from contour_context_tpu_torch.graphs import GraphSet
 from contour_context_tpu_torch.ops.descriptor import (
     build_descriptor,
     build_descriptors,
@@ -90,6 +98,8 @@ from contour_context_tpu_torch.types import (
 )
 
 RECORD_WIDTH = 18
+# the chunk a graphed localize_block_async serves in when given none
+SERVE_CHUNK = 16
 
 
 def keys_to_q_layout(keys, dtype=None):
@@ -240,12 +250,14 @@ def cascade_chunked(store, query, gidx, level, seq_src, seq_tgt, hv, n_valid,
                     ) -> CascadeResult:
     """The cascade of B queries ((B, HC) hint arrays, n_valid (B,), `query`
     B-stacked) in chunks of W hint columns (db._cascade_chunked): chunk i
-    runs columns [s0, s0 + W) of every query at once as B*W flat rows, and
-    the chunk count is the busiest query's ceil(n_valid / W) (one host
-    sync). Rows are independent, so neither chunking nor batching changes a
-    result; columns past a query's own chunks stay zero, which downstream
-    reads as non-hints. The last chunk's start is clamped, so chunks may
-    overlap and recompute rows identically."""
+    runs columns [s0, s0 + W) of every query at once as B*W flat rows.
+    Every one of the ceil(HC / W) chunks runs, so the chunk count needs no
+    host sync (JAX's while_loop stops at the busiest query's ceil(n_valid /
+    W), a device scalar); then every query's columns past its own
+    ceil(n_valid / W) * W are zeroed, which is what JAX leaves there (its
+    zero init) and downstream reads as non-hints. Rows are independent, so
+    neither chunking nor batching changes a result. The last chunk's start
+    is clamped, so chunks may overlap and recompute rows identically."""
     B, HC = gidx.shape
     W = min(chunk, HC) if chunk > 0 else HC
     dev = gidx.device
@@ -261,7 +273,6 @@ def cascade_chunked(store, query, gidx, level, seq_src, seq_tgt, hv, n_valid,
     if W >= HC:
         return run(0, HC)
     n_chunks = -(-HC // W)
-    nc = min(-(-int(n_valid.max()) // W), n_chunks)      # host sync
     b, i32, f32 = torch.bool, torch.int32, torch.float32
     shapes = dict(pass1=((), b), pass2=((), b), pass3=((), b),
                   ovlp_sum=((), i32), ovlp_max_one=((), i32),
@@ -274,17 +285,15 @@ def cascade_chunked(store, query, gidx, level, seq_src, seq_tgt, hv, n_valid,
     out = CascadeResult(*[torch.zeros((B, HC) + shapes[f][0],
                                       dtype=shapes[f][1], device=dev)
                           for f in CascadeResult._fields])
-    for i in range(nc):
+    for i in range(n_chunks):
         s0 = min(i * W, HC - W)
         for dst, src in zip(out, run(s0, W)):
             dst[:, s0:s0 + W] = src
-    if B > 1:
-        # a query with fewer chunks of its own than the busiest keeps zeros
-        # past them, as when it runs alone
-        own = torch.div(n_valid + (W - 1), W, rounding_mode="floor") * W
-        idle = torch.arange(HC, device=dev) >= own[:, None]
-        for x in out:
-            x.masked_fill_(idle.reshape((B, HC) + (1,) * (x.dim() - 2)), 0)
+    # a query keeps zeros past its own chunks, as JAX's loop leaves them
+    own = torch.div(n_valid + (W - 1), W, rounding_mode="floor") * W
+    idle = torch.arange(HC, device=dev) >= own[:, None]
+    for x in out:
+        x.masked_fill_(idle.reshape((B, HC) + (1,) * (x.dim() - 2)), 0)
     return out
 
 
@@ -395,15 +404,27 @@ def hint_cap(dist, valid, cfg: PipelineConfig):
     return select_topk_stable(dist.reshape(B, -1), valid.reshape(B, -1), HC)
 
 
-def stages_from_hits(store: ScanDesc, descs: ScanDesc, hits,
-                     cfg: PipelineConfig, depth: Optional[str] = None):
-    """Hint cap -> check-1 prefilter -> chunked cascade -> merge (the first
-    half of db._query_step_impl behind its search) for B queries at once:
-    `descs` is a B-stacked ScanDesc, `hits` their search results (B, Q, A,
-    K) (`search_batch`'s output). Two host syncs whatever B: the cascade's
-    chunk count and the merge's trip count. With `depth` one of DEPTHS but
-    "init", returns that gate's (B,) float32 probe instead
-    (db._query_step_impl's, of the same tensors)."""
+class CascadeRows(NamedTuple):
+    """The cascade's input of B queries: the hint rows it checks, in the
+    order it checks them (after the check-1 prefilter), and the counts the
+    record keeps. Every leaf has a leading B axis."""
+    gidx: torch.Tensor            # (B, HC) int32 hint rows
+    level: torch.Tensor           # (B, HC) int32
+    seq_src: torch.Tensor         # (B, HC) int32
+    seq_tgt: torch.Tensor         # (B, HC) int32
+    hv: torch.Tensor              # (B, HC) bool live hint
+    n_run: torch.Tensor           # (B,) int32 live hints the cascade runs
+    n_valid: torch.Tensor         # (B,) int32 valid key hits
+    overflow_hints: torch.Tensor  # (B,) int32
+    aft1: Optional[torch.Tensor]  # (B,) int32 check-1 survivors, or None
+
+
+def cascade_rows(store: ScanDesc, descs: ScanDesc, hits, cfg: PipelineConfig,
+                 depth: Optional[str] = None):
+    """Hint cap -> check-1 prefilter (the part of db._query_step_impl
+    between its search and its cascade) for B queries: the CascadeRows
+    that `cascade_chunked` takes. With `depth` "search", "hints" or
+    "check1", returns that gate's (B,) float32 probe instead."""
     gidx, seq_src, dist, valid = hits
     if depth == "search":
         return _probe(dist, gidx, valid)
@@ -438,13 +459,30 @@ def stages_from_hits(store: ScanDesc, descs: ScanDesc, hits,
         hv_run, n_run = hv, n_valid
     if depth == "check1":
         return _probe(n_run, hv_run, g_h)
-    res = cascade_chunked(store, descs, g_h, l_h, ss_h, st_h, hv_run, n_run,
-                          cfg.thres_lb, cfg.db.cont_sim, chunkw, cfg.db.p_pot)
+    return CascadeRows(g_h, l_h, ss_h, st_h, hv_run, n_run, n_valid,
+                       overflow_hints, aft1)
+
+
+def stages_from_hits(store: ScanDesc, descs: ScanDesc, hits,
+                     cfg: PipelineConfig, depth: Optional[str] = None):
+    """Hint cap -> check-1 prefilter -> chunked cascade -> merge (the first
+    half of db._query_step_impl behind its search) for B queries at once:
+    `descs` is a B-stacked ScanDesc, `hits` their search results (B, Q, A,
+    K) (`search_batch`'s output). No host sync whatever B (the cascade runs
+    every chunk, the merge is one kernel launch). With `depth` one of
+    DEPTHS but "init", returns that gate's (B,) float32 probe instead
+    (db._query_step_impl's, of the same tensors)."""
+    rows = cascade_rows(store, descs, hits, cfg, depth)
+    if depth in ("search", "hints", "check1"):
+        return rows
+    res = cascade_chunked(store, descs, *rows[:6], cfg.thres_lb,
+                          cfg.db.cont_sim, cfg.db.cascade_chunk, cfg.db.p_pot)
     if depth == "cascade":
         # the cascade's own pass3, before the dynamic re-gating
         return _probe(res.T_delta, res.pass3, res.pair_area_perc)
+    aft1 = rows.aft1
     if aft1 is None:
-        aft1 = res.pass1.sum(dim=1).to(i32)
+        aft1 = res.pass1.sum(dim=1).to(torch.int32)
     if cfg.db.dynamic_thres:
         # DYNAMIC_THRES=1: sequential re-gating with rising bars
         pass2_d, pass3_d = dynamic_pass_scan(
@@ -453,13 +491,14 @@ def stages_from_hits(store: ScanDesc, descs: ScanDesc, hits,
         res = res._replace(pass2=pass2_d, pass3=pass3_d)
 
     st = merge_proposals(
-        res.pass3, g_h, res.T_delta, res.pair_valid, res.pair_level,
+        res.pass3, rows.gidx, res.T_delta, res.pair_valid, res.pair_level,
         res.pair_seq_src, res.pair_seq_tgt, res.pair_area_perc,
         n_cand_max=cfg.db.max_cand_poses, n_pass_max=cfg.db.max_pass_hints)
     if depth == "merge":
         return _probe(st.prop_T, st.n_cand)
-    return QueryStages(n_valid=n_valid, overflow_hints=overflow_hints,
-                       aft1=aft1, gidx=g_h, res=res, st=st)
+    return QueryStages(n_valid=rows.n_valid,
+                       overflow_hints=rows.overflow_hints, aft1=aft1,
+                       gidx=rows.gidx, res=res, st=st)
 
 
 def query_stages(store: ScanDesc, keys_q, query: ScanDesc, state,
@@ -951,9 +990,10 @@ class ContourDB:
 
     With `cfg.db.dynamic_thres` every query runs the two sequential
     threshold recurrences (`dynamic_pass_scan`, `dynamic_post_scan`) on the
-    host: on a CUDA device that is 4 more host synchronisations a query, or
-    a block of queries (the inputs of each copied down, its mask copied
-    back), on top of the 4 of the default step. The default
+    host: on a CUDA device that is 4 host synchronisations a query, or a
+    block of queries (the inputs of each copied down, its mask copied
+    back), where the default step makes none; that mode runs its steps,
+    blocks and serving chunks eagerly, not as CUDA graphs. The default
     `dynamic_thres=False` path is untouched."""
 
     def __init__(self, cfg: PipelineConfig, capacity: int = 8192,
@@ -978,6 +1018,10 @@ class ContourDB:
         # queries (localize_block_async) fill the separate set
         self.counters = self._zero_counters()
         self.serving_counters = self._zero_counters()
+        # the CUDA graphs of the step, the block step and the serving chunk,
+        # and the tensors they read their inputs from and write outputs to
+        self._graphs = GraphSet(self.device)
+        self._static_bufs: dict = {}
 
     @staticmethod
     def _checked_device(device) -> torch.device:
@@ -1043,6 +1087,7 @@ class ContourDB:
         self.ts_store = grow(self.ts_store, pad)
         self.recs_store = grow(self.recs_store, pad)
         self.capacity = new_capacity
+        self._graphs.drop()     # captured at the old tensors' addresses
 
     def _ensure_capacity(self, need: int) -> None:
         """Allocate the store at first use; grow it to hold `need` more
@@ -1052,10 +1097,22 @@ class ContourDB:
         if self.n + need > self.capacity:
             self._grow(max(2 * self.capacity, self.n + need))
 
+    def _upload(self, x):
+        """Host data (numpy or a CPU tensor) as a tensor on the DB's device.
+        To a CUDA device it goes through pinned memory, non_blocking: no
+        host sync, and the pinned block is not reused before its copy ran.
+        A tensor already on the device passes through."""
+        t = torch.as_tensor(x)
+        if t.device == self.device:
+            return t
+        if self.device.type == "cuda" and t.device.type == "cpu":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t.to(self.device)
+
     def _scalar(self, x):
         """A host number or a tensor as a float32 tensor on the device."""
         if isinstance(x, torch.Tensor):
-            return x.to(self.device, torch.float32)
+            return self._upload(x.to(torch.float32))
         # a fill kernel, not a host-to-device copy
         return torch.full((), float(x), dtype=torch.float32,
                           device=self.device)
@@ -1072,45 +1129,142 @@ class ContourDB:
             return self._scalar(ts)
         host = np.asarray(ts, np.float64).reshape(n)
         self.ts.extend(float(t) for t in host)
-        return torch.from_numpy(host.astype(np.float32)).to(self.device)
+        return self._upload(torch.from_numpy(host.astype(np.float32)))
+
+    def _rows(self, B: int):
+        """(B,) int64 rows state[0].. on the device: where the next B rows
+        of the store go (the JAX _append_impl's dynamic_update_slice at
+        state[0]). Read on the device, so a captured write lands on the
+        right rows at every replay."""
+        return self.state[:1].long() + torch.arange(B, device=self.device)
+
+    def _append_rows(self, descs: ScanDesc, ts_b) -> None:
+        """Write the B-stacked descs at rows state[0].. on the device
+        (db._append_impl, B rows at once): every store leaf, the (L, D,
+        B*A) column block of keys_q (rounded to bf16 when keys_bf16), the
+        timestamps, and state[0] += B. Pure copies, so B appends of one row
+        write the same bits."""
+        B = ts_b.shape[0]
+        rows = self._rows(B)
+        for buf, x in zip(self.store, descs):
+            buf.index_copy_(0, rows, x.to(buf.device, buf.dtype))
+        L, A, D = descs.keys.shape[1:]
+        cols = (rows[:, None] * A
+                + torch.arange(A, device=self.device)).reshape(-1)
+        self.keys_q.index_copy_(
+            2, cols, descs.keys.to(self.device).permute(1, 3, 0, 2)
+            .reshape(L, D, B * A).to(self.keys_q.dtype))
+        self.ts_store.index_copy_(0, rows, ts_b)
+        self.state[0] += B
 
     def _append(self, descs: ScanDesc, ts_b) -> None:
-        """Write the B-stacked descs at rows n.. (db._append_impl, B rows at
-        once): every store leaf, the (L, D, B*A) column block of keys_q
-        (rounded to bf16 when keys_bf16), the timestamps, and n += B on the
-        device. Pure copies, so B appends of one row write the same bits."""
-        n, B = self.n, ts_b.shape[0]
-        for buf, x in zip(self.store, descs):
-            buf[n:n + B] = x
-        L, A, D = descs.keys.shape[1:]
-        self.keys_q[:, :, n * A:(n + B) * A] = \
-            descs.keys.permute(1, 3, 0, 2).reshape(L, D, B * A) \
-            .to(self.keys_q.dtype)
-        self.ts_store[n:n + B] = ts_b
-        self.state[0] += B
-        self.n += B
+        """`_append_rows`, and the host's mirror n += B."""
+        self._append_rows(descs, ts_b)
+        self.n += ts_b.shape[0]
 
     def _push(self, ts_t) -> None:
         tb = self.cfg.db.tb
         update_window(self.state, self.ts_store, ts_t, tb.min_elapse,
                       tb.max_elapse)
 
+    # -- CUDA graphs ---------------------------------------------------------
+
+    @property
+    def graphed(self) -> bool:
+        """Whether the step, the block step and the serving chunk run as
+        CUDA graph replays: on a CUDA device, unless `dynamic_thres` (its
+        two threshold recurrences are host loops, so that mode runs
+        eagerly on the card)."""
+        return self.device.type == "cuda" and not self.cfg.db.dynamic_thres
+
+    def _tag(self) -> tuple:
+        """The addresses of the tensors the graphs read and write."""
+        return tuple(t.data_ptr() for t in (*self.store, self.keys_q,
+                                            self.ts_store, self.state,
+                                            self.recs_store))
+
+    def _static(self, key, shape, dtype):
+        """A tensor kept for the DB's lifetime: a graph's input or output
+        buffer (the graph reads and writes it at its capture address)."""
+        t = self._static_bufs.get(key)
+        if t is None:
+            t = torch.zeros(shape, dtype=dtype, device=self.device)
+            self._static_bufs[key] = t
+        return t
+
+    def _static_descs(self, B: int) -> ScanDesc:
+        """A B-stacked ScanDesc of static buffers: the build graph's output
+        and the query graph's input."""
+        spec = scan_desc_spec(self.cfg.cm, self.cfg.gmm)
+        return ScanDesc(**{k: self._static(("desc", B, k), (B,) + shape, dt)
+                           for k, (shape, dt) in spec.items()})
+
+    def drop_graphs(self) -> None:
+        """Drop the DB's CUDA graphs and give their memory pool back to the
+        card. A graph holds its working set for the DB's lifetime (the
+        eager body frees it after each call); the next graphed call of a
+        shape captures it again."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)     # no replay in flight
+        self._graphs.drop()
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()
+
+    def graph_stats(self) -> dict:
+        """Capture seconds of each graph, the launches of each kernel one
+        replay makes, and the bytes the graphs' memory pool holds."""
+        g = self._graphs
+        return {"capture_s": {str(k): v for k, v in g.capture_s.items()},
+                "launches": {str(k): g.launches(k) for k in g.graphs},
+                "pool_bytes": g.pool_bytes()}
+
     # -- the fused stream ---------------------------------------------------
+
+    def _step_body(self, pts, ts_t) -> None:
+        """One scan on the device: build -> query (window state before this
+        scan) -> the record at row state[0] of the ring -> append -> window
+        update. No host sync and no host-side index: the body a CUDA graph
+        captures."""
+        desc = build_descriptor(pts, self.cfg.cm, self.cfg.gmm)
+        rec = query_step(self.store, self.keys_q, desc, self.state, self.cfg)
+        self.recs_store.index_copy_(0, self._rows(1), rec[None])
+        self._append_rows(ScanDesc(*[x[None] for x in desc]), ts_t.reshape(1))
+        self._push(ts_t)
 
     def step_async(self, points, seq: int, ts) -> QueryHandle:
         """One scan: build -> query (window state before this scan) ->
         record-ring write -> append -> window update. `points` is the
         (max_points, 4) f32 or int16 q16 payload, `ts` a float or a 0-d
-        tensor. The record stays on the device until it is drained."""
+        tensor. The record stays on the device until it is drained.
+
+        On a CUDA device the step is one CUDA graph replay: the payload and
+        the timestamp are copied into static buffers (one payload buffer a
+        dtype; host payloads through pinned memory) and the captured body
+        runs, with no host sync. The first step (and the first after a
+        grow) runs the body eagerly and captures it. With `dynamic_thres`
+        the step runs eagerly on the card (`graphed`)."""
+        return self._step(points, seq, ts, self.graphed)
+
+    def _step(self, points, seq: int, ts, graphed: bool) -> QueryHandle:
+        """step_async; `graphed` False runs the body eagerly (the CPU, the
+        `dynamic_thres` mode, and the card's comparisons of a replay with
+        the body it captured)."""
         self._ensure_capacity(1)
-        pts = torch.as_tensor(points).to(self.device)
+        pts = self._upload(points)
         ts_t = self._ts_tensor(ts)
-        desc = build_descriptor(pts, self.cfg.cm, self.cfg.gmm)
-        rec = query_step(self.store, self.keys_q, desc, self.state, self.cfg)
+        if graphed:
+            pts_in = self._static(("pts", pts.dtype, tuple(pts.shape)),
+                                  pts.shape, pts.dtype)
+            ts_in = self._static(("ts",), (), torch.float32)
+            pts_in.copy_(pts)
+            ts_in.copy_(ts_t)
+            self._graphs.run(("step", pts.dtype, tuple(pts.shape)),
+                             lambda: self._step_body(pts_in, ts_in),
+                             self._tag())
+        else:
+            self._step_body(pts, ts_t)
         row = self.n
-        self.recs_store[row] = rec
-        self._append(ScanDesc(*[x[None] for x in desc]), ts_t.reshape(1))
-        self._push(ts_t)
+        self.n += 1
         self.seq_of_gidx.append(int(seq))
         return QueryHandle(self, row)
 
@@ -1136,7 +1290,8 @@ class ContourDB:
         that may be longer: `points_buf` (K, max_points, 4), `ts_k` K
         timestamps covering the whole buffer (rows past k are ignored).
         `k_dev` is an optional `stage_chain_k` pair, checked against
-        len(seqs) on the host."""
+        len(seqs) on the host. On a CUDA device the k steps are k replays
+        of the step's graph issued back to back, with no host sync."""
         k = len(seqs)
         if k_dev is not None and int(k_dev[0]) != k:
             raise ValueError(f"staged k ({int(k_dev[0])}) != len(seqs) ({k})")
@@ -1147,7 +1302,7 @@ class ContourDB:
             raise ValueError("ts_k must cover the full buffer (rows past k "
                              "are ignored)")
         self._ensure_capacity(k)
-        pts = torch.as_tensor(points_buf[:k]).to(self.device)
+        pts = self._upload(points_buf[:k])
         row0 = self.n
         for i, s in enumerate(seqs):
             self.step_async(pts[i], s, ts_k[i])
@@ -1360,6 +1515,54 @@ class ContourDB:
 
     # -- block mode and map serving -----------------------------------------
 
+    def _query_batch(self, descs: ScanDesc, searchable_b, graphed: bool):
+        """query_step_batch of the B-stacked descs at searchable_b on the
+        DB's map: (B, 18) records. Graphed, one replay of the query graph
+        of B (search + tail), captured once for each (B, capacity), reading
+        the static descriptor and limit buffers and writing a static record
+        buffer (a later replay overwrites it: copy what is kept)."""
+        if not graphed:
+            return query_step_batch(self.store, self.keys_q, descs,
+                                    searchable_b, self.cfg)
+        B = searchable_b.shape[0]
+        d_in = self._static_descs(B)
+        if any(a.data_ptr() != b.data_ptr() for a, b in zip(d_in, descs)):
+            for dst, src in zip(d_in, descs):
+                dst.copy_(src)
+        sb_in = self._static(("sb", B), (B,), torch.int32)
+        sb_in.copy_(searchable_b)
+        out = self._static(("recs", B), (B, RECORD_WIDTH), torch.float32)
+
+        def body():
+            out.copy_(query_step_batch(self.store, self.keys_q, d_in, sb_in,
+                                       self.cfg))
+
+        self._graphs.run(("query", B), body, self._tag())
+        return out
+
+    def _build_batch(self, points_b, graphed: bool) -> ScanDesc:
+        """build_descriptors of the (B, max_points, 4) clouds (host data is
+        uploaded through pinned memory). Graphed, one replay of the build
+        graph of B, captured once for each (B, payload dtype), writing the
+        static descriptor buffers of B (the query graph's input)."""
+        pts = self._upload(points_b)
+        if not graphed:
+            return build_descriptors(pts, self.cfg.cm, self.cfg.gmm)
+        B = pts.shape[0]
+        self._ensure_capacity(0)        # the store the graphs' tag names
+        key = ("build", pts.dtype, tuple(pts.shape))
+        pts_in = self._static(("pts",) + key[1:], pts.shape, pts.dtype)
+        pts_in.copy_(pts)
+        d_in = self._static_descs(B)
+
+        def body():
+            for dst, src in zip(d_in, build_descriptors(pts_in, self.cfg.cm,
+                                                        self.cfg.gmm)):
+                dst.copy_(src)
+
+        self._graphs.run(key, body, self._tag())
+        return d_in
+
     def process_block_async(self, descs: ScanDesc, seqs, ts_b) -> BlockHandle:
         """Append and query a block of B scans: `descs` is a B-stacked
         ScanDesc (`build_descriptors`), `ts_b` B timestamps (a host sequence
@@ -1372,7 +1575,17 @@ class ContourDB:
         than min_elapse). The scans are appended first, each query's
         searchable prefix is replayed from the window pushes (query b sees
         the pushes of t_0..t_{b-1}), and the B queries share one batched key
-        search. For arbitrary spacing use `step_chain_async`."""
+        search. For arbitrary spacing use `step_chain_async`.
+
+        On a CUDA device the append and the window pushes run eagerly (a
+        few dozen ops, no host sync) and the B queries are one replay of
+        the query graph of B (`_query_batch`); with `dynamic_thres` the
+        block runs eagerly on the card."""
+        return self._process_block(descs, seqs, ts_b, self.graphed)
+
+    def _process_block(self, descs: ScanDesc, seqs, ts_b,
+                       graphed: bool) -> BlockHandle:
+        """process_block_async; `graphed` False runs the queries eagerly."""
         B = len(seqs)
         self._ensure_capacity(B)
         ts_t = self._ts_tensor(ts_b, B)
@@ -1384,37 +1597,46 @@ class ContourDB:
         tb = self.cfg.db.tb
         searchable_b = replay_window(self.state, self.ts_store, ts_t,
                                      tb.min_elapse, tb.max_elapse)
-        recs = query_step_batch(self.store, self.keys_q, descs, searchable_b,
-                                self.cfg)
+        recs = self._query_batch(descs, searchable_b, graphed)
         self.recs_store[row0:row0 + B] = recs
         self.seq_of_gidx.extend(int(s) for s in seqs)
-        return BlockHandle(recs, self, row0=row0)
+        return BlockHandle(self.recs_store[row0:row0 + B], self, row0=row0)
 
-    def _block_chain(self, seqs, ts_nb, descs_of) -> BlockHandle:
+    def _block_chain(self, seqs, ts_nb, descs_of, graphed: bool
+                     ) -> BlockHandle:
         nb, b = len(ts_nb), len(ts_nb[0])
         if nb * b != len(seqs):
             raise ValueError("seqs must list the NB*B ids of ts_nb")
-        hs = [self.process_block_async(descs_of(i), seqs[i * b:(i + 1) * b],
-                                       ts_nb[i]) for i in range(nb)]
-        return BlockHandle(torch.cat([h.recs for h in hs]), self,
-                           row0=hs[0].row0)
+        row0 = self.n
+        for i in range(nb):
+            self._process_block(descs_of(i), seqs[i * b:(i + 1) * b],
+                                ts_nb[i], graphed)
+        return BlockHandle(self.recs_store[row0:row0 + nb * b], self,
+                           row0=row0)
 
     def block_chain_async(self, descs_nb: ScanDesc, seqs, ts_nb
                           ) -> BlockHandle:
         """NB block steps in sequence: `descs_nb` is (NB, B)-stacked,
         `ts_nb` (NB, B); `seqs` lists the NB*B sequence ids in order."""
         return self._block_chain(
-            seqs, ts_nb, lambda i: ScanDesc(*[x[i] for x in descs_nb]))
+            seqs, ts_nb, lambda i: ScanDesc(*[x[i] for x in descs_nb]),
+            self.graphed)
 
     def block_chain_pts_async(self, points_nb, seqs, ts_nb) -> BlockHandle:
         """`block_chain_async` from raw clouds: `points_nb` is (NB, B,
-        max_points, 4); each step builds its block's B descriptors, then
-        runs the block step."""
+        max_points, 4); each step builds its block's B descriptors (on a
+        CUDA device one replay of the build graph of B), then runs the
+        block step."""
+        return self._block_chain_pts(points_nb, seqs, ts_nb, self.graphed)
+
+    def _block_chain_pts(self, points_nb, seqs, ts_nb,
+                         graphed: bool) -> BlockHandle:
+        """block_chain_pts_async; `graphed` False runs it eagerly."""
         if len(points_nb) != len(ts_nb):
             raise ValueError("points_nb and ts_nb disagree on NB")
-        return self._block_chain(seqs, ts_nb, lambda i: build_descriptors(
-            torch.as_tensor(points_nb[i]).to(self.device), self.cfg.cm,
-            self.cfg.gmm))
+        return self._block_chain(
+            seqs, ts_nb, lambda i: self._build_batch(points_nb[i], graphed),
+            graphed)
 
     def localize_block_async(self, points_b, chunk: Optional[int] = None
                              ) -> Optional[BlockHandle]:
@@ -1424,7 +1646,17 @@ class ContourDB:
         loading or merging a map. `chunk` bounds the batch of one key
         search: a tail that does not divide is padded with zero clouds,
         which come back found=False and are sliced off. Returns None on an
-        empty DB. The records count into `serving_counters`."""
+        empty DB. The records count into `serving_counters`. On a CUDA
+        device each chunk is one replay of the build graph and one of the
+        query graph of `chunk` (SERVE_CHUNK when None), with no host sync;
+        every request is padded to whole chunks, so one pair of graphs a
+        chunk size serves every request size. `drop_graphs` gives their
+        memory back."""
+        return self._localize(points_b, chunk, self.graphed)
+
+    def _localize(self, points_b, chunk: Optional[int],
+                  graphed: bool) -> Optional[BlockHandle]:
+        """localize_block_async; `graphed` False runs it eagerly."""
         if self.store is None:
             return None
         pts = torch.as_tensor(points_b)
@@ -1434,18 +1666,20 @@ class ContourDB:
                 torch.zeros((0, RECORD_WIDTH), dtype=torch.float32,
                             device=self.device), self,
                 counters="serving_counters")
-        if chunk is None or B <= chunk:
+        if graphed:
+            # one build and one query graph a chunk size, whatever B
+            chunk = chunk or SERVE_CHUNK
+        elif chunk is None or B <= chunk:
             chunk = B
         pad = (-B) % chunk
         if pad:
             pts = torch.cat([pts, pts.new_zeros((pad,) + pts.shape[1:])])
         recs = []
         for i in range(0, B + pad, chunk):
-            descs = build_descriptors(pts[i:i + chunk].to(self.device),
-                                      self.cfg.cm, self.cfg.gmm)
-            recs.append(query_step_batch(
-                self.store, self.keys_q, descs,
-                self.state[1].expand(chunk).contiguous(), self.cfg))
+            descs = self._build_batch(pts[i:i + chunk], graphed)
+            recs.append(self._query_batch(
+                descs, self.state[1].expand(chunk).contiguous(),
+                graphed).clone())
         return BlockHandle(torch.cat(recs)[:B], self,
                            counters="serving_counters")
 

@@ -41,6 +41,16 @@ device time beside the summed device time of the 16 single-query launches
 that answer the same queries. `edge_cases` holds each kernel against its
 plain version at the edge shapes and names the path each took.
 
+The two kernels that take the JAX package's while-loops off the host
+(`measure_cc`, `measure_merge`; `chip_smoke.py` phase 3d): the CC labels
+of a scan's and a block's level masks and the proposal merge of one and of
+16 revisit queries' inputs (`merge_case`, on a DB the caller holds), each
+held bit-equal to its plain version first (`hold_cc`, `hold_merge`, also
+on `adversarial_masks`); their bound is their bytes (masks in, labels out;
+hint rows and poses in, proposals out). `cascade_case` counts what the
+cascade's always-run chunk costs a query (device ops and busy time of
+every chunk against the query's own chunks).
+
 Then `scaling_rows`: both batched kernels across the sizes their paths
 give them (the ring at B = 1-64 and at 9-36 anchors, the tile-min at B =
 4-64 and on a capacity-65536 map), each beside its bytes, operations,
@@ -129,7 +139,7 @@ def kernel_durations_us(prof, name: str, window: Optional[str] = None) -> list:
     return [e.time_range.elapsed_us() for e in ks]
 
 
-LEAD_CALLS = 3           # calls of fn that open each profiled window
+LEAD_CALLS = 10          # calls of fn that open each profiled window
 WINDOW = "kernel_times.window"
 
 
@@ -647,6 +657,191 @@ def edge_cases(dev, cfg: PipelineConfig) -> list:
                              f"{kernels.search_tilemin_path(kq)} path, "
                              "bit-equal")
     return lines
+
+
+# ---------------------------------------------------------------------------
+# the two kernels that take the JAX package's while-loops off the host
+# ---------------------------------------------------------------------------
+
+CC_REPLACES = "contour_context_tpu/ops/descriptor.py:280"
+MERGE_REPLACES = "contour_context_tpu/ops/candidate.py:234"
+
+
+def adversarial_masks(nr: int = 150, nc: int = 150) -> dict:
+    """{name: (nr, nc) bool} masks that stress a CC labelling (numpy): a
+    spiral one pixel wide (one component whose path winds through the
+    whole mask), a comb (teeth joined by a spine along the last row), a
+    checkerboard (8-connected: one component), full, empty, a diagonal
+    staircase (8-connected steps only) and a random field at density 0.5."""
+    spiral = np.zeros((nr, nc), bool)
+    r0, c0, r1, c1 = 0, 0, nr - 1, nc - 1
+    while r0 <= r1 and c0 <= c1:
+        spiral[r0, c0:c1 + 1] = True
+        spiral[r0:r1 + 1, c1] = True
+        if r1 - r0 >= 2:
+            spiral[r1, c0:c1 + 1] = True
+        if c1 - c0 >= 2:
+            spiral[r0 + 2:r1 + 1, c0] = True
+        if r0 + 2 <= r1 and c0 + 2 <= c1:
+            spiral[r0 + 2, c0:c0 + 2] = True
+        r0, c0, r1, c1 = r0 + 2, c0 + 2, r1 - 2, c1 - 2
+    comb = np.zeros((nr, nc), bool)
+    comb[:, ::2] = True
+    comb[-1] = True
+    ii, jj = np.indices((nr, nc))
+    stair = (ii == jj) | (ii == jj + 1)
+    stair[:, 1::2] &= ii[:, 1::2] == jj[:, 1::2]
+    return {"spiral": spiral, "comb": comb,
+            "checkerboard": (ii + jj) % 2 == 0,
+            "full": np.ones((nr, nc), bool),
+            "empty": np.zeros((nr, nc), bool),
+            "staircase": ii == jj,
+            "staircase, two wide": stair,
+            "random": np.random.default_rng(5).random((nr, nc)) < 0.5}
+
+
+def masks_of(points_b, cfg: PipelineConfig):
+    """(B, L, nr, nc) level masks of the clouds (B, P, 4), on their device:
+    the CC kernel's input on the build path."""
+    bev, _, _ = td.rasterize_bev(td.dequantize_points(points_b), cfg.cm)
+    return td.level_masks(bev, cfg.cm)
+
+
+def hold_cc(masks, what: str) -> float:
+    """One `cc_labels` launch against its plain version on the same masks:
+    raises unless the two are bit-equal, returns the largest absolute
+    difference it measured (0.0 then)."""
+    lab_k = kernels.cc_labels(masks)
+    lab_p = kernels.cc_labels_plain(masks)
+    err = float((lab_k - lab_p).abs().max())
+    assert torch.equal(lab_k, lab_p), \
+        f"CC labels differ from the plain version ({what}): max abs err {err}"
+    return err
+
+
+def merge_case(db, points_b, cfg: PipelineConfig):
+    """The merge kernel's inputs (hint_of, T, votes) of the clouds (B, P, 4)
+    queried as a batch against `db`'s map at its searchable prefix: the
+    tensors the query path hands `merge_hints` (eagerly: search, hint cap,
+    check 1, cascade)."""
+    from contour_context_tpu_torch import db as tdb
+    from contour_context_tpu_torch.ops.candidate import merge_inputs
+
+    descs = td.build_descriptors(points_b, cfg.cm, cfg.gmm)
+    B = points_b.shape[0]
+    hits = tdb.search_batch(db.keys_q, descs.keys,
+                            db.state[1].expand(B).contiguous(),
+                            tuple(cfg.db.q_levels), cfg.db.nnk)
+    qs = tdb.stages_from_hits(db.store, descs, hits, cfg)
+    return merge_inputs(qs.res.pass3, qs.gidx, qs.res.T_delta,
+                        qs.res.pair_valid, cfg.db.max_cand_poses,
+                        cfg.db.max_pass_hints)
+
+
+def cascade_case(db, points_b, cfg: PipelineConfig):
+    """What the always-run cascade chunk costs one query: the clouds (1,
+    P, 4) queried against `db`'s map up to the cascade (`db.cascade_rows`,
+    the query path's own hint cap and check 1), then the cascade of every
+    chunk (`db.cascade_chunked`) and the cascade of only the query's own
+    ceil(n_valid / W) chunks (what JAX's loop runs), each under
+    torch.profiler. Returns ((device ops, busy ms) of every chunk, (device
+    ops, busy ms) of its own chunks, n_valid)."""
+    from contour_context_tpu_torch import db as tdb
+    from contour_context_tpu_torch.profile_step import device_ops
+
+    descs = td.build_descriptors(points_b, cfg.cm, cfg.gmm)
+    hits = tdb.search_batch(db.keys_q, descs.keys,
+                            db.state[1].expand(1).contiguous(),
+                            tuple(cfg.db.q_levels), cfg.db.nnk)
+    rows = tdb.cascade_rows(db.store, descs, hits, cfg)
+    HC = rows.gidx.shape[1]
+    W = cfg.db.cascade_chunk
+    n_run = int(rows.n_run.max())
+    own = min(HC, -(-n_run // W) * W)
+
+    def cascade(cols):
+        return tdb.cascade_chunked(
+            db.store, descs, *[x[:, :cols] for x in rows[:5]], rows.n_run,
+            cfg.thres_lb, cfg.db.cont_sim, W, cfg.db.p_pot)
+
+    return (device_ops(lambda: cascade(HC)),
+            device_ops(lambda: cascade(own)) if own else (0, 0.0), n_run)
+
+
+def hold_merge(hint_of, T, votes, what: str) -> float:
+    """One `merge_hints` launch against its plain version on the same
+    inputs: raises unless every output is bit-equal, returns the largest
+    absolute difference of the poses (0.0 then)."""
+    out_k = kernels.merge_hints(hint_of, T, votes)
+    out_p = kernels.merge_hints_plain(hint_of, T, votes)
+    err = float((out_k[0] - out_p[0]).abs().max())
+    for name, a, b in zip(("prop_T", "prop_votes", "prop_n", "key_of_m"),
+                          out_k, out_p):
+        assert torch.equal(a, b), \
+            f"merge {name} differs from the plain version ({what})"
+    assert torch.equal(out_k[0].view(torch.int32), out_p[0].view(torch.int32))
+    return err
+
+
+def cc_bound(masks):
+    """(bound us, bound_by, bytes): each mask byte read once, each int32
+    label written once."""
+    n_bytes = masks.numel() * 5
+    return _bound(n_bytes, 0.0) + (n_bytes,)
+
+
+def merge_bound(hint_of, T, votes):
+    """(bound us, bound_by, bytes) of what this input's walk needs: each
+    candidate row's hint ids read up to and including its first -1 (all MP
+    of a full row), the pose and votes of each hint present read once (a
+    hint sits in one row), prop_T, prop_votes, prop_n and key_of_m written
+    once (a few dozen flops a hint: nothing next to the bytes)."""
+    B, C, MP = hint_of.shape
+    lead = (hint_of >= 0).to(torch.int32).cumprod(-1).sum(-1)  # (B, C)
+    ids = int(torch.clamp(lead + 1, max=MP).sum())
+    hints = int((hint_of >= 0).sum())
+    n_bytes = 4 * ids + hints * (3 * T.element_size() + votes.element_size()) \
+        + 4 * (B * C * kernels.P_PROP * 4 + B * C + B * MP)
+    return _bound(n_bytes, 0.0) + (n_bytes,)
+
+
+def measure_cc(masks, label: str, reps: int = 200) -> dict:
+    """The CC kernel's row on `masks` (N, nr, nc): held against its plain
+    version, then timed (device us warm and cold, call and plain ms)."""
+    err = hold_cc(masks, label)
+    b_us, b_by, n_bytes = cc_bound(masks)
+    lab = kernels.cc_labels_plain(masks)
+    S = masks.shape[-1] * masks.shape[-2]
+    return _shares(dict(
+        name="cc_labels", route="cuda",
+        source="contour_context_tpu_torch/csrc/cc_labels.cu",
+        replaces=CC_REPLACES, shape=f"masks {tuple(masks.shape)} ({label})",
+        components=int((lab == torch.arange(S, device=lab.device)).sum()),
+        max_abs_err=err, bound_us=b_us, bound_by=b_by, bytes=n_bytes,
+        library_ms=None,
+        **_measure(lambda: kernels.cc_labels(masks),
+                   lambda: kernels.cc_labels_plain(masks),
+                   "cc_labels_kernel", reps)))
+
+
+def measure_merge(hint_of, T, votes, label: str, reps: int = 200) -> dict:
+    """The merge kernel's row on its inputs: held against its plain
+    version, then timed."""
+    err = hold_merge(hint_of, T, votes, label)
+    b_us, b_by, n_bytes = merge_bound(hint_of, T, votes)
+    return _shares(dict(
+        name="merge_hints", route="cuda",
+        source="contour_context_tpu_torch/csrc/merge_hints.cu",
+        replaces=MERGE_REPLACES,
+        shape=f"hint_of {tuple(hint_of.shape)} ({label})",
+        hints=int((hint_of >= 0).sum()),
+        rows_walked=int((hint_of[..., 0] >= 0).sum()),
+        longest_row=int((hint_of >= 0).sum(-1).max()),
+        max_abs_err=err, bound_us=b_us, bound_by=b_by, bytes=n_bytes,
+        library_ms=None,
+        **_measure(lambda: kernels.merge_hints(hint_of, T, votes),
+                   lambda: kernels.merge_hints_plain(hint_of, T, votes),
+                   "merge_hints_kernel", reps)))
 
 
 def _row(kmod, label, fn, name, reps, b_us, b_by, n_bytes, ops, ops_name):

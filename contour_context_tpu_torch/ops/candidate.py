@@ -17,15 +17,13 @@ import numpy as np
 import torch
 
 from contour_context_tpu_torch.config import DIST_BIN_LAYERS, LAYER_AREA_WEIGHTS
-from contour_context_tpu_torch.ops.cascade import clamp_ang
+from contour_context_tpu_torch.ops.kernels import (P_PROP, TF_ANG_MERGE,
+                                                   TF_TRANS_MERGE, merge_hints)
 from contour_context_tpu_torch.types import device_const
 
-P_PROP = 4
 N_LEV = 6
 N_SEQ = 10
 NUM_SLOTS = N_LEV * N_SEQ * N_SEQ
-TF_TRANS_MERGE = 2.0
-TF_ANG_MERGE = 0.3
 
 
 class CandidateState(NamedTuple):
@@ -98,23 +96,23 @@ def _dense_pair_maps_rows(pair_valid, pair_level, pair_seq_src, pair_seq_tgt,
     return perc, taken
 
 
-def merge_proposals(pass3, gidx, T_delta, pair_valid, pair_level,
-                    pair_seq_src, pair_seq_tgt, pair_perc,
-                    n_cand_max: int = 32, n_pass_max: int = 64
-                    ) -> CandidateState:
-    """Merge the passing hints' proposals of B queries at once: every input
-    has a leading B axis (pass3 (B, H), pair_* (B, H, P), ...), and so has
-    every leaf of the result. Per query it is identical to addProposal
-    applied hint by hint in input order (candidate.py:95-287). Hints of
-    different candidate rows never interact, so the loop runs over the j-th
-    hint of every row of every query at once (one host sync for its trip
-    count, the busiest query's; a query with fewer hints idles through the
-    rest); the pair unions are order-free given the hint -> (row, proposal)
-    assignment. Index writes that must go nowhere land in a dump slot of
-    the query's own."""
+class _HintRows(NamedTuple):
+    """The passing hints of B queries assigned to candidate rows."""
+    perm: torch.Tensor           # (B, MP) the MP hints kept, in input order
+    before: torch.Tensor         # (MP, MP) [m, m']: m' before m
+    hint_of: torch.Tensor        # (B, C, MP) hint arriving j-th at row c
+    T: torch.Tensor              # (B, MP, 3) the hints' poses
+    votes: torch.Tensor          # (B, MP) their pair counts
+    cand_gidx: torch.Tensor
+    n_cand: torch.Tensor
+    overflow_cand: torch.Tensor
+    overflow_pass: torch.Tensor
+
+
+def _hint_rows(pass3, gidx, T_delta, pair_valid, C: int,
+               n_pass_max: int) -> _HintRows:
     dev = pass3.device
     B, H = pass3.shape
-    C = n_cand_max
     MP = min(n_pass_max, H)
     i32, f32 = torch.int32, torch.float32
 
@@ -146,56 +144,42 @@ def merge_proposals(pass3, gidx, T_delta, pair_valid, pair_level,
     j_h = (same & before).sum(dim=-1).to(i32)
     hint_of = torch.full((B, (C + 1) * MP), -1, dtype=i32, device=dev) \
         .scatter_(1, (torch.where(keep_h, cidx_h, C) * MP + j_h).long(),
-                  iota.expand(B, MP)).view(B, C + 1, MP)[:, :C]
-    nj = int(torch.where(keep_h, j_h + 1, 0).max())      # host sync
+                  iota.expand(B, MP)).view(B, C + 1, MP)[:, :C].contiguous()
+    return _HintRows(perm, before, hint_of, T, votes, cand_gidx, n_cand,
+                     overflow_cand, overflow_pass)
 
-    rows = torch.arange(C, dtype=i32, device=dev)
-    slot_iota = torch.arange(P_PROP, dtype=i32, device=dev)
-    prop_T = torch.zeros((B, C, P_PROP, 3), dtype=f32, device=dev)
-    prop_votes = torch.zeros((B, C, P_PROP), dtype=i32, device=dev)
-    prop_n = torch.zeros((B, C), dtype=i32, device=dev)
-    key_of_m = torch.full((B, MP + 1), -1, dtype=i32, device=dev)
-    for j in range(nj):
-        m_c = hint_of[:, :, j]
-        act = m_c >= 0
-        mm = m_c.clamp(0, MP - 1).long()
-        T_m = take_rows(T, mm)                                  # (B, C, 3)
-        w2 = votes.gather(1, mm)
-        c_m, s_m = torch.cos(T_m[..., 2:3]), torch.sin(T_m[..., 2:3])
-        dx = prop_T[..., 0] - T_m[..., 0:1]
-        dy = prop_T[..., 1] - T_m[..., 1:2]
-        tx = c_m * dx + s_m * dy
-        ty = -s_m * dx + c_m * dy
-        dth = clamp_ang(prop_T[..., 2] - T_m[..., 2:3])
-        in_use = slot_iota < prop_n[..., None]
-        match = in_use & (torch.hypot(tx, ty) < TF_TRANS_MERGE) & \
-            (dth.abs() < TF_ANG_MERGE)
-        has_match = match.any(dim=-1)
-        first = torch.argmax(match.to(torch.uint8), dim=-1).to(i32)
-        can_append = prop_n < P_PROP
-        slot = torch.where(has_match, first,
-                           torch.clamp(prop_n, max=P_PROP - 1))
-        write = act & (has_match | can_append)
-        oh = slot_iota == slot[..., None]
-        old_T = torch.where(oh[..., None], prop_T, 0.0).sum(dim=-2)
-        w1 = torch.where(oh, prop_votes, 0).sum(dim=-1).to(i32)
-        wsum = torch.clamp(w1 + w2, min=1).to(f32)
-        trans = (old_T[..., :2] * w1[..., None]
-                 + T_m[..., :2] * w2[..., None]) / wsum[..., None]
-        diff = T_m[..., 2] - old_T[..., 2]
-        diff = torch.where(diff < 0, diff + 2 * math.pi, diff)
-        diff = torch.where(diff > math.pi, diff - 2 * math.pi, diff)
-        ang = diff * w2.to(f32) / wsum + old_T[..., 2]
-        T_merged = torch.cat([trans, ang[..., None]], dim=-1)
-        new_T = torch.where(has_match[..., None], T_merged, T_m)
-        new_votes = torch.where(has_match, w1 + w2, w2)
-        wsel = write[..., None] & oh
-        prop_T = torch.where(wsel[..., None], new_T[..., None, :], prop_T)
-        prop_votes = torch.where(wsel, new_votes[..., None], prop_votes)
-        prop_n = prop_n + (write & ~has_match).to(i32)
-        key_of_m.scatter_(1, torch.where(write, mm, MP),
-                          rows * P_PROP + slot)
-    key_of_m = key_of_m[:, :MP]
+
+def merge_inputs(pass3, gidx, T_delta, pair_valid, n_cand_max: int = 32,
+                 n_pass_max: int = 64):
+    """(hint_of (B, C, MP), T (B, MP, 3), votes (B, MP)): what
+    `merge_proposals` hands `kernels.merge_hints` for these cascade
+    outputs (the kernel's inputs at the path's own shapes)."""
+    r = _hint_rows(pass3, gidx, T_delta, pair_valid, n_cand_max, n_pass_max)
+    return r.hint_of, r.T, r.votes
+
+
+def merge_proposals(pass3, gidx, T_delta, pair_valid, pair_level,
+                    pair_seq_src, pair_seq_tgt, pair_perc,
+                    n_cand_max: int = 32, n_pass_max: int = 64
+                    ) -> CandidateState:
+    """Merge the passing hints' proposals of B queries at once: every input
+    has a leading B axis (pass3 (B, H), pair_* (B, H, P), ...), and so has
+    every leaf of the result. Per query it is identical to addProposal
+    applied hint by hint in input order (candidate.py:95-287). Hints of
+    different candidate rows never interact, so the addProposal loop is
+    `kernels.merge_hints`: one launch on the card (a thread a row, the trip
+    count read on the device), the plain loop over the j-th hint of every
+    row at once on the CPU; the pair unions are order-free given the hint ->
+    (row, proposal) assignment. Index writes that must go nowhere land in a
+    dump slot of the query's own."""
+    dev = pass3.device
+    B = pass3.shape[0]
+    C = n_cand_max
+    f32 = torch.float32
+    r = _hint_rows(pass3, gidx, T_delta, pair_valid, C, n_pass_max)
+    perm, before = r.perm, r.before
+    prop_T, prop_votes, prop_n, key_of_m = merge_hints(r.hint_of, r.T,
+                                                       r.votes)
 
     # constellation unions: per (row, proposal) key, taken = OR over its
     # hints, perc = the perc of the first hint (in m order) taking the slot
@@ -225,10 +209,10 @@ def merge_proposals(pass3, gidx, T_delta, pair_valid, pair_level,
             .reshape(B, C, P_PROP, NUM_SLOTS)
 
     return CandidateState(
-        cand_gidx=cand_gidx, n_cand=n_cand, prop_n=prop_n, prop_T=prop_T,
+        cand_gidx=r.cand_gidx, n_cand=r.n_cand, prop_n=prop_n, prop_T=prop_T,
         prop_votes=prop_votes, prop_taken=rows_of(taken_u) > 0.5,
-        prop_perc=rows_of(perc_u), overflow_cand=overflow_cand,
-        overflow_pass=overflow_pass)
+        prop_perc=rows_of(perc_u), overflow_cand=r.overflow_cand,
+        overflow_pass=r.overflow_pass)
 
 
 def dynamic_pass_scan(pass1, ovlp_sum, ovlp_max1, in_ang, indiv, orie,

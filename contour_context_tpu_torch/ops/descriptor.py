@@ -8,8 +8,8 @@ ring-key kernel), BCI neighbour tables and the GMM summary.
 
 Every stage takes any leading axes (a scan is the empty batch), as the JAX
 package's `jax.vmap(build_descriptor)` batches them: a batch of B scans runs
-each stage once, with one ring-key launch and one CC fixpoint check a
-propagate for the whole batch. Every reduction runs over the trailing
+each stage once, with one CC-label launch and one ring-key launch for the
+whole batch. Every reduction runs over the trailing
 extents of one scan, so on the CPU a scan's row of a batch is bit-equal to
 its build alone.
 """
@@ -30,7 +30,7 @@ from contour_context_tpu_torch.config import (
 )
 from contour_context_tpu_torch.ops.candidate import select_topk_stable
 from contour_context_tpu_torch.ops.gmm import l2_pairwise
-from contour_context_tpu_torch.ops.kernels import (ring_key_divs,
+from contour_context_tpu_torch.ops.kernels import (cc_labels, ring_key_divs,
                                                    ring_key_divs_batch)
 from contour_context_tpu_torch.types import ScanDesc, device_const
 
@@ -103,77 +103,10 @@ def level_masks(bev, cfg: ContourManagerConfig):
 # 2. Connected components per level
 # ---------------------------------------------------------------------------
 
-def _shift(x, d: int, dim: int, fill):
-    """x shifted by d along dim (d > 0 moves values to higher indices),
-    vacated positions filled with `fill`."""
-    n = x.shape[dim]
-    out = torch.full_like(x, fill)
-    if d > 0:
-        out.narrow(dim, d, n - d).copy_(x.narrow(dim, 0, n - d))
-    else:
-        out.narrow(dim, 0, n + d).copy_(x.narrow(dim, -d, n + d))
-    return out
-
-
-def cc_labels(masks):
-    """masks (..., nr, nc) bool -> labels (..., nr*nc) int32: 8-connected
-    components labelled by their minimum linear pixel index, background S.
-    Every leading index (a level of a scan) is labelled on its own.
-
-    Each propagate takes the 3x3 window min, then flushes the running min
-    along whole foreground runs of every row and then every column. A
-    segmented min is a running max of `seg << 15 | (MAXV - label)` with the
-    segment id (a cumulative count of background breaks) in the high bits —
-    the packing of cc_labels' "hillis" flush, here as torch.cummax (and a
-    flipped cummax for the reverse direction). Runs to the fixpoint, so the
-    labels do not depend on the number of propagates; one host sync per
-    convergence check, for the whole batch: the loop runs until the slowest
-    level converges, and more propagates do not change a converged one."""
-    lead, (nr, nc) = masks.shape[:-2], masks.shape[-2:]
-    masks = masks.reshape(-1, nr, nc)
-    S = nr * nc
-    if S >= 1 << 15:
-        raise ValueError("cc_labels packs labels in 15 bits: n_row*n_col "
-                         f"= {S} too large")
-    MAXV = (1 << 15) - 1
-    dev = masks.device
-    lin = torch.arange(S, dtype=torch.int32, device=dev).reshape(nr, nc)
-    lab = torch.where(masks, lin[None], S)
-    brk = (~masks).to(torch.int32)
-    segs = {}
-    for dim in (1, 2):
-        seg_f = torch.cumsum(brk, dim).to(torch.int32) << 15
-        seg_r = torch.flip(torch.cumsum(torch.flip(brk, (dim,)), dim),
-                           (dim,)).to(torch.int32) << 15
-        segs[dim] = (seg_f, seg_r)
-
-    def run_min(x, dim):
-        seg_f, seg_r = segs[dim]
-        neg = MAXV - x
-        f = torch.cummax(seg_f | neg, dim).values & MAXV
-        r = torch.flip(torch.cummax(torch.flip(seg_r | neg, (dim,)), dim)
-                       .values, (dim,)) & MAXV
-        return MAXV - torch.maximum(f, r)
-
-    def propagate(x):
-        m = torch.minimum(x, torch.minimum(_shift(x, 1, 1, S),
-                                           _shift(x, -1, 1, S)))
-        m = torch.minimum(m, torch.minimum(_shift(m, 1, 2, S),
-                                           _shift(m, -1, 2, S)))
-        new = torch.where(masks, torch.minimum(x, m), S)
-        new = torch.where(masks, run_min(new, 2), S)
-        return torch.where(masks, run_min(new, 1), S)
-
-    # 4 propagates reach the fixpoint on typical scans; then check and loop
-    # (each propagate lowers some label or changes nothing, so S bound it)
-    for _ in range(3):
-        lab = propagate(lab)
-    for _ in range(S):
-        new = propagate(lab)
-        if torch.equal(new, lab):           # host sync
-            return lab.reshape(lead + (S,))
-        lab = new
-    raise RuntimeError("cc_labels did not converge")
+# `kernels.cc_labels`: masks (..., nr, nc) bool -> labels (..., nr*nc) int32,
+# each 8-connected component labelled by its minimum linear pixel index,
+# the background S; one kernel launch on the card, the plain propagation to
+# its fixpoint (`kernels.cc_labels_plain`) on the CPU.
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,8 @@
 """The port's hand-written CUDA kernels, their plain torch twins, and the build.
 
 Four kernel entries replace the JAX package's two Pallas kernels
-(`contour_context_tpu/ops/pallas_kernels.py`):
+(`contour_context_tpu/ops/pallas_kernels.py`), and two more take the JAX
+package's device-side while-loops off the host:
 
 - `ring_key_divs` (csrc/ring_key.cu): the ring-key Gaussian contraction of
   `make_keys`, replacing `_ring_kernel`.
@@ -17,6 +18,14 @@ Four kernel entries replace the JAX package's two Pallas kernels
   for B queries, each with its own searchable_n, in one launch that reads the
   store once (what `jax.vmap` of the query makes of the search in block and
   serving modes).
+- `cc_labels` (csrc/cc_labels.cu): the 8-connected component labels of N
+  masks to their fixpoint in one launch (the lax.while_loop of the JAX
+  `ops/descriptor.cc_labels`; the plain version checks its fixpoint on the
+  host once a propagate).
+- `merge_hints` (csrc/merge_hints.cu): the proposal merge's addProposal
+  loop over every candidate row of B queries, its trip count read on the
+  device (the lax.while_loop of the JAX `ops/candidate.merge_proposals`;
+  the plain version reads its trip count on the host).
 
 Each wrapper takes its plain twin for CPU tensors only; a CUDA tensor launches
 the kernel or raises. The kernels are compiled at first use with nvcc into one
@@ -33,8 +42,11 @@ import math
 import os
 import subprocess
 from pathlib import Path
+
+import numpy as np
 import torch
 
+from contour_context_tpu_torch.ops.cascade import clamp_ang
 from contour_context_tpu_torch.types import device_const
 
 MAX_DIST_SQ = 1e6        # contour_db.h:30, the masked-distance sentinel
@@ -45,14 +57,16 @@ MAX_ANCHORS = 16         # query anchors per level the search kernel stages
 INV_SQRT_2PI = 1.0 / math.sqrt(2.0 * math.pi)
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
-_SOURCES = ("ring_key.cu", "search_tilemin.cu")
+_SOURCES = ("ring_key.cu", "search_tilemin.cu", "cc_labels.cu",
+            "merge_hints.cu")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 _lib = None
 
 
 def build() -> ctypes.CDLL:
     """Compile (once per source hash) and load the kernel library from the
-    package's csrc/."""
+    package's csrc/: one nvcc a source, all started together, then one
+    link."""
     global _lib
     if _lib is not None:
         return _lib
@@ -63,14 +77,27 @@ def build() -> ctypes.CDLL:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         nvcc = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
                             "bin", "nvcc")
+        flags = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+                 "-O3", "-Xcompiler", "-fPIC"]
+        objs = [BUILD_DIR / f"{p.stem}_{tag}.{os.getpid()}.o" for p in srcs]
+        procs = [subprocess.Popen(
+            [nvcc] + flags + ["-Xptxas", "-v", "-c", str(p), "-o", str(o)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for p, o in zip(srcs, objs)]
+        logs = [pr.communicate()[0] for pr in procs]
+        failed = [f"{p.name}:\n{log}" for p, pr, log in zip(srcs, procs, logs)
+                  if pr.returncode != 0]
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-               "-o", str(tmp)] + [str(p) for p in srcs]
-        res = subprocess.run(cmd, capture_output=True, text=True)
+        res = subprocess.run([nvcc, "-shared", "-o", str(tmp)]
+                             + [str(o) for o in objs],
+                             capture_output=True, text=True)
+        for o in objs:
+            o.unlink()
         if res.returncode != 0:
-            raise RuntimeError("nvcc failed:\n" + res.stdout + res.stderr)
-        (BUILD_DIR / f"ptxas_{tag}.log").write_text(res.stdout + res.stderr)
+            raise RuntimeError("nvcc link failed:\n" + res.stdout + res.stderr)
+        (BUILD_DIR / f"ptxas_{tag}.log").write_text("".join(logs))
         os.replace(tmp, so)
     lib = ctypes.CDLL(str(so))
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -85,6 +112,11 @@ def build() -> ctypes.CDLL:
     lib.cc_search_tilemin_batch.restype = ci
     lib.cc_search_tilemin_batch.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci,
                                             ctypes.c_uint, ci, vp]
+    lib.cc_cc_labels.restype = ci
+    lib.cc_cc_labels.argtypes = [vp, vp, ci, ci, ci, vp]
+    lib.cc_merge_hints.restype = ci
+    lib.cc_merge_hints.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci, ci, ci,
+                                   cf, cf, cf, cf, cf, vp]
     _lib = lib
     return lib
 
@@ -402,8 +434,250 @@ def search_tilemin_path(keys_q) -> str:
     return "vector" if vec else "scalar"
 
 
+# ---------------------------------------------------------------------------
+# connected-component labels to their fixpoint
+# ---------------------------------------------------------------------------
+
+CC_BITS = 15              # labels and segment ids share an int32 in the plain
+                          # version's flush; the kernel's shared memory too
+
+
+def _shift(x, d: int, dim: int, fill):
+    """x shifted by d along dim (d > 0 moves values to higher indices),
+    vacated positions filled with `fill`."""
+    n = x.shape[dim]
+    out = torch.full_like(x, fill)
+    if d > 0:
+        out.narrow(dim, d, n - d).copy_(x.narrow(dim, 0, n - d))
+    else:
+        out.narrow(dim, 0, n + d).copy_(x.narrow(dim, -d, n + d))
+    return out
+
+
+def _check_cc(masks) -> None:
+    nr, nc = masks.shape[-2:]
+    if nr * nc >= 1 << CC_BITS:
+        raise ValueError(f"cc_labels packs labels in {CC_BITS} bits: "
+                         f"n_row*n_col = {nr * nc} too large")
+
+
+def cc_labels_plain(masks):
+    """masks (..., nr, nc) bool -> labels (..., nr*nc) int32: 8-connected
+    components labelled by their minimum linear pixel index, background S.
+    Every leading index (a level of a scan) is labelled on its own.
+
+    Each propagate takes the 3x3 window min, then flushes the running min
+    along whole foreground runs of every row and then every column. A
+    segmented min is a running max of `seg << 15 | (MAXV - label)` with the
+    segment id (a cumulative count of background breaks) in the high bits —
+    the packing of cc_labels' "hillis" flush, here as torch.cummax (and a
+    flipped cummax for the reverse direction). Runs to the fixpoint, so the
+    labels do not depend on the number of propagates; one host sync per
+    convergence check, for the whole batch: the loop runs until the slowest
+    level converges, and more propagates do not change a converged one."""
+    _check_cc(masks)
+    lead, (nr, nc) = masks.shape[:-2], masks.shape[-2:]
+    masks = masks.reshape(-1, nr, nc)
+    S = nr * nc
+    MAXV = (1 << CC_BITS) - 1
+    dev = masks.device
+    lin = torch.arange(S, dtype=torch.int32, device=dev).reshape(nr, nc)
+    lab = torch.where(masks, lin[None], S)
+    brk = (~masks).to(torch.int32)
+    segs = {}
+    for dim in (1, 2):
+        seg_f = torch.cumsum(brk, dim).to(torch.int32) << CC_BITS
+        seg_r = torch.flip(torch.cumsum(torch.flip(brk, (dim,)), dim),
+                           (dim,)).to(torch.int32) << CC_BITS
+        segs[dim] = (seg_f, seg_r)
+
+    def run_min(x, dim):
+        seg_f, seg_r = segs[dim]
+        neg = MAXV - x
+        f = torch.cummax(seg_f | neg, dim).values & MAXV
+        r = torch.flip(torch.cummax(torch.flip(seg_r | neg, (dim,)), dim)
+                       .values, (dim,)) & MAXV
+        return MAXV - torch.maximum(f, r)
+
+    def propagate(x):
+        m = torch.minimum(x, torch.minimum(_shift(x, 1, 1, S),
+                                           _shift(x, -1, 1, S)))
+        m = torch.minimum(m, torch.minimum(_shift(m, 1, 2, S),
+                                           _shift(m, -1, 2, S)))
+        new = torch.where(masks, torch.minimum(x, m), S)
+        new = torch.where(masks, run_min(new, 2), S)
+        return torch.where(masks, run_min(new, 1), S)
+
+    # 4 propagates reach the fixpoint on typical scans; then check and loop
+    # (each propagate lowers some label or changes nothing, so S bound it)
+    for _ in range(3):
+        lab = propagate(lab)
+    for _ in range(S):
+        new = propagate(lab)
+        if torch.equal(new, lab):           # host sync
+            return lab.reshape(lead + (S,))
+        lab = new
+    raise RuntimeError("cc_labels did not converge")
+
+
+def cc_labels(masks):
+    """Kernel wrapper of `cc_labels_plain` (same signature and outputs; the
+    answer is unique, so the kernel's union-find equals the plain
+    version's propagation bit for bit): one launch labels every mask to
+    its fixpoint, with no host sync."""
+    if masks.device.type == "cpu":
+        return cc_labels_plain(masks)
+    if masks.device.type != "cuda":
+        raise ValueError(f"cc_labels: unsupported device {masks.device}")
+    _check_cc(masks)
+    lead, (nr, nc) = masks.shape[:-2], masks.shape[-2:]
+    _check("masks", masks, torch.bool)
+    N = math.prod(lead)
+    lib = build()
+    labels = torch.empty(lead + (nr * nc,), dtype=torch.int32,
+                         device=masks.device)
+    rc = lib.cc_cc_labels(masks.data_ptr(), labels.data_ptr(), N, nr, nc,
+                          _stream(masks.device))
+    _raise_on(rc, "cc_labels")
+    cc_labels.launches += 1
+    return labels
+
+
+cc_labels.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the proposal merge's addProposal loop
+# ---------------------------------------------------------------------------
+
+P_PROP = 4               # proposals a candidate row holds
+TF_TRANS_MERGE = 2.0     # addProposal's merge radius (BEV cells)
+TF_ANG_MERGE = 0.3       # and angle (rad)
+
+
+def merge_hints_plain(hint_of, T, votes):
+    """The addProposal loop of B queries' candidate rows (the body of
+    candidate.merge_proposals' loop): hint_of (B, C, MP) int32, the hint
+    that arrives j-th at row c (-1 past the row's last), T (B, MP, 3) f32
+    hint poses, votes (B, MP) int32 their pair counts -> prop_T (B, C,
+    P_PROP, 3) f32, prop_votes (B, C, P_PROP) int32, prop_n (B, C) int32,
+    key_of_m (B, MP) int32 (the proposal c * P_PROP + slot each hint went
+    to, -1 none). The loop runs over the j-th hint of every row of every
+    query at once, its trip count the busiest row's (one host sync); a row
+    with fewer hints idles through the rest."""
+    dev = hint_of.device
+    B, C, MP = hint_of.shape
+    i32, f32 = torch.int32, torch.float32
+    nj = int(torch.where(hint_of >= 0, torch.arange(1, MP + 1, device=dev,
+                                                    dtype=i32), 0).max()) \
+        if hint_of.numel() else 0                            # host sync
+    rows = torch.arange(C, dtype=i32, device=dev)
+    slot_iota = torch.arange(P_PROP, dtype=i32, device=dev)
+    prop_T = torch.zeros((B, C, P_PROP, 3), dtype=f32, device=dev)
+    prop_votes = torch.zeros((B, C, P_PROP), dtype=i32, device=dev)
+    prop_n = torch.zeros((B, C), dtype=i32, device=dev)
+    key_of_m = torch.full((B, MP + 1), -1, dtype=i32, device=dev)
+    for j in range(nj):
+        m_c = hint_of[:, :, j]
+        act = m_c >= 0
+        mm = m_c.clamp(0, MP - 1).long()
+        T_m = T.gather(1, mm[..., None].expand(B, C, 3))       # (B, C, 3)
+        w2 = votes.gather(1, mm)
+        c_m, s_m = torch.cos(T_m[..., 2:3]), torch.sin(T_m[..., 2:3])
+        dx = prop_T[..., 0] - T_m[..., 0:1]
+        dy = prop_T[..., 1] - T_m[..., 1:2]
+        tx = c_m * dx + s_m * dy
+        ty = -s_m * dx + c_m * dy
+        dth = clamp_ang(prop_T[..., 2] - T_m[..., 2:3])
+        in_use = slot_iota < prop_n[..., None]
+        match = in_use & (torch.hypot(tx, ty) < TF_TRANS_MERGE) & \
+            (dth.abs() < TF_ANG_MERGE)
+        has_match = match.any(dim=-1)
+        first = torch.argmax(match.to(torch.uint8), dim=-1).to(i32)
+        can_append = prop_n < P_PROP
+        slot = torch.where(has_match, first,
+                           torch.clamp(prop_n, max=P_PROP - 1))
+        write = act & (has_match | can_append)
+        oh = slot_iota == slot[..., None]
+        old_T = torch.where(oh[..., None], prop_T, 0.0).sum(dim=-2)
+        w1 = torch.where(oh, prop_votes, 0).sum(dim=-1).to(i32)
+        wsum = torch.clamp(w1 + w2, min=1).to(f32)
+        trans = (old_T[..., :2] * w1[..., None]
+                 + T_m[..., :2] * w2[..., None]) / wsum[..., None]
+        diff = T_m[..., 2] - old_T[..., 2]
+        diff = torch.where(diff < 0, diff + 2 * math.pi, diff)
+        diff = torch.where(diff > math.pi, diff - 2 * math.pi, diff)
+        ang = diff * w2.to(f32) / wsum + old_T[..., 2]
+        T_merged = torch.cat([trans, ang[..., None]], dim=-1)
+        new_T = torch.where(has_match[..., None], T_merged, T_m)
+        new_votes = torch.where(has_match, w1 + w2, w2)
+        wsel = write[..., None] & oh
+        prop_T = torch.where(wsel[..., None], new_T[..., None, :], prop_T)
+        prop_votes = torch.where(wsel, new_votes[..., None], prop_votes)
+        prop_n = prop_n + (write & ~has_match).to(i32)
+        key_of_m.scatter_(1, torch.where(write, mm, MP),
+                          rows * P_PROP + slot)
+    return prop_T, prop_votes, prop_n, key_of_m[:, :MP]
+
+
+def merge_hints(hint_of, T, votes):
+    """Kernel wrapper of `merge_hints_plain` (same signature and outputs,
+    bit-identical on the card): one launch, a thread a candidate row
+    walking its hints in arrival order, the trip count read on the
+    device."""
+    if hint_of.device.type == "cpu":
+        return merge_hints_plain(hint_of, T, votes)
+    if hint_of.device.type != "cuda":
+        raise ValueError(f"merge_hints: unsupported device {hint_of.device}")
+    B, C, MP = hint_of.shape
+    _check("hint_of", hint_of, torch.int32)
+    _check("T", T, torch.float32, (B, MP, 3))
+    _check("votes", votes, torch.int32, (B, MP))
+    if T.device != hint_of.device or votes.device != hint_of.device:
+        raise ValueError("merge_hints: inputs on different devices")
+    lib = build()
+    dev = hint_of.device
+    prop_T = torch.empty((B, C, P_PROP, 3), dtype=torch.float32, device=dev)
+    prop_votes = torch.empty((B, C, P_PROP), dtype=torch.int32, device=dev)
+    prop_n = torch.empty((B, C), dtype=torch.int32, device=dev)
+    key_of_m = torch.empty((B, MP), dtype=torch.int32, device=dev)
+    # the host scalars as torch's CUDA kernels take them: float32, and a
+    # division by one as a product with its float32 reciprocal
+    two_pi = np.float32(2 * math.pi)
+    rc = lib.cc_merge_hints(
+        hint_of.data_ptr(), T.data_ptr(), votes.data_ptr(), prop_T.data_ptr(),
+        prop_votes.data_ptr(), prop_n.data_ptr(), key_of_m.data_ptr(), B, C,
+        MP, float(np.float32(math.pi)), float(two_pi),
+        float(np.float32(1.0) / two_pi), TF_TRANS_MERGE, TF_ANG_MERGE,
+        _stream(dev))
+    _raise_on(rc, "merge_hints")
+    merge_hints.launches += 1
+    return prop_T, prop_votes, prop_n, key_of_m
+
+
+merge_hints.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# launch counts
+# ---------------------------------------------------------------------------
+
+WRAPPERS = (ring_key_divs, ring_key_divs_batch, search_tilemin,
+            search_tilemin_batch, cc_labels, merge_hints)
+
+
+def launch_counts() -> dict:
+    """{wrapper name: launches counted}, every kernel of the port."""
+    return {w.__name__: w.launches for w in WRAPPERS}
+
+
+def add_launches(counts: dict) -> None:
+    """Add {wrapper name: n} to the counts: a CUDA graph's launches of each
+    kernel, once a replay (a replay runs no wrapper)."""
+    for w in WRAPPERS:
+        w.launches += counts.get(w.__name__, 0)
+
+
 def reset_launches() -> None:
-    ring_key_divs.launches = 0
-    ring_key_divs_batch.launches = 0
-    search_tilemin.launches = 0
-    search_tilemin_batch.launches = 0
+    for w in WRAPPERS:
+        w.launches = 0

@@ -92,7 +92,12 @@ class LoopClosurePipeline:
         self.cfg = cfg
         self.evaluator = evaluator
         self.db = ContourDB(cfg, capacity, device=device)
-        self.stp = SequentialTimeProfiler("cont2-torch batch")
+        # the report's header names how the fused step runs on the card
+        mode = ""
+        if self.db.device.type == "cuda":
+            mode = (" (fused step: one CUDA graph replay)" if self.db.graphed
+                    else " (fused step: eager, dynamic_thres)")
+        self.stp = SequentialTimeProfiler("cont2-torch batch" + mode)
         self.results: List[LoopResult] = []
         # synchronise after each stage, so the timing report holds device
         # time

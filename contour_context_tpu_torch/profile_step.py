@@ -1,7 +1,7 @@
 """Stage split and device profile of the fused scan step.
 
     python -m contour_context_tpu_torch.profile_step [--device cuda]
-        [--lane-scans 132] [--reps 20] [--profile-scans 100] [--out FILE]
+        [--lane-scans 132] [--reps 20] [--profile-scans 50] [--out FILE]
 
 Run from the repository root (it renders scans with `tests/synth.py`). It
 drives the stream of `chip_smoke.py` (bench.py's world and lane geometry:
@@ -13,17 +13,22 @@ up to the revisits, then on revisit scans 4.. it reports:
   synchronisation before and after the stage: the point upload, the
   descriptor build (split into raster, CC labels, contour tables, keys,
   BCIs and GMM summary + packing), the key search, search -> hints ->
-  check 1 -> cascade -> merge, the whole query, and the whole step;
+  check 1 -> cascade -> merge, the whole query, and the whole step: every
+  other scan's step through `step_async` (on a CUDA device one replay of
+  the step's graph), the others' through the eager body the graph
+  captured (`step_eager_ms`);
 - the same scans' query cut at each `depth` stage gate of `db.query_step`
   (search, hints, check1, cascade, merge, init, then the whole record):
   the median time of each exact production prefix and the difference
   between successive prefixes, the method of the JAX package's
   scripts/headline_split_bench.py;
-- `torch.profiler` over `--profile-scans` scans: device-busy ms and kernel
-  launches per scan, the top operators, and each CUDA kernel of the port
-  (`ring_key_divs_kernel`, `search_tilemin_kernel`) with its launches and
-  mean device time per launch, beside the window's searchable_n (CUDA
-  only);
+- `torch.profiler` over `--profile-scans` scans of graph replays, then on
+  CUDA over as many scans through the eager body (under "eager"):
+  device-busy ms and kernel launches per scan (the profiler records the
+  kernels inside a graph replay), the top operators, and each CUDA kernel
+  of the step (`ring_key_divs_kernel`, `search_tilemin_kernel`,
+  `cc_labels_kernel`, `merge_hints_kernel`) with its launches and mean
+  device time per launch, beside the window's searchable_n (CUDA only);
 - the host synchronisations per scan by call site, from torch's sync debug
   mode (CUDA only).
 
@@ -228,7 +233,9 @@ def _kernel_us(prof, n_scans: int) -> dict:
     its kernel once a scan (its own count) and the profile must hold a
     record of every launch; raises otherwise."""
     wrappers = {"ring_key_divs_kernel": kernels.ring_key_divs,
-                "search_tilemin_kernel": kernels.search_tilemin}
+                "search_tilemin_kernel": kernels.search_tilemin,
+                "cc_labels_kernel": kernels.cc_labels,
+                "merge_hints_kernel": kernels.merge_hints}
     out = {}
     for name, wrapper in wrappers.items():
         durs = kernel_durations_us(prof, name)
@@ -271,7 +278,7 @@ def _sync_sites(step, n_scans: int) -> Counter:
 
 
 def run(device: str = "cuda", lane_scans: int = 132, reps: int = 20,
-        profile_scans: int = 100, sync_scans: int = 4,
+        profile_scans: int = 50, sync_scans: int = 4,
         max_points: Optional[int] = None, capacity: int = 8192) -> dict:
     """Drive the stream and measure it; returns the numbers as a dict."""
     sys.path.insert(0, os.path.join(ROOT, "tests"))
@@ -293,7 +300,8 @@ def run(device: str = "cuda", lane_scans: int = 132, reps: int = 20,
     plan = (lane_poses(0, lane_scans) + lane_poses(1, lane_scans)
             + lane_poses(0, lane_scans, dy=1.5))
     first = rev0 + 4
-    need = first + reps + profile_scans + (sync_scans if cuda else 0)
+    need = first + reps + profile_scans + (
+        profile_scans + sync_scans if cuda else 0)
     if need > len(plan):
         raise ValueError(f"{need} scans needed, the stream has {len(plan)}")
     world = make_world(1, n_structs=300, extent=400.0)
@@ -306,6 +314,13 @@ def run(device: str = "cuda", lane_scans: int = 132, reps: int = 20,
     def step():
         nonlocal k
         db.step_async(clouds[k], k, 0.1 * k)
+        k += 1
+
+    def step_eager():
+        """The next scan through the eager body the step's graph captured
+        (the same records and state: the stream goes on whole)."""
+        nonlocal k
+        db._step(clouds[k], k, 0.1 * k, False)
         k += 1
 
     while k < first:
@@ -327,7 +342,8 @@ def run(device: str = "cuda", lane_scans: int = 132, reps: int = 20,
         times[name].append(1e3 * (time.perf_counter() - t0))
         return r
 
-    for _ in range(reps):
+    eager_ms = []
+    for rep in range(reps):
         pts = timed("upload", lambda: torch.as_tensor(clouds[k]).to(dev))
         desc = timed("build", lambda: td.build_descriptor(pts, cfg.cm,
                                                           cfg.gmm))
@@ -346,9 +362,19 @@ def run(device: str = "cuda", lane_scans: int = 132, reps: int = 20,
                            depth=None if d == "record" else d)
             sync()
             depth_times[d].append(1e3 * (time.perf_counter() - t0))
-        timed("step_async", step)
+        if rep % 2 == 0:
+            timed("step_async", step)
+        else:
+            sync()
+            t0 = time.perf_counter()
+            step_eager()
+            sync()
+            eager_ms.append(1e3 * (time.perf_counter() - t0))
     res = {"device": str(dev), "scans": [first, first + reps - 1],
            "stage_ms": {n: statistics.median(v) for n, v in times.items()},
+           "stage_reps": {n: len(v) for n, v in times.items()},
+           "step_eager_ms": statistics.median(eager_ms) if eager_ms
+           else None,
            "depth_ms": {d: statistics.median(v)
                         for d, v in depth_times.items()},
            "build_split_ms": {n: statistics.median(s[n] for s in split)
@@ -357,21 +383,28 @@ def run(device: str = "cuda", lane_scans: int = 132, reps: int = 20,
     acts = [torch.profiler.ProfilerActivity.CPU]
     if cuda:
         acts.append(torch.profiler.ProfilerActivity.CUDA)
-    sn0 = db.searchable_n
-    kernels.reset_launches()
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(profile_scans):
-            step()
-        sync()
-    res["profile_searchable_n"] = [sn0, db.searchable_n]
-    sort = "self_cuda_time_total" if cuda else "self_cpu_time_total"
-    res["profile_table"] = prof.key_averages().table(sort_by=sort,
-                                                     row_limit=25)
+    # the graphed step (its replays), then on CUDA the eager body it
+    # captured, each over profile_scans scans of the stream
+    for mode, fn in (("graphed", step), ("eager", step_eager)):
+        if mode == "eager" and not cuda:
+            break
+        sn0 = db.searchable_n
+        kernels.reset_launches()
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(profile_scans):
+                fn()
+            sync()
+        out = res if mode == "graphed" else res.setdefault("eager", {})
+        out["profile_searchable_n"] = [sn0, db.searchable_n]
+        sort = "self_cuda_time_total" if cuda else "self_cpu_time_total"
+        out["profile_table"] = prof.key_averages().table(sort_by=sort,
+                                                         row_limit=25)
+        if cuda:
+            busy, launches = _device_busy(prof, profile_scans)
+            out["device_busy_ms_per_scan"] = busy
+            out["kernel_launches_per_scan"] = launches
+            out["kernel_device_us"] = _kernel_us(prof, profile_scans)
     if cuda:
-        busy, launches = _device_busy(prof, profile_scans)
-        res["device_busy_ms_per_scan"] = busy
-        res["kernel_launches_per_scan"] = launches
-        res["kernel_device_us"] = _kernel_us(prof, profile_scans)
         res["host_syncs_per_scan"] = dict(_sync_sites(step, sync_scans))
     return res
 
@@ -383,7 +416,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--lane-scans", type=int, default=132)
     ap.add_argument("--reps", type=int, default=20)
-    ap.add_argument("--profile-scans", type=int, default=100)
+    ap.add_argument("--profile-scans", type=int, default=50)
     ap.add_argument("--max-points", type=int, default=None,
                     help="scan width (default: PipelineConfig's)")
     ap.add_argument("--capacity", type=int, default=8192)
@@ -392,7 +425,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     res = run(args.device, args.lane_scans, args.reps, args.profile_scans,
               max_points=args.max_points, capacity=args.capacity)
     for name, ms in res["stage_ms"].items():
-        print(f"{name:>24}: {ms:9.3f} ms median over {args.reps}")
+        print(f"{name:>24}: {ms:9.3f} ms median over "
+              f"{res['stage_reps'][name]}")
     prev = 0.0
     for d, ms in res["depth_ms"].items():
         print(f"query prefix to {d:>7}: {ms:9.3f} ms median over "
@@ -401,13 +435,20 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     print("build split ms: " + " ".join(
         f"{n} {ms:.3f}" for n, ms in res["build_split_ms"].items()))
     print(res["profile_table"])
-    if "device_busy_ms_per_scan" in res:
-        print(f"device busy per scan ms: {res['device_busy_ms_per_scan']} "
-              f"kernel launches per scan: {res['kernel_launches_per_scan']}")
-        for name, kd in res["kernel_device_us"].items():
-            print(f"{name}: {kd['launches']} launches, mean {kd['mean_us']} "
-                  f"us device time (searchable_n "
-                  f"{res['profile_searchable_n']})")
+    if res["step_eager_ms"] is not None:
+        print(f"{'step (eager body)':>24}: {res['step_eager_ms']:9.3f} ms "
+              f"median over {args.reps // 2} (the other reps' scans)")
+    for mode, r in (("graphed", res), ("eager", res.get("eager", {}))):
+        if "device_busy_ms_per_scan" not in r:
+            continue
+        print(f"{mode}: device busy per scan ms: "
+              f"{r['device_busy_ms_per_scan']} kernel launches per scan: "
+              f"{r['kernel_launches_per_scan']}")
+        for name, kd in r["kernel_device_us"].items():
+            print(f"{mode}: {name}: {kd['launches']} launches, mean "
+                  f"{kd['mean_us']} us device time (searchable_n "
+                  f"{r['profile_searchable_n']})")
+    if "host_syncs_per_scan" in res:
         print(f"host syncs per scan: "
               f"{sum(res['host_syncs_per_scan'].values()):g}")
         for site, n in sorted(res["host_syncs_per_scan"].items()):
@@ -415,7 +456,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     if args.out:
         with open(args.out, "w") as f:
             json.dump({k: v for k, v in res.items() if k != "profile_table"},
-                      f, indent=1)
+                      f, indent=1, default=str)
     return res
 
 

@@ -56,7 +56,16 @@ This file imports no jax, so it runs where only torch is installed:
   `sharded_search`, `sharded_query_step` and `sharded_localize_block` on
   the card equal the single-device paths with f32 keys_q bit for bit (the
   same code on the same rows of the same card), through the tile-min and
-  the batched ring kernels.
+  the batched ring kernels;
+- one dispatch: the CC-label kernel bit-equal to its plain version on the
+  adversarial masks and on a scan's and a block's level masks; the merge
+  kernel bit-equal to its plain version on the inputs of B = 1 and B = 16
+  queries and on random rows; the stream as CUDA graph replays (f32 and
+  q16 payloads, across two grows, each capturing again) bit-equal to the
+  eager body it captured, each kernel counted once a step, replays
+  included; 20 graphed steps and a chain of 16 with no host sync (sync
+  debug mode "error"); blocks and serving chunks as build and query graph
+  replays bit-equal to the eager calls, with no host sync.
 """
 
 import numpy as np
@@ -68,6 +77,7 @@ from synth import make_world, render_scan
 from contour_context_tpu_torch.config import ContourManagerConfig, PipelineConfig
 from contour_context_tpu_torch.utils.io import pad_points
 from contour_context_tpu_torch import db as tdb
+from contour_context_tpu_torch import kernel_times as kt
 from contour_context_tpu_torch.ops import descriptor as td
 from contour_context_tpu_torch.ops import kernels
 
@@ -810,3 +820,252 @@ def test_sharded_localize_block_on_card_matches_single(nccl_mesh):
                                 db.state[1].expand(4).contiguous(), cfg)
     assert torch.equal(got, want), (got, want)
     assert int((want[:, 0] > 0.5).sum()) >= 1
+
+
+# ---------------------------------------------------------------------------
+# one dispatch: the CC and merge kernels, the steps as CUDA graph replays
+# ---------------------------------------------------------------------------
+
+def _no_syncs(fn):
+    """fn under torch's sync debug mode "error": any host sync raises."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def _launch_delta(fn):
+    before = kernels.launch_counts()
+    fn()
+    after = kernels.launch_counts()
+    return {k: after[k] - before[k] for k in after}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(kt.adversarial_masks(8, 8))
+                         + ["one scan", "a block of 16", "37 x 41"])
+def test_cc_labels_kernel_matches_plain_on_card(cuda, name):
+    """The CC kernel bit-equal to its plain version on the masks made to
+    stress a labelling (150 x 150, alone and all in one launch) and on the
+    level masks of a scan (B = 1: 6 masks) and of a block (B = 16: 96)."""
+    cfg, clouds = _revisit_clouds()
+    if name == "one scan":
+        masks = kt.masks_of(torch.from_numpy(clouds[8:9]).to(cuda), cfg)
+    elif name == "a block of 16":
+        masks = kt.masks_of(torch.from_numpy(np.concatenate(
+            [clouds, clouds[:4]])).to(cuda), cfg)
+    elif name == "37 x 41":
+        # an odd pixel count: the kernel's byte-wise loads
+        masks = torch.from_numpy(np.stack(list(
+            kt.adversarial_masks(37, 41).values()))).to(cuda)
+    else:
+        adv = kt.adversarial_masks(cfg.cm.n_row, cfg.cm.n_col)
+        masks = torch.from_numpy(adv[name])[None].to(cuda)
+        kt.hold_cc(torch.from_numpy(np.stack(list(adv.values()))).to(cuda),
+                   "every adversarial mask in one launch")
+    kernels.reset_launches()
+    assert kt.hold_cc(masks, name) == 0.0
+    assert kernels.cc_labels.launches == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 16])
+def test_merge_hints_kernel_matches_plain_on_card(cuda, B):
+    """The merge kernel bit-equal to its plain version (run on the card) on
+    the inputs the query path gives it: B revisit queries against a card
+    DB of the revisit world; and on random rows made to merge, open and
+    drop proposals across the angle wrap (64 hints a query at B = 16, 30 at
+    B = 1)."""
+    cfg, clouds = _revisit_clouds()
+    db = tdb.ContourDB(cfg, capacity=16, device="cuda")
+    for i in range(8):
+        db.step_async(clouds[i], i, 6.0 * i)
+    pts = torch.from_numpy(np.concatenate([clouds[8:]] * 4)[:B]).to(cuda)
+    hint_of, T, votes = kt.merge_case(db, pts, cfg)
+    assert int((hint_of >= 0).sum()) > 0
+    kernels.reset_launches()
+    assert kt.hold_merge(hint_of, T, votes, f"B {B}") == 0.0
+    assert kernels.merge_hints.launches == 1
+    rng = np.random.default_rng(B)
+    # MP 30 is no multiple of 4: the kernel reads hint ids one at a time
+    C, MP = 32, 64 if B == 16 else 30
+    T = np.zeros((B, MP, 3), np.float32)
+    T[..., :2] = rng.integers(0, 3, (B, MP, 2)) * 3.0 + \
+        rng.normal(0, 0.6, (B, MP, 2))
+    T[..., 2] = rng.choice([-3.1, 0.0, 3.1], (B, MP)) + \
+        rng.normal(0, 0.12, (B, MP))
+    hint_of = np.full((B, C, MP), -1, np.int32)
+    for b in range(B):
+        row = rng.integers(0, 6, MP)
+        for c in range(6):
+            ms = np.flatnonzero(row == c)
+            hint_of[b, c, :len(ms)] = ms
+    kt.hold_merge(torch.from_numpy(hint_of).to(cuda),
+                  torch.from_numpy(T).to(cuda),
+                  torch.from_numpy(rng.integers(1, 9, (B, MP))
+                                   .astype(np.int32)).to(cuda), "random")
+
+
+def _stream_db(cfg, clouds, graphed, n, q16=False, capacity=8):
+    """n steps of the revisit world (6 s apart) into a card DB of
+    `capacity` (it grows past it), graphed or through the eager body."""
+    from contour_context_tpu_torch.utils.io import quantize_points_q16
+
+    db = tdb.ContourDB(cfg, capacity=capacity, device="cuda")
+    for i in range(n):
+        pts = clouds[i % len(clouds)]
+        if q16:
+            pts = quantize_points_q16(pts)
+        db._step(pts, i, 6.0 * i, graphed)
+    return db
+
+
+def _assert_same_db(a, b, n):
+    for name, x, y in zip(a.store._fields, a.store, b.store):
+        assert torch.equal(x[:n], y[:n]), name
+    A = a.store.keys.shape[2]
+    assert torch.equal(a.keys_q.view(torch.int16)[..., :n * A],
+                       b.keys_q.view(torch.int16)[..., :n * A])
+    for name in ("ts_store", "state"):
+        assert torch.equal(getattr(a, name)[:n], getattr(b, name)[:n]), name
+    assert torch.equal(a.recs_store[:n].view(torch.int32),
+                       b.recs_store[:n].view(torch.int32))
+    assert a.n == b.n == n and a.seq_of_gidx == b.seq_of_gidx
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("payload", ["f32", "q16"])
+def test_graphed_stream_equals_eager_body_on_card(cuda, payload):
+    """20 steps through the step's graph (a DB of capacity 8: it grows
+    twice, and each grow captures the graph again) write the store,
+    keys_q, timestamps, window state and records bit for bit as the eager
+    body does; each kernel's count grows by one a step, replays
+    included."""
+    cfg, clouds = _revisit_clouds()
+    q16 = payload == "q16"
+    kernels.reset_launches()
+    g = _stream_db(cfg, clouds, True, 20, q16)
+    counts = kernels.launch_counts()
+    for name in ("ring_key_divs", "search_tilemin", "cc_labels",
+                 "merge_hints"):
+        assert counts[name] == 20, counts
+    assert counts["ring_key_divs_batch"] == counts["search_tilemin_batch"] \
+        == 0
+    e = _stream_db(cfg, clouds, False, 20, q16)
+    assert g.capacity == e.capacity == 32
+    _assert_same_db(g, e, 20)
+    assert int((g.recs_store[:20, 0] > 0.5).sum()) >= 3
+    stats = g.graph_stats()
+    assert len(stats["capture_s"]) == 1 and stats["pool_bytes"] > 0
+
+
+@pytest.mark.cuda
+def test_graphed_stream_and_chain_make_no_host_sync_on_card(cuda):
+    """After the capture: 20 step_async calls (host payloads, uploaded
+    through pinned memory) and a chain of 16 make no host sync (torch's
+    sync debug mode raises on one), and the records equal the eager
+    body's; each replay counts one launch of each kernel."""
+    cfg, clouds = _revisit_clouds()
+    db = tdb.ContourDB(cfg, capacity=64, device="cuda")
+    db.step_async(clouds[0], 0, 0.0)            # the warm-up and capture
+    delta = _launch_delta(lambda: _no_syncs(lambda: [
+        db.step_async(clouds[i % 12], i, 6.0 * i) for i in range(1, 21)]))
+    assert delta == {"ring_key_divs": 20, "ring_key_divs_batch": 0,
+                     "search_tilemin": 20, "search_tilemin_batch": 0,
+                     "cc_labels": 20, "merge_hints": 20}, delta
+    buf = np.concatenate([clouds, clouds[:4]])
+    ts = [6.0 * i for i in range(21, 37)]
+    h = _no_syncs(lambda: db.step_chain_dyn_async(buf, list(range(21, 37)),
+                                                  ts))
+    assert h.row0 == 21 and h.recs.shape == (16, 18)
+    e = tdb.ContourDB(cfg, capacity=64, device="cuda")
+    for i in range(37):
+        e._step(buf[i - 21] if i >= 21 else clouds[i % 12], i, 6.0 * i,
+                False)
+    _assert_same_db(db, e, 37)
+    assert len(h.get()) == 16
+
+
+@pytest.mark.cuda
+def test_graphed_block_and_serving_equal_eager_on_card(cuda):
+    """Blocks of 8 from raw clouds (the build graph and the query graph of
+    8) and serving chunks of 8 (the padded tail too) against the same
+    calls run eagerly: records, store and window bit for bit; after the
+    captures, a block and a serving call make no host sync; one batched
+    launch of each kernel, and one CC and one merge launch, a block."""
+    cfg, clouds = _revisit_clouds()
+    pts = np.concatenate([clouds, clouds[:4]])
+    dbs = {}
+    for graphed in (True, False):
+        db = tdb.ContourDB(cfg, capacity=32, device="cuda")
+        db._block_chain_pts(torch.from_numpy(pts[:8])[None], list(range(8)),
+                            [[6.0 * i for i in range(8)]], graphed)
+        dbs[graphed] = db
+    g, e = dbs[True], dbs[False]
+    step = (lambda db, graphed: db._block_chain_pts(
+        pts[8:16][None], list(range(8, 16)), [[6.0 * i for i in
+                                                range(8, 16)]], graphed))
+    delta = _launch_delta(lambda: _no_syncs(lambda: step(g, True)))
+    assert delta == {"ring_key_divs": 0, "ring_key_divs_batch": 1,
+                     "search_tilemin": 0, "search_tilemin_batch": 1,
+                     "cc_labels": 1, "merge_hints": 1}, delta
+    step(e, False)
+    _assert_same_db(g, e, 16)
+    assert int((g.recs_store[8:16, 0] > 0.5).sum()) >= 2
+    recs = {}
+    for graphed, db in dbs.items():
+        db._localize(pts[8:14], 4, graphed)             # captures at B = 4
+        recs[graphed] = db._localize(pts[2:12], 4, graphed)
+    delta = _launch_delta(lambda: _no_syncs(
+        lambda: g.localize_block_async(pts[2:12], chunk=4)))
+    assert delta["ring_key_divs_batch"] == delta["search_tilemin_batch"] \
+        == delta["cc_labels"] == delta["merge_hints"] == 3, delta
+    a, b = (recs[k].recs for k in (True, False))
+    assert a.shape == (10, 18) and torch.equal(a.view(torch.int32),
+                                               b.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_graphed_serving_pads_to_its_chunk_and_drops_its_graphs_on_card(
+        cuda):
+    """Graphed serving pads every request to whole chunks: requests of 3,
+    10 and 20 clouds at chunk 8 capture one build and one query graph, a
+    request with no chunk one more pair at SERVE_CHUNK, and every record
+    equals the eager body's on the same chunks (the request padded with
+    zero clouds to whole chunks). drop_graphs empties the DB's graphs and
+    gives their pool back to the card; the next call captures again and
+    its records are the same."""
+    cfg, clouds = _revisit_clouds()
+    pts = np.concatenate([clouds, clouds[:8]])
+    db = tdb.ContourDB(cfg, capacity=32, device="cuda")
+    db._block_chain_pts(torch.from_numpy(clouds[:8])[None], list(range(8)),
+                        [[6.0 * i for i in range(8)]], False)
+
+    def same(B, chunk):
+        a = db.localize_block_async(pts[:B], chunk=chunk).recs
+        c = chunk or tdb.SERVE_CHUNK
+        pad = np.zeros((-B % c,) + pts.shape[1:], pts.dtype)
+        b = db._localize(np.concatenate([pts[:B], pad]), c, False).recs[:B]
+        assert a.shape == (B, 18)
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32)), B
+
+    for B in (3, 10, 20):
+        same(B, 8)
+    assert sorted(k[0] for k in db._graphs.graphs) == ["build", "query"]
+    same(20, None)
+    assert sorted(k[-1] if k[0] == "query" else k[-1][0]
+                  for k in db._graphs.graphs) == [8, 8, tdb.SERVE_CHUNK,
+                                                  tdb.SERVE_CHUNK]
+    pool = db.graph_stats()["pool_bytes"]
+    assert pool > 0
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_reserved()
+    db.drop_graphs()
+    assert not db._graphs.graphs and db.graph_stats()["pool_bytes"] == 0
+    assert torch.cuda.memory_reserved() <= before - pool
+    same(10, 8)
+    assert len(db._graphs.graphs) == 2
+
