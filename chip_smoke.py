@@ -36,7 +36,17 @@ exit code is not 0):
    at a revisit query's and 16 revisit queries' inputs on the stream's DB,
    each with its device time warm and cold, bound and share, call and plain
    ms; what the always-run cascade chunk costs 8 queries of the stream;
-5. the CLI on 24 scans written in the KITTI two-file format;
+5. the CLI's default (unfused) path on 24 scans written in the KITTI
+   two-file format, every stage a replay of one of the DB's graphs (the
+   per-scan build, query_async, add_scan, push_and_balance): the CLI's
+   launches; the same run through `LoopClosurePipeline` graphed, through
+   the eager bodies and graphed again, each timed by stage with a sync
+   after each stage and again without the syncs (the scans after the
+   first two, which capture, under sync debug mode "error"), every outcome
+   file bit-equal to the CLI's; then 32 scans and their 32 revisits
+   through query_async / add_scan / push_and_balance beside step_async on
+   a DB of its own, each query_async record bit-equal to the step's at
+   the same window state;
 3b. (after 3) the batched tile-min against its plain version on the card:
    bf16 and f32, the vector and the scalar path, B = 1 equal to the
    single-query kernel; its device time at B = 16 beside its bound and the
@@ -56,8 +66,9 @@ exit code is not 0):
    `step_async`; records and window state must equal the stream's first 264
    rows (found, gidx and counters exactly), the store and keys_q too, bit
    for bit but for float leaves the script names, held in the descriptor
-   bands; each block a replay of the build graph and of the query graph of
-   16 (the blocks after the capture under sync debug mode "error"), beside
+   bands; each block a replay of the build graph, of the append graph
+   (the appends and the window pushes) and of the query graph of 16 (the
+   blocks after the capture under sync debug mode "error"), beside
    the same map built through the eager calls (ms/scan; store, window and
    records bit for bit equal), the capture times and pool bytes; one
    batched ring launch, one batched tile-min launch, one CC and one merge
@@ -96,12 +107,21 @@ exit code is not 0):
    chunk's anchors and pools), at least half found at the right place, two
    records equal to `query_async` on the card and on a CPU copy of the map,
    one `range_search` equal on both; ms/query, device operations and host
-   syncs of one chunk, peak allocated bytes, and the bytes one batched
-   build of 16 adds at its peak;
-9. a 64-scan stream with `dynamic_thres=True` on the card equal to the same
-   stream on the CPU, the launches and host syncs the option adds to a
-   query, and one block of 16 queries with the option on the card equal to
-   the CPU's, with its host syncs;
+   syncs of one chunk, peak allocated bytes beside f96694d's, and the bytes
+   one batched build of 16 adds at its peak; the block-built map and the
+   serving map, each with the graphs of 16, hold one graph pool (one pool
+   id on every graph, that id's segments the pool's bytes, and the serving
+   map's captures growing the reserved memory by less than half of it);
+9. `dynamic_thres=True`: both dynamic kernels bit-equal to their plain
+   versions at the edges (nothing passes, every row passes, the bars clamp
+   at ub on the first row; B = 1, 16 and 17; H at its cap and past the
+   kernel's chunk), a 64-scan stream as replays of the step's graph (the
+   scans after the first under sync debug mode "error"; one launch of each
+   dynamic kernel a scan) against the eager body bit for bit and the CPU
+   in the record bands, ms/scan graphed and eager; one block of 16
+   revisit queries as the build and query graphs of 16, against the eager
+   bodies and the CPU; each kernel at the stream's and the block's inputs,
+   with its device time warm and cold, bound, call and plain ms;
 10. the user-facing surface, each path's launches counted from 0 just
    before it: the stream's first 80 clouds in chains (`step_chain_async`, 4
    of 16, then 5 + 11 of a 16-row buffer through `step_chain_dyn_async`, the
@@ -119,7 +139,11 @@ exit code is not 0):
    mid-stream drain every 8 writing the plain run's outcome file; the
    online spinner fed 80 scans from a thread, paused and resumed through
    its control file, its detections equal to the found records of a
-   `step_async` stream of the same scans, nothing dropped;
+   `step_async` stream of the same scans, nothing dropped, its launches
+   counted alone; then the same feed while the main thread replays the
+   serving map's graphs of 16 (the same pool), the spinner's launches
+   counted and the serving thread's recorded apart, the same detections,
+   every serving chunk bit-equal to its eager calls;
 11. sharded serving and search (contour_context_tpu_torch/parallel.py),
    the launches of each path counted from 0 just before it: a world of one
    rank over NCCL in this process (`sharded_search` on phase 3's tile-min
@@ -141,6 +165,7 @@ power limit, and {"ok": true, "device": ...}.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import sys
@@ -304,19 +329,25 @@ def launch_counts(kernels) -> dict:
     return kernels.launch_counts()
 
 
-def one_a_scan(n: int) -> dict:
-    """The launches of n scans stepped one at a time."""
+def one_a_scan(n: int, dyn: bool = False) -> dict:
+    """The launches of n scans stepped one at a time (with `dynamic_thres`:
+    one of each dynamic scan a query too)."""
     return {"ring_key_divs": n, "ring_key_divs_batch": 0,
             "search_tilemin": n, "search_tilemin_batch": 0,
-            "cc_labels": n, "merge_hints": n}
+            "cc_labels": n, "merge_hints": n,
+            "dyn_pass_scan": n if dyn else 0,
+            "dyn_post_scan": n if dyn else 0}
 
 
-def one_a_block(n: int) -> dict:
+def one_a_block(n: int, dyn: bool = False) -> dict:
     """The launches of n blocks (or serving chunks): one batched launch of
-    each kernel, one CC and one merge launch."""
+    each kernel, one CC and one merge launch (and one of each dynamic scan
+    with `dynamic_thres`)."""
     return {"ring_key_divs": 0, "ring_key_divs_batch": n,
             "search_tilemin": 0, "search_tilemin_batch": n,
-            "cc_labels": n, "merge_hints": n}
+            "cc_labels": n, "merge_hints": n,
+            "dyn_pass_scan": n if dyn else 0,
+            "dyn_post_scan": n if dyn else 0}
 
 
 def add_counts(*counts) -> dict:
@@ -350,7 +381,261 @@ def assert_outcomes_close(a_path: str, b_path: str, what: str) -> None:
             rtol=1e-4, atol=2e-3, err_msg=what)
 
 
-def phase_10(cfg, clouds, ring, db, rev0: int, smi: str) -> dict:
+def phase_5(cfg, clouds, rev0: int, smi: str) -> dict:
+    """The CLI's default path (the unfused API: the per-scan build,
+    query_async, add_scan, push_and_balance), every stage a replay: the CLI
+    on 24 scans; the same run through LoopClosurePipeline graphed and
+    through the eager bodies, each timed by stage (a sync after each) and
+    without the syncs (host clock; the graphed run's scans after the first
+    two, which capture, under sync debug mode "error"), every outcome file
+    bit-equal to the CLI's; then query_async's record against step_async's
+    for the same scan and window state, bit for bit, on a stream of 32
+    scans and their 32 revisits. Returns the CLI's launches."""
+    from contour_context_tpu_torch import db as tdb
+    from contour_context_tpu_torch import pipeline as tpipe
+    from contour_context_tpu_torch.__main__ import main as cli_main
+    from contour_context_tpu_torch.eval.evaluator import ContLCDEvaluator
+    from contour_context_tpu_torch.ops import kernels
+    from contour_context_tpu_torch.profile_step import lane_poses
+    from contour_context_tpu_torch.utils.profiling import (
+        SequentialTimeProfiler)
+
+    n_cli = 24
+    with tempfile.TemporaryDirectory() as d:
+        f_pose, f_laser = write_kitti(d, clouds, lane_poses(0, n_cli))
+        f_out = os.path.join(d, "outcome.txt")
+        kernels.reset_launches()
+        cli_main(["--pose", f_pose, "--laser", f_laser, "--outcome", f_out,
+                  "--device", "cuda"])
+        launches = launch_counts(kernels)
+        # no query against the empty DB of the first scan
+        assert launches == dict(one_a_scan(n_cli), search_tilemin=n_cli - 1,
+                                merge_hints=n_cli - 1), launches
+        want = open(f_out).read()
+        assert len(want.splitlines()) == n_cli
+
+        def pipeline(graphed, block):
+            p = tpipe.LoopClosurePipeline(cfg, ContLCDEvaluator(
+                f_pose, f_laser, cfg.correlation_thres), 64, block,
+                device="cuda")
+            p.db._use_graphs = graphed
+            return p
+
+        def outcome(p):
+            out = os.path.join(d, "pipe.txt")
+            p.save_outcome(out)
+            return open(out).read()
+
+        stage_ms, wall_ms = {}, {}
+        for mode, graphed in (("graphed", True), ("eager", False),
+                              ("graphed again", True)):
+            # by stage: a sync after each, over the scans after the first
+            # two (the graphed run captures its four graphs there)
+            p = pipeline(graphed, True)
+            assert p.spin_once() and p.spin_once()
+            p.stp = SequentialTimeProfiler(p.stp.desc)
+            p.run()
+            assert outcome(p) == want, mode
+            stage_ms[mode] = {k: 1e3 * lg.samps / lg.cnt
+                              for k, lg in p.stp.logs.items()}
+            # no sync between stages; the graphed run with none at all
+            p = pipeline(graphed, False)
+            assert p.spin_once() and p.spin_once()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+
+            def rest():
+                while p.spin_once():
+                    pass
+
+            no_syncs(rest)
+            torch.cuda.synchronize()
+            wall_ms[mode] = 1e3 * (time.perf_counter() - t0) / (n_cli - 2)
+            p.drain()
+            assert outcome(p) == want, mode
+            if graphed:
+                graphs_ = sorted(str(k[0]) for k in p.db._graphs.graphs)
+                assert graphs_ == ["add_scan", "build", "push", "query_step"], \
+                    graphs_
+                header = p.stp.desc
+    log(f"cli (the default unfused path): {n_cli} outcome lines; launches "
+        f"{launches}; '{header}'; every stage a replay of the DB's graphs "
+        f"{graphs_}; the scans after the first two (the captures) under "
+        f"sync debug mode \"error\": 0 host syncs a scan; outcome files of "
+        f"the CLI, of the pipeline graphed and of its eager bodies "
+        f"bit-equal ({smi})")
+    for mode in stage_ms:
+        log(f"cli stages, {mode} (ms/scan over scans 3-{n_cli}, a sync after "
+            f"each stage, host clock): "
+            + ", ".join(f"{k} {v:.3f}" for k, v in stage_ms[mode].items())
+            + f", sum {sum(stage_ms[mode].values()):.3f}; without the syncs "
+            f"{wall_ms[mode]:.3f} ms/scan ({smi})")
+
+    # query_async against step_async at the same scan and window state
+    seq = clouds[:32] + clouds[rev0:rev0 + 32]
+    db_q = tdb.ContourDB(cfg, capacity=64, device="cuda")
+    db_s = tdb.ContourDB(cfg, capacity=64, device="cuda")
+    n_eq = n_found = 0
+    for k, pts in enumerate(seq):
+        desc = db_q._build_one(pts)
+        h = db_q.query_async(desc)
+        db_q.add_scan(desc, k, 1.0 * k)
+        db_q.push_and_balance(1.0 * k)
+        db_s.step_async(pts, k, 1.0 * k)
+        if h is not None:
+            assert torch.equal(h.rec.view(torch.int32),
+                               db_s.recs_store[k].view(torch.int32)), \
+                (k, h.rec.tolist(), db_s.recs_store[k].tolist())
+            n_eq += 1
+            n_found += int(h.rec[0] > 0.5)
+    assert n_found >= 8, n_found
+    for name in ("keys_q", "ts_store", "state"):
+        assert torch.equal(getattr(db_q, name), getattr(db_s, name)), name
+    for name, x, y in zip(db_q.store._fields, db_q.store, db_s.store):
+        assert torch.equal(x, y), name
+    log(f"query_async vs step_async: {n_eq} queries ({n_found} found) of 32 "
+        f"scans and their 32 revisits, each record bit-equal to the step's "
+        f"at the same window state; store, keys_q and window equal")
+    return launches
+
+
+def phase_9(cfg, clouds, rev0: int, smi: str):
+    """`dynamic_thres` on the card as replays: a 64-scan stream (16 + 16
+    lane-0 scans, then their 32 revisits, 1 s apart) graphed, its scans
+    after the first under sync debug mode "error", against the eager body
+    (bit for bit) and the CPU (the record bands); one block of 16 revisit
+    clouds as the build and query graphs of 16 on that DB against the eager
+    bodies and the CPU copy; both dynamic kernels bit-equal to their plain
+    versions at the edges and at the stream's and the block's inputs, each
+    timed. Returns the stream's launches and the two kernel rows."""
+    import dataclasses
+
+    from contour_context_tpu_torch import db as tdb
+    from contour_context_tpu_torch import kernel_times as kt
+    from contour_context_tpu_torch.ops import kernels
+
+    dev = torch.device("cuda", 0)
+    dyn = dataclasses.replace(
+        cfg, db=dataclasses.replace(cfg.db, dynamic_thres=True))
+    for line in kt.dyn_edge_cases(dev, dyn):
+        log(line)
+    n_dyn = 32
+    seq = clouds[:n_dyn] + clouds[rev0:rev0 + n_dyn]
+    n = len(seq)
+    recs, ms = {}, {}
+    ev0 = torch.cuda.Event(enable_timing=True)
+    ev1 = torch.cuda.Event(enable_timing=True)
+    dbs = {}
+    for mode in ("graphed", "eager", "cpu"):
+        device = "cpu" if mode == "cpu" else "cuda"
+        m = tdb.ContourDB(dyn, capacity=128, device=device)
+        m._use_graphs = mode == "graphed"
+        if mode == "graphed":
+            kernels.reset_launches()
+        t0 = time.perf_counter()
+        m.step_async(seq[0], 0, 0.0)        # graphed: the capture
+
+        def rest():
+            if device == "cuda":
+                ev0.record()
+            for k in range(1, n):
+                m.step_async(seq[k], k, 1.0 * k)
+            if device == "cuda":
+                ev1.record()
+
+        no_syncs(rest) if mode == "graphed" else rest()
+        if device == "cuda":
+            torch.cuda.synchronize()
+            ms[mode] = ev0.elapsed_time(ev1) / (n - 1)
+        else:
+            ms[mode] = 1e3 * (time.perf_counter() - t0) / n
+        if mode == "graphed":
+            launches = launch_counts(kernels)
+            assert launches == one_a_scan(n, dyn=True), launches
+        recs[mode] = m.recs_store[:n].cpu()
+        dbs[mode] = m
+    assert torch.equal(recs["graphed"].view(torch.int32),
+                       recs["eager"].view(torch.int32)), \
+        "dynamic stream: graphed vs the eager body"
+    assert_dbs_equal(dbs["graphed"], dbs["eager"], n,
+                     "dynamic stream: graphed vs eager")
+    assert_records_close(recs["graphed"].numpy(), recs["cpu"].numpy(),
+                         "dynamic stream: card vs CPU")
+    n_found = int((recs["cpu"][n_dyn:, 0] > 0.5).sum())
+    assert n_found >= n_dyn // 2, n_found
+    log(f"dynamic_thres stream: {n} scans as replays of the step's graph, "
+        f"{ms['graphed']:.3f} ms/scan graphed against {ms['eager']:.3f} "
+        f"ms/scan for the eager body (CUDA events, scans 2-{n}) and "
+        f"{ms['cpu']:.1f} ms/scan on the CPU (host clock); 0 host syncs a "
+        f"scan after the capture (sync debug mode \"error\"); launches "
+        f"{launches}; records bit-equal to the eager body's and equal to "
+        f"the CPU's ({n_found}/{n_dyn} revisits found); "
+        f"graph captures {dbs['graphed'].graph_stats()['capture_s']} s "
+        f"({smi})")
+
+    # one block of 16 revisit queries: the build and query graphs of 16
+    db_dg, db_dc = dbs["graphed"], dbs["cpu"]
+    pts16 = np.stack(seq[-16:])
+
+    def block(m, graphed):
+        with contextlib.nullcontext() if graphed else m.eager():
+            return m._query_batch(m._build_batch(pts16),
+                                  m.state[1].expand(16).contiguous()).clone()
+
+    block(db_dg, True)                  # the captures
+    t0 = time.perf_counter()
+    b_launch = launch_counts(kernels)
+    rec_g = no_syncs(lambda: block(db_dg, True))
+    torch.cuda.synchronize()
+    g_ms = 1e3 * (time.perf_counter() - t0)
+    b_launch = {k: v - b_launch[k] for k, v in launch_counts(kernels).items()}
+    assert b_launch == one_a_block(1, dyn=True), b_launch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rec_e = block(db_dg, False)
+    torch.cuda.synchronize()
+    e_ms = 1e3 * (time.perf_counter() - t0)
+    assert torch.equal(rec_g.view(torch.int32), rec_e.view(torch.int32)), \
+        "dynamic block: graphed vs eager"
+    rec_c = block(db_dc, False)
+    assert_records_close(rec_g.cpu().numpy(), rec_c.numpy(),
+                         "dynamic block: card vs CPU")
+    assert int((rec_c[:, 0] > 0.5).sum()) >= 8
+    log(f"dynamic_thres block of 16 revisit queries as replays (the build "
+        f"and query graphs of 16 on the stream's DB): {g_ms:.2f} ms graphed "
+        f"against {e_ms:.2f} ms for the eager bodies (host clock, a sync "
+        f"around); 0 host syncs; launches {b_launch}; records bit-equal to "
+        f"the eager bodies' and equal to the CPU's ({smi})")
+
+    # the kernels at the inputs the stream and the block gave them (behind
+    # the launch counts)
+    pa1, po1 = kt.dyn_cases(db_dg, torch.from_numpy(seq[-5])[None].to(dev),
+                            dyn)
+    pa16, po16 = kt.dyn_cases(db_dg, torch.from_numpy(pts16).to(dev), dyn)
+    # a mean of 100: the profiler kept 197 of these kernels' 210 records
+    # in one run, again and again
+    reps = 100
+    pass_row = kt.measure_dyn_pass(pa1, "a revisit query of the stream", reps)
+    pass_row["block"] = kt.measure_dyn_pass(pa16, "the block of 16", reps)
+    post_row = kt.measure_dyn_post(po1, "a revisit query of the stream", reps)
+    post_row["block"] = kt.measure_dyn_post(po16, "the block of 16", reps)
+    for r in (pass_row, pass_row["block"], post_row, post_row["block"]):
+        log(f"{r['name']}: {r['shape']}, {r['passed']} passing: device "
+            f"{r['device_us_warm']:.3f} us warm, {r['device_us_cold']:.3f} "
+            f"us cold (torch.profiler, mean of {reps}); bound "
+            f"{r['bound_us']:.4f} us by {r['bound_by']} ({r['bytes']} B, "
+            f"{r['steps']} dependent steps a row); call {r['ms']:.4f} ms "
+            f"(host + launch), plain {r['plain_ms']:.4f} ms; bit-equal to "
+            f"the plain version ({smi})")
+    for r in (pass_row, post_row):
+        r["held_on_paths"] = [{"path": "the stream's revisit query",
+                               "max_abs_err": r["max_abs_err"]},
+                              {"path": "the block of 16",
+                               "max_abs_err": r["block"]["max_abs_err"]}]
+    return launches, [pass_row, post_row]
+
+
+def phase_10(cfg, clouds, ring, db, rev0: int, smi: str, served) -> dict:
     """The user-facing surface on the card: chains, the host spec query,
     the full CLI with dumps, timing log and trace, scoring and a sweep, the
     pipeline options, and the online spinner. Returns the launches of each
@@ -571,56 +856,100 @@ def phase_10(cfg, clouds, ring, db, rev0: int, smi: str) -> dict:
         log("pipeline options: q16_transport, block_for_timing and a "
             "mid-stream drain every 8 write the plain run's outcome file")
 
-    # ---- the online spinner on the card -------------------------------
+    # ---- the online spinner on the card, alone, then beside serving ------
+    side_pts = np.stack(clouds[rev0:rev0 + 16])
+    served.localize_block_async(side_pts, chunk=16)     # captured already
     feed = [(clouds[i], i, 0.1 * i) for i in range(64)] + [
         (clouds[rev0 + i], 64 + i, 0.1 * (rev0 + i)) for i in range(16)]
     ref = tdb.ContourDB(cfg, capacity=8192, device="cuda")
     for pts, seq, t in feed:
         ref.step_async(pts, seq, t)
     rec_ref = ref.recs_store[:len(feed)].cpu().numpy()
-    with tempfile.TemporaryDirectory() as d:
-        ctrl = os.path.join(d, "status")
-        sp = OnlineSpinner(cfg, capacity=8192, control_file=ctrl,
-                           device="cuda")
-        kernels.reset_launches()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        sp.start()
-
-        def feeder():
-            for k, (pts, seq, t) in enumerate(feed):
-                assert sp.feed(pts, seq, t, timeout=300)
-                if k == 40:
-                    with open(ctrl, "w") as f:
-                        f.write("pause")
-                    deadline = time.time() + 120
-                    while not sp._paused.is_set() and \
-                            time.time() < deadline:
-                        time.sleep(0.01)
-                    with open(ctrl, "w") as f:
-                        f.write("resume")
-
-        th = threading.Thread(target=feeder)
-        th.start()
-        th.join()
-        sp.finish()
-        torch.cuda.synchronize()
-        online_ms = 1e3 * (time.perf_counter() - t0) / len(feed)
-    by_path["online"] = launch_counts(kernels)
-    assert by_path["online"] == one_a_scan(len(feed)), by_path["online"]
-    assert sp.dropped == 0 and sp.n_processed == len(feed)
     found = [k for k in range(len(feed)) if rec_ref[k, 0] > 0.5]
-    assert [d.q_seq for d in sp.detections] == found, sp.detections
-    for det in sp.detections:
-        assert det.cand_seq == int(rec_ref[det.q_seq, 1]), det
-        np.testing.assert_allclose(det.correlation, rec_ref[det.q_seq, 2],
-                                   rtol=1e-4, atol=1e-4)
     assert len(found) >= 8, found
+
+    def spin(serve: bool):
+        """The spinner fed `feed` from a thread, paused and resumed through
+        its control file; ms/scan from feed to finish (host clock). With
+        `serve`, the main thread meanwhile replays the serving map's build
+        and query graphs of 16 (the same pool, another thread), a chunk
+        every 50 ms; their launches are recorded apart (the recording is
+        this thread's), so the counts, reset here, are the spinner's
+        alone. Returns the spinner, its ms/scan, the chunks' records and
+        their launches, and the counts read just after."""
+        with tempfile.TemporaryDirectory() as d:
+            ctrl = os.path.join(d, "status")
+            sp = OnlineSpinner(cfg, capacity=8192, control_file=ctrl,
+                               device="cuda")
+            kernels.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sp.start()
+
+            def feeder():
+                for k, (pts, seq, t) in enumerate(feed):
+                    assert sp.feed(pts, seq, t, timeout=300)
+                    if k == 40:
+                        with open(ctrl, "w") as f:
+                            f.write("pause")
+                        deadline = time.time() + 120
+                        while not sp._paused.is_set() and \
+                                time.time() < deadline:
+                            time.sleep(0.01)
+                        with open(ctrl, "w") as f:
+                            f.write("resume")
+
+            th = threading.Thread(target=feeder)
+            th.start()
+            side = []
+            with kernels.recording_launches() as side_launches:
+                deadline = time.time() + 600
+                while serve and (th.is_alive() or not sp._q.empty()
+                                 or len(side) < 4):
+                    assert time.time() < deadline, \
+                        "the spinner made no progress"
+                    side.append(served.localize_block_async(
+                        side_pts, chunk=16).recs.clone())
+                    time.sleep(0.05)
+            th.join()
+            sp.finish()
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0) / len(feed)
+        launches = launch_counts(kernels)
+        assert launches == one_a_scan(len(feed)), launches
+        assert sp.dropped == 0 and sp.n_processed == len(feed)
+        assert [d.q_seq for d in sp.detections] == found, sp.detections
+        for det in sp.detections:
+            assert det.cand_seq == int(rec_ref[det.q_seq, 1]), det
+            np.testing.assert_allclose(det.correlation,
+                                       rec_ref[det.q_seq, 2],
+                                       rtol=1e-4, atol=1e-4)
+        return sp, ms, side, side_launches, launches
+
+    sp, online_ms, _, _, by_path["online"] = spin(False)
+    sp2, shared_ms, side, side_launches, _ = spin(True)
+    want_side = {k: v for k, v in one_a_block(len(side)).items() if v}
+    assert {k: v for k, v in side_launches.items() if v} == want_side, \
+        side_launches
+    with served.eager():
+        side_eager = served.localize_block_async(side_pts, 16).recs
+    for r in side:
+        assert torch.equal(r.view(torch.int32),
+                           side_eager.view(torch.int32)), \
+            "serving beside the spinner vs its eager calls"
     log(f"online: {len(feed)} scans fed from a thread, paused and resumed "
-        f"through the control file; {len(found)} detections equal the found "
-        f"records of a step_async stream of the same scans; dropped "
+        f"through the control file; {len(found)} detections equal the "
+        f"found records of a step_async stream of the same scans; dropped "
         f"{sp.dropped}; launches {by_path['online']}; {online_ms:.3f} "
-        f"ms/scan (host clock, feed to finish) ({smi})")
+        f"ms/scan alone (host clock, feed to finish) ({smi})")
+    log(f"online beside serving: the same feed while the main thread served "
+        f"{len(side)} chunks of 16 from the serving map's graphs (one pool, "
+        f"one replay stream), a chunk every 50 ms: the same detections, "
+        f"dropped {sp2.dropped}; the spinner's launches counted alone "
+        f"{one_a_scan(len(feed))}, the serving thread's recorded apart "
+        f"{side_launches}; each chunk's records bit-equal to its eager "
+        f"calls; {shared_ms:.3f} ms/scan under that contention (host "
+        f"clock, feed to finish) ({smi})")
     return by_path
 
 
@@ -992,8 +1321,7 @@ def main() -> None:
 
     from synth import make_world, render_scan
 
-    from contour_context_tpu_torch import (ContourDBConfig, PipelineConfig,
-                                           pad_points)
+    from contour_context_tpu_torch import PipelineConfig, pad_points
     from contour_context_tpu_torch import db as tdb
     from contour_context_tpu_torch import kernel_times as kt
     from contour_context_tpu_torch.ops import descriptor as td
@@ -1143,12 +1471,13 @@ def main() -> None:
     # the same scans through the eager body the graph captured, on a DB of
     # its own: the graphed records and store must equal it bit for bit
     db_e = tdb.ContourDB(cfg, capacity=8192, device="cuda")
+    db_e._use_graphs = False
     for k in range(WARMUP):
-        db_e._step(clouds[k], k, 0.1 * k, False)
+        db_e.step_async(clouds[k], k, 0.1 * k)
     torch.cuda.synchronize()
     ev0.record()
     for k in range(WARMUP, n_scans):
-        db_e._step(clouds[k], k, 0.1 * k, False)
+        db_e.step_async(clouds[k], k, 0.1 * k)
     ev1.record()
     torch.cuda.synchronize()
     ms_scan_eager = ev0.elapsed_time(ev1) / (n_scans - WARMUP)
@@ -1273,17 +1602,8 @@ def main() -> None:
         f"{1e3 * np.mean([c[4] - c[5] for c in casc]):.1f} us more a query "
         f"(torch.profiler) ({smi})")
 
-    # ---- 5. the CLI -----------------------------------------------------
-    from contour_context_tpu_torch.__main__ import main as cli_main
-
-    with tempfile.TemporaryDirectory() as d:
-        f_pose, f_laser = write_kitti(d, clouds, lane_poses(0, 24))
-        f_out = os.path.join(d, "outcome.txt")
-        cli_main(["--pose", f_pose, "--laser", f_laser, "--outcome", f_out,
-                  "--device", "cuda"])
-        lines = open(f_out).read().splitlines()
-        assert len(lines) == 24, len(lines)
-    log("cli: 24 outcome lines")
+    # ---- 5. the CLI's default (unfused) path --------------------------
+    cli_path = phase_5(cfg, clouds, rev0, smi)
 
     # ---- 6. a map built in blocks ----------------------------------------
     BLOCK, N_MAP = 16, 2 * LANE_SCANS
@@ -1294,28 +1614,30 @@ def main() -> None:
         blocks 2.. (CUDA events: the first block captures the graphs) and
         the ms/scan of the whole map (every block and the tail over N_MAP
         scans, the captures included)."""
+        m._use_graphs = graphed
         e_all = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
         torch.cuda.synchronize()
         e_all[0].record()
-        hs = [m._block_chain_pts(
+        hs = [m.block_chain_pts_async(
             torch.from_numpy(np.stack(clouds[0:BLOCK]))[None],
-            list(range(BLOCK)), [[0.1 * i for i in range(BLOCK)]], graphed)]
+            list(range(BLOCK)), [[0.1 * i for i in range(BLOCK)]])]
         torch.cuda.synchronize()
 
         def rest():
             ev0.record()
             for k in range(BLOCK, n_full, BLOCK):
-                hs.append(m._block_chain_pts(
+                hs.append(m.block_chain_pts_async(
                     torch.from_numpy(np.stack(clouds[k:k + BLOCK]))[None],
                     list(range(k, k + BLOCK)),
-                    [[0.1 * i for i in range(k, k + BLOCK)]], graphed))
+                    [[0.1 * i for i in range(k, k + BLOCK)]]))
             ev1.record()
 
         # the graphed block steps after the capture under sync debug mode
-        # "error": append, window pushes and the two replays make no sync
+        # "error": the build, append-and-window and query replays make no
+        # sync
         no_syncs(rest) if graphed else rest()
         torch.cuda.synchronize()
-        hs += [m._step(clouds[i], i, 0.1 * i, graphed)
+        hs += [m.step_async(clouds[i], i, 0.1 * i)
                for i in range(n_full, N_MAP)]
         e_all[1].record()
         torch.cuda.synchronize()
@@ -1488,8 +1810,8 @@ def main() -> None:
     sb16 = db_b.state[1].expand(BLOCK).contiguous()
 
     def block_parts(graphed):
-        return db_b._query_batch(db_b._build_batch(pts16, graphed), sb16,
-                                 graphed).clone()
+        with contextlib.nullcontext() if graphed else db_b.eager():
+            return db_b._query_batch(db_b._build_batch(pts16), sb16).clone()
 
     def timed_ms(fn, reps=5):
         ts_ = []
@@ -1591,8 +1913,14 @@ def main() -> None:
     torch.cuda.synchronize()
     mem_held = torch.cuda.memory_allocated()  # the DBs of the phases above
     torch.cuda.reset_peak_memory_stats()
+    # a capture empties the allocator's cache as it starts: empty it here
+    # too, so the growth is what the serving map's graphs hold
+    torch.cuda.empty_cache()
+    reserved0 = torch.cuda.memory_reserved()
     # the first chunk captures the build and query graphs of 16
     served.localize_block_async(revisit[:BLOCK], chunk=BLOCK).get()
+    torch.cuda.synchronize()
+    serve_grown = torch.cuda.memory_reserved() - reserved0
     graph_serve = served.graph_stats()
     served.serving_counters = tdb.ContourDB._zero_counters()
     kernels.reset_launches()
@@ -1608,7 +1936,8 @@ def main() -> None:
     # one batched build a chunk: the pad clouds build in the last one
     assert launches_serve == one_a_block(n_chunks), launches_serve
     ev0.record()
-    h_eager = served._localize(revisit, BLOCK, False)
+    with served.eager():
+        h_eager = served.localize_block_async(revisit, BLOCK)
     ev1.record()
     torch.cuda.synchronize()
     serve_ms_eager = ev0.elapsed_time(ev1) / LANE_SCANS
@@ -1688,83 +2017,67 @@ def main() -> None:
         f"script's DBs; one batched build of {BLOCK} adds {build_peak} "
         f"bytes at its peak ({smi})")
     log(f"serving counters: {served.serving_counters}")
+    # two DBs with graphs of 16 (the block-built map and the serving map)
+    # hold the device's one pool: every graph of both carries one pool id,
+    # the id of the pool's segments in the allocator's snapshot, and the
+    # serving map's captures grew the card's reserved memory by less than
+    # half that pool (a pool of its own would add about as much again)
+    st_b, st_s = db_b.graph_stats(), served.graph_stats()
+    assert st_b["pool_bytes"] == st_s["pool_bytes"] \
+        == graph_serve["pool_bytes"] > 0, (st_b, st_s)
+    assert {k[0] for k in map(eval, st_b["capture_s"])} >= {"build",
+                                                             "query"}
+    pool_ids = {tuple(g.graph.pool()) for m in (db_b, served)
+                for g in m._graphs.graphs.values()}
+    assert len(pool_ids) == 1, pool_ids
+    (pool_id,) = pool_ids
+    pool_segs = sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+                    if tuple(seg.get("segment_pool_id", ())) == pool_id)
+    assert pool_segs == st_s["pool_bytes"], (pool_segs, st_s)
+    assert serve_grown < st_s["pool_bytes"] // 2, (serve_grown, st_s)
+    log(f"graph pool: the block-built map ({len(st_b['capture_s'])} graphs) "
+        f"and the serving map ({len(st_s['capture_s'])} graphs), both with "
+        f"the build and query graphs of {BLOCK}, share one pool of "
+        f"{st_s['pool_bytes']} bytes ({st_s['pool']}; one pool id "
+        f"{pool_id} on all {len(st_b['capture_s']) + len(st_s['capture_s'])}"
+        f" graphs, its segments {pool_segs} bytes; the serving map's "
+        f"captures grew the reserved memory by {serve_grown} bytes); "
+        f"f96694d held "
+        f"3275751424 bytes a DB for each; serving peak allocated "
+        f"{peak_serve} bytes against f96694d's 5276009472 ({smi})")
 
-    # ---- 9. dynamic_thres -------------------------------------------------
-    dyn = PipelineConfig(db=ContourDBConfig(dynamic_thres=True))
-    n_dyn = 32
-    dyn_clouds = clouds[:n_dyn] + clouds[rev0:rev0 + n_dyn]
-    dyn_recs = {}
-    for device in ("cuda", "cpu"):
-        db_d = tdb.ContourDB(dyn, capacity=128, device=device)
-        t0 = time.perf_counter()
-        for k, pts in enumerate(dyn_clouds):
-            db_d.step_async(pts, k, 1.0 * k)
-        dyn_recs[device] = db_d.recs_store[:2 * n_dyn].cpu().numpy()
-        if device == "cuda":
-            torch.cuda.synchronize()
-            db_dg = db_d
-        log(f"dynamic_thres stream on {device}: {2 * n_dyn} scans in "
-            f"{time.perf_counter() - t0:.1f} s")
-    assert_records_close(dyn_recs["cuda"], dyn_recs["cpu"], "dynamic stream")
-    n_found = int((dyn_recs["cpu"][n_dyn:, 0] > 0.5).sum())
-    assert n_found >= n_dyn // 2, n_found
-    q_d = td.build_descriptor(torch.from_numpy(dyn_clouds[-1]).to(dev), cm,
-                              cfg.gmm)
-
-    def one_query(c):
-        return lambda: tdb.query_step(db_dg.store, db_dg.keys_q, q_d,
-                                      db_dg.state, c)
-
-    ops = {name: device_ops(one_query(c))[0]
-           for name, c in (("static", cfg), ("dynamic", dyn))}
-    sy = {name: host_syncs(one_query(c))
-          for name, c in (("static", cfg), ("dynamic", dyn))}
-    # the option through a block: 16 revisit queries in one batch on the
-    # card against the same batch on the CPU copy of that stream's DB
-    descs_d = td.build_descriptors(
-        torch.from_numpy(np.stack(dyn_clouds[-BLOCK:])).to(dev), cm, cfg.gmm)
-
-    def one_block(m, descs, c):
-        return lambda: tdb.query_step_batch(
-            m.store, m.keys_q, descs, m.state[1].expand(BLOCK).contiguous(),
-            c)
-
-    recs_dg = one_block(db_dg, descs_d, dyn)().cpu().numpy()
-    recs_dc = one_block(db_d, type(descs_d)(*[x.cpu() for x in descs_d]),
-                        dyn)().numpy()
-    assert_records_close(recs_dg, recs_dc, "dynamic block")
-    assert int((recs_dc[:, 0] > 0.5).sum()) >= BLOCK // 2
-    sy_block = {name: host_syncs(one_block(db_dg, descs_d, c))
-                for name, c in (("static", cfg), ("dynamic", dyn))}
-    log(f"dynamic_thres: card records equal the CPU's over {2 * n_dyn} scans "
-        f"({n_found}/{n_dyn} revisits found); one revisit query: "
-        f"{ops['dynamic']} device ops and {sy['dynamic']} host syncs with "
-        f"the option, {ops['static']} and {sy['static']} without; one block "
-        f"of {BLOCK} queries: card records equal the CPU's, "
-        f"{sy_block['dynamic']} host syncs with the option, "
-        f"{sy_block['static']} without ({smi})")
+    # ---- 9. dynamic_thres ------------------------------------------------
+    dyn_path, dyn_rows = phase_9(cfg, clouds, rev0, smi)
+    rows += dyn_rows
 
     # ---- 10. the user-facing surface ------------------------------------
-    by_path = phase_10(cfg, clouds, ring, db, rev0, smi)
+    by_path = phase_10(cfg, clouds, ring, db, rev0, smi, served)
 
     # ---- 11. sharded serving and search ---------------------------------
     sharded = phase_11(cfg, clouds, db, served, rev0, smi)
 
     batched = ("ring_key_divs_batch", "search_tilemin_batch")
+    dynamic = ("dyn_pass_scan", "dyn_post_scan")
     for r in rows:
         # the stream launches the single entries and the CC and merge
-        # kernels, the block build the batched ones
+        # kernels, the block build the batched ones, the dynamic_thres
+        # stream the two dynamic scans
         r["launches"] = (launches_block if r["name"] in batched
+                         else dyn_path if r["name"] in dynamic
                          else launches)[r["name"]]
+        assert r["launches"] > 0, r["name"]
         r["launches_by_path"] = {
             "stream": launches[r["name"]],
+            "cli_default": cli_path[r["name"]],
             "block_build": launches_block[r["name"]],
             "serving": launches_serve[r["name"]],
+            "dynamic_thres": dyn_path[r["name"]],
             **{path: n[r["name"]] for path, n in by_path.items()},
             "sharded": sum(n[r["name"]] for n in sharded.values())}
         r["sharded_launches"] = {k: n[r["name"]] for k, n in sharded.items()}
     for r, h in ((brow, held), (rrow, held_ring), (cc_row, held_cc),
-                 (merge_row, held_merge)):
+                 (merge_row, held_merge)) + tuple(
+                     (d, d["held_on_paths"]) for d in dyn_rows):
         r["held_on_paths"] = h
         r["max_abs_err"] = max([r["max_abs_err"]]
                                + [x["max_abs_err"] for x in h])

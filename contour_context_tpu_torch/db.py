@@ -13,12 +13,14 @@ on the DB's device, written at rows read from state[0] on the device; the
 host keeps a mirror of n for its handles. Nothing in a step syncs the host:
 the CC labels and the proposal merge are one kernel launch each, the
 cascade runs every chunk, and a host payload goes up through pinned memory.
-On a CUDA device the step, a block step's build and queries and a serving
-chunk each run as one CUDA graph replay (`graphs.GraphSet`), the port's
-counterpart of the JAX package's one jitted dispatch; the eager bodies the
-graphs capture stay as the private `_step`, `_process_block`,
-`_block_chain_pts` and `_localize` with graphed=False (the CPU, the
-`dynamic_thres` mode, and the card's comparisons).
+On a CUDA device the step, a block step's build, append and window pushes
+and queries, a serving chunk, and each stage of the unfused API (the
+per-scan build, `query_async`, `add_scan`, `push_and_balance`) run as one
+CUDA graph replay each (`graphs.GraphSet`), the port's counterpart of the
+JAX package's one jitted dispatch, with `dynamic_thres` as well. One
+switch, `graphed`, chooses: the CPU runs every body eagerly, and so does
+the card inside `eager()` (the comparisons of a replay with the body it
+captured).
 
 The query behind its search carries a leading B axis (`stages_from_hits` ->
 `refine_from_hits` -> `query_from_hits`), the counterpart of the JAX
@@ -40,6 +42,7 @@ of `contour_context_tpu.db`, member for member.
 
 from __future__ import annotations
 
+import contextlib
 import io
 import math
 import zipfile
@@ -990,11 +993,9 @@ class ContourDB:
 
     With `cfg.db.dynamic_thres` every query runs the two sequential
     threshold recurrences (`dynamic_pass_scan`, `dynamic_post_scan`) on the
-    host: on a CUDA device that is 4 host synchronisations a query, or a
-    block of queries (the inputs of each copied down, its mask copied
-    back), where the default step makes none; that mode runs its steps,
-    blocks and serving chunks eagerly, not as CUDA graphs. The default
-    `dynamic_thres=False` path is untouched."""
+    device, as the `dyn_pass_scan` and `dyn_post_scan` kernels on a CUDA
+    device: no host sync, so that mode runs as CUDA graph replays like the
+    default one."""
 
     def __init__(self, cfg: PipelineConfig, capacity: int = 8192,
                  device="cuda"):
@@ -1018,10 +1019,12 @@ class ContourDB:
         # queries (localize_block_async) fill the separate set
         self.counters = self._zero_counters()
         self.serving_counters = self._zero_counters()
-        # the CUDA graphs of the step, the block step and the serving chunk,
-        # and the tensors they read their inputs from and write outputs to
+        # the CUDA graphs of the step, the block step, the serving chunk and
+        # the unfused API, and the tensors they read their inputs from and
+        # write outputs to; `eager()` turns them off for a block
         self._graphs = GraphSet(self.device)
         self._static_bufs: dict = {}
+        self._use_graphs = self.device.type == "cuda"
 
     @staticmethod
     def _checked_device(device) -> torch.device:
@@ -1171,11 +1174,20 @@ class ContourDB:
 
     @property
     def graphed(self) -> bool:
-        """Whether the step, the block step and the serving chunk run as
-        CUDA graph replays: on a CUDA device, unless `dynamic_thres` (its
-        two threshold recurrences are host loops, so that mode runs
-        eagerly on the card)."""
-        return self.device.type == "cuda" and not self.cfg.db.dynamic_thres
+        """Whether the entry points run as CUDA graph replays: on a CUDA
+        device, `dynamic_thres` or not, outside `eager()`."""
+        return self._use_graphs
+
+    @contextlib.contextmanager
+    def eager(self):
+        """Inside the block every entry point runs its eager body, as on
+        the CPU: the card's comparisons of a replay with the body it
+        captured."""
+        prev, self._use_graphs = self._use_graphs, False
+        try:
+            yield self
+        finally:
+            self._use_graphs = prev
 
     def _tag(self) -> tuple:
         """The addresses of the tensors the graphs read and write."""
@@ -1199,11 +1211,28 @@ class ContourDB:
         return ScanDesc(**{k: self._static(("desc", B, k), (B,) + shape, dt)
                            for k, (shape, dt) in spec.items()})
 
+    def _static_ts(self, ts_t):
+        """The timestamp input of the step, append and push graphs, holding
+        ts_t (a 0-d float32 tensor on the device)."""
+        ts_in = self._static(("ts",), (), torch.float32)
+        ts_in.copy_(ts_t)
+        return ts_in
+
+    def _static_descs_of(self, descs: ScanDesc) -> ScanDesc:
+        """The static B-stacked ScanDesc holding `descs`: copied in unless
+        `descs` is that buffer itself (the build graph's output)."""
+        d_in = self._static_descs(descs.keys.shape[0])
+        if any(a.data_ptr() != b.data_ptr() for a, b in zip(d_in, descs)):
+            for dst, src in zip(d_in, descs):
+                dst.copy_(src)
+        return d_in
+
     def drop_graphs(self) -> None:
-        """Drop the DB's CUDA graphs and give their memory pool back to the
-        card. A graph holds its working set for the DB's lifetime (the
-        eager body frees it after each call); the next graphed call of a
-        shape captures it again."""
+        """Drop the DB's CUDA graphs (another DB's stay). A graph's working
+        set lives in the device's graph pool, which every DB of the process
+        shares (`graphs.device_pool`); its memory goes back to the card
+        when the last graph of the device is gone. The next graphed call of
+        a shape captures it again."""
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)     # no replay in flight
         self._graphs.drop()
@@ -1211,12 +1240,15 @@ class ContourDB:
             torch.cuda.empty_cache()
 
     def graph_stats(self) -> dict:
-        """Capture seconds of each graph, the launches of each kernel one
-        replay makes, and the bytes the graphs' memory pool holds."""
+        """Capture seconds of each of the DB's graphs, the launches of each
+        kernel one replay makes, and the bytes the graph pool holds: the
+        device's one pool, shared by the graphs of every DB of the process
+        (`pool` says so)."""
         g = self._graphs
         return {"capture_s": {str(k): v for k, v in g.capture_s.items()},
                 "launches": {str(k): g.launches(k) for k in g.graphs},
-                "pool_bytes": g.pool_bytes()}
+                "pool_bytes": g.pool_bytes(),
+                "pool": "the device's, shared by every DB of the process"}
 
     # -- the fused stream ---------------------------------------------------
 
@@ -1242,22 +1274,15 @@ class ContourDB:
         dtype; host payloads through pinned memory) and the captured body
         runs, with no host sync. The first step (and the first after a
         grow) runs the body eagerly and captures it. With `dynamic_thres`
-        the step runs eagerly on the card (`graphed`)."""
-        return self._step(points, seq, ts, self.graphed)
-
-    def _step(self, points, seq: int, ts, graphed: bool) -> QueryHandle:
-        """step_async; `graphed` False runs the body eagerly (the CPU, the
-        `dynamic_thres` mode, and the card's comparisons of a replay with
-        the body it captured)."""
+        as well."""
         self._ensure_capacity(1)
         pts = self._upload(points)
         ts_t = self._ts_tensor(ts)
-        if graphed:
+        if self.graphed:
             pts_in = self._static(("pts", pts.dtype, tuple(pts.shape)),
                                   pts.shape, pts.dtype)
-            ts_in = self._static(("ts",), (), torch.float32)
             pts_in.copy_(pts)
-            ts_in.copy_(ts_t)
+            ts_in = self._static_ts(ts_t)
             self._graphs.run(("step", pts.dtype, tuple(pts.shape)),
                              lambda: self._step_body(pts_in, ts_in),
                              self._tag())
@@ -1325,29 +1350,69 @@ class ContourDB:
 
     # -- the unfused API ----------------------------------------------------
 
+    def _build_one(self, points) -> ScanDesc:
+        """`build_descriptor` of one (max_points, 4) cloud: `_build_batch`
+        at B = 1 (graphed: one replay of the build graph of 1) with the
+        batch axis stripped. Graphed, the descriptor is a view of the
+        static buffer the next build overwrites, which `query_async` and
+        `add_scan` read without a copy."""
+        return ScanDesc(*[x[0] for x in self._build_batch(
+            self._upload(points)[None])])
+
     def add_scan(self, desc: ScanDesc, seq: int, ts) -> None:
         """Append one scan's descriptor. `ts` is a host float or a 0-d
-        tensor."""
+        tensor. On a CUDA device one replay of the append graph (the
+        descriptor and timestamp copied into static buffers, the rows
+        read from state[0] on the device); `n`, `seq_of_gidx` and the
+        exact host timestamps `ts` stay on the host."""
         self._ensure_capacity(1)
-        self._append(ScanDesc(*[x[None] for x in desc]),
-                     self._ts_tensor(ts).reshape(1))
+        ts_t = self._ts_tensor(ts).reshape(1)
+        if not self.graphed:
+            self._append(ScanDesc(*[x[None] for x in desc]), ts_t)
+        else:
+            d_in = self._static_descs_of(ScanDesc(*[x[None] for x in desc]))
+            ts_in = self._static_ts(ts_t.reshape(()))
+            self._graphs.run(("add_scan",), lambda: self._append_rows(
+                d_in, ts_in.reshape(1)), self._tag())
+            self.n += 1
         self.seq_of_gidx.append(int(seq))
 
     def push_and_balance(self, curr_ts) -> None:
         """Pop the buffer once the oldest unpopped scan exceeds max_elapse;
         everything older than min_elapse becomes searchable. On the
-        device."""
-        if self.state is not None:
-            self._push(self._scalar(curr_ts))
+        device: on a CUDA device one replay of the push graph."""
+        if self.state is None:
+            return
+        ts_t = self._scalar(curr_ts)
+        if not self.graphed:
+            self._push(ts_t)
+            return
+        ts_in = self._static_ts(ts_t)
+        self._graphs.run(("push",), lambda: self._push(ts_in), self._tag())
 
     def query_async(self, query: ScanDesc) -> Optional[QueryHandle]:
         """The query step on a built descriptor, nothing appended; returns
         a standalone QueryHandle, or None when the DB is empty. An empty
-        search window gives found=False on the device."""
+        search window gives found=False on the device. On a CUDA device
+        one replay of the query graph of 1 (`query_step` at the window
+        state[1] on the device): the descriptor is copied into the static
+        one-row buffer unless it is that buffer (the per-scan build's
+        output), and the static record is cloned into the handle."""
         if self.store is None:
             return None
-        return QueryHandle(self, rec=query_step(
-            self.store, self.keys_q, query, self.state, self.cfg))
+        if not self.graphed:
+            return QueryHandle(self, rec=query_step(
+                self.store, self.keys_q, query, self.state, self.cfg))
+        d_in = self._static_descs_of(ScanDesc(*[x[None] for x in query]))
+        d0 = ScanDesc(*[x[0] for x in d_in])
+        out = self._static(("rec",), (RECORD_WIDTH,), torch.float32)
+
+        def body():
+            out.copy_(query_step(self.store, self.keys_q, d0, self.state,
+                                 self.cfg))
+
+        self._graphs.run(("query_step",), body, self._tag())
+        return QueryHandle(self, rec=out.clone())
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -1515,22 +1580,20 @@ class ContourDB:
 
     # -- block mode and map serving -----------------------------------------
 
-    def _query_batch(self, descs: ScanDesc, searchable_b, graphed: bool):
+    def _query_batch(self, descs: ScanDesc, searchable_b):
         """query_step_batch of the B-stacked descs at searchable_b on the
         DB's map: (B, 18) records. Graphed, one replay of the query graph
         of B (search + tail), captured once for each (B, capacity), reading
         the static descriptor and limit buffers and writing a static record
         buffer (a later replay overwrites it: copy what is kept)."""
-        if not graphed:
+        if not self.graphed:
             return query_step_batch(self.store, self.keys_q, descs,
                                     searchable_b, self.cfg)
         B = searchable_b.shape[0]
-        d_in = self._static_descs(B)
-        if any(a.data_ptr() != b.data_ptr() for a, b in zip(d_in, descs)):
-            for dst, src in zip(d_in, descs):
-                dst.copy_(src)
+        d_in = self._static_descs_of(descs)
         sb_in = self._static(("sb", B), (B,), torch.int32)
-        sb_in.copy_(searchable_b)
+        if sb_in.data_ptr() != searchable_b.data_ptr():
+            sb_in.copy_(searchable_b)
         out = self._static(("recs", B), (B, RECORD_WIDTH), torch.float32)
 
         def body():
@@ -1540,16 +1603,16 @@ class ContourDB:
         self._graphs.run(("query", B), body, self._tag())
         return out
 
-    def _build_batch(self, points_b, graphed: bool) -> ScanDesc:
+    def _build_batch(self, points_b) -> ScanDesc:
         """build_descriptors of the (B, max_points, 4) clouds (host data is
         uploaded through pinned memory). Graphed, one replay of the build
         graph of B, captured once for each (B, payload dtype), writing the
-        static descriptor buffers of B (the query graph's input)."""
+        static descriptor buffers of B (the query graph's input); it reads
+        no DB tensor, so no grow drops it."""
         pts = self._upload(points_b)
-        if not graphed:
+        if not self.graphed:
             return build_descriptors(pts, self.cfg.cm, self.cfg.gmm)
         B = pts.shape[0]
-        self._ensure_capacity(0)        # the store the graphs' tag names
         key = ("build", pts.dtype, tuple(pts.shape))
         pts_in = self._static(("pts",) + key[1:], pts.shape, pts.dtype)
         pts_in.copy_(pts)
@@ -1560,7 +1623,7 @@ class ContourDB:
                                                         self.cfg.gmm)):
                 dst.copy_(src)
 
-        self._graphs.run(key, body, self._tag())
+        self._graphs.run(key, body)
         return d_in
 
     def process_block_async(self, descs: ScanDesc, seqs, ts_b) -> BlockHandle:
@@ -1577,15 +1640,10 @@ class ContourDB:
         the pushes of t_0..t_{b-1}), and the B queries share one batched key
         search. For arbitrary spacing use `step_chain_async`.
 
-        On a CUDA device the append and the window pushes run eagerly (a
-        few dozen ops, no host sync) and the B queries are one replay of
-        the query graph of B (`_query_batch`); with `dynamic_thres` the
-        block runs eagerly on the card."""
-        return self._process_block(descs, seqs, ts_b, self.graphed)
-
-    def _process_block(self, descs: ScanDesc, seqs, ts_b,
-                       graphed: bool) -> BlockHandle:
-        """process_block_async; `graphed` False runs the queries eagerly."""
+        On a CUDA device the append and the window pushes are one replay
+        of the append graph of B (writing the B queries' static
+        searchable_b) and the B queries one replay of the query graph of B
+        (`_query_batch`), with no host sync."""
         B = len(seqs)
         self._ensure_capacity(B)
         ts_t = self._ts_tensor(ts_b, B)
@@ -1593,24 +1651,39 @@ class ContourDB:
             raise ValueError(f"ts_b: shape {tuple(ts_t.shape)}, expected "
                              f"({B},)")
         row0 = self.n
-        self._append(descs, ts_t)
-        tb = self.cfg.db.tb
-        searchable_b = replay_window(self.state, self.ts_store, ts_t,
-                                     tb.min_elapse, tb.max_elapse)
-        recs = self._query_batch(descs, searchable_b, graphed)
+        if not self.graphed:
+            searchable_b = self._block_append(descs, ts_t)
+        else:
+            descs = self._static_descs_of(descs)
+            ts_in = self._static(("ts", B), (B,), torch.float32)
+            ts_in.copy_(ts_t)
+            searchable_b = self._static(("sb", B), (B,), torch.int32)
+            self._graphs.run(("block_append", B), lambda: searchable_b.copy_(
+                self._block_append(descs, ts_in)), self._tag())
+        self.n += B
+        recs = self._query_batch(descs, searchable_b)
         self.recs_store[row0:row0 + B] = recs
         self.seq_of_gidx.extend(int(s) for s in seqs)
         return BlockHandle(self.recs_store[row0:row0 + B], self, row0=row0)
 
-    def _block_chain(self, seqs, ts_nb, descs_of, graphed: bool
-                     ) -> BlockHandle:
+    def _block_append(self, descs: ScanDesc, ts_b):
+        """The append and window pushes of a block (db._process_block_impl
+        before its queries): `_append_rows` of the B-stacked descs, then
+        `replay_window`; returns each query's searchable_n, (B,) int32 on
+        the device. The body of the append graph of B."""
+        self._append_rows(descs, ts_b)
+        tb = self.cfg.db.tb
+        return replay_window(self.state, self.ts_store, ts_b, tb.min_elapse,
+                             tb.max_elapse)
+
+    def _block_chain(self, seqs, ts_nb, descs_of) -> BlockHandle:
         nb, b = len(ts_nb), len(ts_nb[0])
         if nb * b != len(seqs):
             raise ValueError("seqs must list the NB*B ids of ts_nb")
         row0 = self.n
         for i in range(nb):
-            self._process_block(descs_of(i), seqs[i * b:(i + 1) * b],
-                                ts_nb[i], graphed)
+            self.process_block_async(descs_of(i), seqs[i * b:(i + 1) * b],
+                                     ts_nb[i])
         return BlockHandle(self.recs_store[row0:row0 + nb * b], self,
                            row0=row0)
 
@@ -1619,24 +1692,17 @@ class ContourDB:
         """NB block steps in sequence: `descs_nb` is (NB, B)-stacked,
         `ts_nb` (NB, B); `seqs` lists the NB*B sequence ids in order."""
         return self._block_chain(
-            seqs, ts_nb, lambda i: ScanDesc(*[x[i] for x in descs_nb]),
-            self.graphed)
+            seqs, ts_nb, lambda i: ScanDesc(*[x[i] for x in descs_nb]))
 
     def block_chain_pts_async(self, points_nb, seqs, ts_nb) -> BlockHandle:
         """`block_chain_async` from raw clouds: `points_nb` is (NB, B,
         max_points, 4); each step builds its block's B descriptors (on a
         CUDA device one replay of the build graph of B), then runs the
         block step."""
-        return self._block_chain_pts(points_nb, seqs, ts_nb, self.graphed)
-
-    def _block_chain_pts(self, points_nb, seqs, ts_nb,
-                         graphed: bool) -> BlockHandle:
-        """block_chain_pts_async; `graphed` False runs it eagerly."""
         if len(points_nb) != len(ts_nb):
             raise ValueError("points_nb and ts_nb disagree on NB")
         return self._block_chain(
-            seqs, ts_nb, lambda i: self._build_batch(points_nb[i], graphed),
-            graphed)
+            seqs, ts_nb, lambda i: self._build_batch(points_nb[i]))
 
     def localize_block_async(self, points_b, chunk: Optional[int] = None
                              ) -> Optional[BlockHandle]:
@@ -1652,11 +1718,6 @@ class ContourDB:
         every request is padded to whole chunks, so one pair of graphs a
         chunk size serves every request size. `drop_graphs` gives their
         memory back."""
-        return self._localize(points_b, chunk, self.graphed)
-
-    def _localize(self, points_b, chunk: Optional[int],
-                  graphed: bool) -> Optional[BlockHandle]:
-        """localize_block_async; `graphed` False runs it eagerly."""
         if self.store is None:
             return None
         pts = torch.as_tensor(points_b)
@@ -1666,7 +1727,7 @@ class ContourDB:
                 torch.zeros((0, RECORD_WIDTH), dtype=torch.float32,
                             device=self.device), self,
                 counters="serving_counters")
-        if graphed:
+        if self.graphed:
             # one build and one query graph a chunk size, whatever B
             chunk = chunk or SERVE_CHUNK
         elif chunk is None or B <= chunk:
@@ -1676,10 +1737,9 @@ class ContourDB:
             pts = torch.cat([pts, pts.new_zeros((pad,) + pts.shape[1:])])
         recs = []
         for i in range(0, B + pad, chunk):
-            descs = self._build_batch(pts[i:i + chunk], graphed)
+            descs = self._build_batch(pts[i:i + chunk])
             recs.append(self._query_batch(
-                descs, self.state[1].expand(chunk).contiguous(),
-                graphed).clone())
+                descs, self.state[1].expand(chunk).contiguous()).clone())
         return BlockHandle(torch.cat(recs)[:B], self,
                            counters="serving_counters")
 

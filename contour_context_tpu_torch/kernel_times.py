@@ -51,6 +51,14 @@ hint rows and poses in, proposals out). `cascade_case` counts what the
 cascade's always-run chunk costs a query (device ops and busy time of
 every chunk against the query's own chunks).
 
+The two `dynamic_thres` kernels (`measure_dyn_pass`, `measure_dyn_post`;
+`chip_smoke.py` phase 9): the inputs the query path hands them for a
+revisit query and a block of 16 (`dyn_cases`, on a DB the caller holds),
+each held bit-equal to its plain version first (`hold_dyn_pass`,
+`hold_dyn_post`, also at `dyn_edge_cases`); their bound is the larger of
+their bytes and their serial chain, one dependent step a hint or a
+candidate at the card's maximum SM clock (`dyn_bound`).
+
 Then `scaling_rows`: both batched kernels across the sizes their paths
 give them (the ring at B = 1-64 and at 9-36 anchors, the tile-min at B =
 4-64 and on a capacity-65536 map), each beside its bytes, operations,
@@ -147,15 +155,17 @@ def device_us(fn, name: str, reps: int, cold: bool, per_call: int = 1) -> float:
     """Mean device duration (us) a call of fn spends in the kernels named
     *name* (per_call launches a call, summed), over reps calls, from
     torch.profiler's kernel records; cold writes 64 MB between calls. Each
-    profiled window opens with LEAD_CALLS calls made the same way, and only
+    profiled window opens with lead calls made the same way, and only
     records that started inside the window count. The profiler can lose
     records (seen on the H100: 199 or 10 of 200 kept; 49 of 50 again and
     again in one short window), so only whole calls are averaged: at
     per_call 1 a record is a whole call, and the mean is over the last reps
     records if the window kept at least reps; at per_call > 1 a lost record
     cannot be told to its call, and a window is taken only if it kept every
-    record of its LEAD_CALLS + reps calls. Any other window is reported on
-    stderr and profiled again, at most five times, and never averaged."""
+    record of its lead + reps calls. Any other window is reported on
+    stderr, never averaged, and profiled again, at most five times, each
+    time with LEAD_CALLS more lead calls (one H100 run kept 197 of a fast
+    kernel's 210 records again and again: a longer window keeps more)."""
     flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.int32, device="cuda") \
         if cold else None
     for _ in range(5):
@@ -163,12 +173,13 @@ def device_us(fn, name: str, reps: int, cold: bool, per_call: int = 1) -> float:
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    n_all = (LEAD_CALLS + reps) * per_call
-    least = reps if per_call == 1 else n_all
-    for _ in range(5):
+    for attempt in range(5):
+        lead = LEAD_CALLS * (1 + attempt)
+        n_all = (lead + reps) * per_call
+        least = reps if per_call == 1 else n_all
         with torch.profiler.profile(activities=acts) as prof:
             with torch.profiler.record_function(WINDOW):
-                for i in range(LEAD_CALLS + reps):
+                for i in range(lead + reps):
                     if flush is not None:
                         flush.fill_(i)
                     fn()
@@ -844,6 +855,216 @@ def measure_merge(hint_of, T, votes, label: str, reps: int = 200) -> dict:
                    "merge_hints_kernel", reps)))
 
 
+DYN_REPLACES = "contour_context_tpu/ops/candidate.py"
+
+
+def dyn_cases(db, points_b, cfg: PipelineConfig):
+    """The inputs the query path hands the two dynamic scans (the args of
+    `kernels.dyn_pass_scan` and of `kernels.dyn_post_scan`, bars included)
+    when the clouds (B, P, 4) are queried as one batch against `db`'s map
+    at its searchable prefix under `cfg` (`dynamic_thres` on), eagerly;
+    recorded where `ops/candidate.py` calls the wrappers."""
+    from contour_context_tpu_torch import db as tdb
+    from contour_context_tpu_torch.ops import candidate
+
+    seen = {}
+    orig = candidate.dyn_pass_scan, candidate.dyn_post_scan
+
+    def recorder(name, fn):
+        def call(*args):
+            seen[name] = args
+            return fn(*args)
+        return call
+
+    candidate.dyn_pass_scan = recorder("pass", orig[0])
+    candidate.dyn_post_scan = recorder("post", orig[1])
+    try:
+        descs = td.build_descriptors(points_b, cfg.cm, cfg.gmm)
+        B = points_b.shape[0]
+        tdb.query_step_batch(db.store, db.keys_q, descs,
+                             db.state[1].expand(B).contiguous(), cfg)
+    finally:
+        candidate.dyn_pass_scan, candidate.dyn_post_scan = orig
+    return seen["pass"], seen["post"]
+
+
+def hold_dyn_pass(args, what: str) -> float:
+    """One `dyn_pass_scan` launch against its plain version on `args`:
+    raises unless both masks are bit-equal; returns the largest absolute
+    difference (0.0 then)."""
+    k2, k3 = kernels.dyn_pass_scan(*args)
+    p2, p3 = kernels.dyn_pass_scan_plain(*args)
+    err = float(max((k2 != p2).sum(), (k3 != p3).sum()))
+    assert torch.equal(k2, p2) and torch.equal(k3, p3), \
+        f"dyn_pass_scan differs from the plain version ({what})"
+    return err
+
+
+def hold_dyn_post(args, what: str) -> float:
+    """One `dyn_post_scan` launch against its plain version on `args`."""
+    k = kernels.dyn_post_scan(*args)
+    p = kernels.dyn_post_scan_plain(*args)
+    err = float((k != p).sum())
+    assert torch.equal(k, p), \
+        f"dyn_post_scan differs from the plain version ({what})"
+    return err
+
+
+def dyn_bound(masks_in, ints_in, masks_out, steps: int, clk_hz: float):
+    """(bound us, bound_by, bytes) of a dynamic scan: each input byte read
+    once, each output mask written once, over 3.35 TB/s; against the
+    serial chain, `steps` dependent steps a row (H hints or C candidates)
+    at one step a clock at the card's maximum SM clock, which the rows
+    cannot share out."""
+    n_bytes = sum(t.numel() * t.element_size()
+                  for t in (*masks_in, *ints_in, *masks_out))
+    return _bound(n_bytes, steps / clk_hz) + (n_bytes,)
+
+
+def _dyn_row(name, line, args, label, fn, plain, hold, ins, ints, outs,
+             reps, clk):
+    err = hold(args, label)
+    H = ins[0].shape[-1]
+    b_us, b_by, n_bytes = dyn_bound(ins, ints, outs, H, clk)
+    return _shares(dict(
+        name=name, route="cuda",
+        source="contour_context_tpu_torch/csrc/dyn_thres.cu",
+        replaces=f"{DYN_REPLACES}:{line}",
+        shape=f"{tuple(ins[0].shape)} ({label})", steps=H,
+        passed=int(outs[-1].sum()), max_abs_err=err, bound_us=b_us,
+        bound_by=b_by, bytes=n_bytes, library_ms=None,
+        **_measure(lambda: fn(*args), lambda: plain(*args),
+                   name + "_kernel", reps)))
+
+
+def measure_dyn_pass(args, label: str, reps: int = 200) -> dict:
+    """The pass scan's row on its inputs: held against its plain version,
+    then timed (device us warm and cold, call and plain ms)."""
+    p2, p3 = kernels.dyn_pass_scan_plain(*args)
+    return _dyn_row("dyn_pass_scan", 290, args, label,
+                    kernels.dyn_pass_scan, kernels.dyn_pass_scan_plain,
+                    hold_dyn_pass, [args[0]],
+                    [x.to(torch.int32) for x in args[1:6]], [p2, p3], reps,
+                    max_sm_clock_hz())
+
+
+def measure_dyn_post(args, label: str, reps: int = 200) -> dict:
+    """The post scan's row on its inputs."""
+    keep = kernels.dyn_post_scan_plain(*args)
+    return _dyn_row("dyn_post_scan", 322, args, label,
+                    kernels.dyn_post_scan, kernels.dyn_post_scan_plain,
+                    hold_dyn_post, [args[0]],
+                    [x.to(torch.float32) for x in args[1:4]], [keep], reps,
+                    max_sm_clock_hz())
+
+
+def dyn_edge_cases(dev, cfg: PipelineConfig) -> list:
+    """Both dynamic scans bit-equal to their plain versions at the edges,
+    under cfg's bars: nothing passes (every pass1 / in_use False); every
+    row passes (every count and score at the upper bar, so the bars end at
+    ub); the bars clamp at ub on the first row (its orie, or its scores,
+    above every upper bar) and then gate the rest; random inputs at B = 1,
+    16 and 17; H at its cap (min(max_check_cands, Q*A*K)) and C at
+    max_cand_poses, and rows longer than the kernel's 1024-column chunk.
+    Returns one line a case."""
+    from contour_context_tpu_torch.ops.candidate import (dynamic_pass_scan,
+                                                         dynamic_post_scan)
+
+    lb, ub = cfg.thres_lb, cfg.thres_ub
+    Q, A, K = len(cfg.db.q_levels), cfg.cm.piv_firsts, cfg.db.nnk
+    HC = min(cfg.db.max_check_cands, Q * A * K)
+    C = cfg.db.max_cand_poses
+    rng = np.random.default_rng(11)
+
+    def pass_bars(e):
+        return (e.sim_constell.i_ovlp_sum, e.sim_constell.i_ovlp_max_one,
+                e.sim_constell.i_in_ang_rng, e.sim_pair.i_indiv_sim,
+                e.sim_pair.i_orie_sim)
+
+    def post_bars(e):
+        return (e.sim_post.area_perc, e.sim_post.neg_est_dist,
+                e.sim_post.correlation)
+
+    ub_pass, ub_post = pass_bars(ub), post_bars(ub)
+    lines = []
+
+    def t(x, dtype):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev, dtype)
+
+    def pass_case(B, H, kind):
+        p1 = rng.random((B, H)) < 0.7
+        cnt = rng.integers(0, 9, (5, B, H))
+        if kind == "nothing passes":
+            p1[:] = False
+        elif kind == "every row passes":
+            p1[:] = True
+            cnt[:] = max(ub_pass)
+        elif kind == "bars clamp at ub on the first row":
+            p1[:, 0] = True
+            cnt[:, :, 0] = max(ub_pass) + 5
+        args = (t(p1, torch.bool), *[t(c, torch.int32) for c in cnt])
+        p2, p3 = dynamic_pass_scan(*args, lb, ub)     # the query path's call
+        k2, k3 = dynamic_pass_scan(*[a.cpu() for a in args], lb, ub)
+        assert torch.equal(p2.cpu(), k2) and torch.equal(p3.cpu(), k3), kind
+        hold_dyn_pass(args + (pass_bars(lb), ub_pass),
+                      f"{kind}, B {B}, H {H}")
+        if kind == "nothing passes":
+            assert not p2.any() and not p3.any()
+        if kind == "every row passes":
+            assert p3.all()
+        return f"{kind}, B {B}, H {H}: {int(p3.sum())} of {p3.numel()} pass"
+
+    def post_case(B, n, kind):
+        use = rng.random((B, n)) < 0.8
+        sc = np.stack([rng.uniform(0.0, 0.2, (B, n)),
+                       rng.uniform(-8.0, -3.0, (B, n)),
+                       rng.uniform(0.1, 0.9, (B, n))]).astype(np.float32)
+        if kind == "nothing kept":
+            use[:] = False
+        elif kind == "every row kept":
+            use[:] = True
+            sc[:] = np.asarray(ub_post, np.float32)[:, None, None]
+        elif kind == "bars clamp at ub on the first row":
+            use[:, 0] = True
+            sc[:, :, 0] = np.asarray(ub_post, np.float32)[:, None] + 1.0
+        args = (t(use, torch.bool), *[t(x, torch.float32) for x in sc])
+        keep = dynamic_post_scan(*args, lb.sim_post, ub.sim_post)
+        keep_c = dynamic_post_scan(*[a.cpu() for a in args], lb.sim_post,
+                                   ub.sim_post)
+        assert torch.equal(keep.cpu(), keep_c), kind
+        hold_dyn_post(args + (post_bars(lb), ub_post), f"{kind}, B {B}, C {n}")
+        if kind == "nothing kept":
+            assert not keep.any()
+        if kind == "every row kept":
+            assert keep.all()
+        return f"{kind}, B {B}, C {n}: {int(keep.sum())} of {keep.numel()} kept"
+
+    kinds = ("random", "nothing passes", "every row passes",
+             "bars clamp at ub on the first row")
+    pass_lines = [pass_case(B, HC, k) for B in (1, 16, 17) for k in kinds]
+    pass_lines.append(pass_case(3, 2500, "random"))
+    # bars out of order: lb above ub (the bars jump to ub at the first
+    # pass) and lb equal to ub, on counts around them
+    odd = ((5, 2, 7, 3, 9), (3, 8, 7, 1, 12))
+    args = (t(rng.random((16, HC)) < 0.8, torch.bool),
+            *[t(rng.integers(0, 13, (16, HC)), torch.int32)
+              for _ in range(5)])
+    hold_dyn_pass(args + odd, "bars out of order")
+    p3 = kernels.dyn_pass_scan(*args, *odd)[1]
+    pass_lines.append(f"bars out of order {odd}, B 16, H {HC}: "
+                      f"{int(p3.sum())} of {p3.numel()} pass")
+    post_kinds = ("random", "nothing kept", "every row kept",
+                  "bars clamp at ub on the first row")
+    post_lines = [post_case(B, C, k) for B in (1, 16, 17) for k in post_kinds]
+    post_lines.append(post_case(3, 2500, "random"))
+    lines.append("dyn_pass_scan at the edges (the wrapper through "
+                 "candidate.dynamic_pass_scan, card == CPU, kernel == plain "
+                 "version bit for bit): " + "; ".join(pass_lines))
+    lines.append("dyn_post_scan at the edges (the same): "
+                 + "; ".join(post_lines))
+    return lines
+
+
 def _row(kmod, label, fn, name, reps, b_us, b_by, n_bytes, ops, ops_name):
     warm = device_us(fn, name, reps, cold=False)
     cold = device_us(fn, name, reps, cold=True)
@@ -948,7 +1169,7 @@ def main(argv: Optional[Sequence[str]] = None) -> list:
     cfg = PipelineConfig()
     case = ring_block_case(dev, cfg)
     for line in edge_cases(dev, cfg) + batch_edge_cases(dev, cfg) + \
-            ring_batch_edge_cases(dev, cfg, case):
+            ring_batch_edge_cases(dev, cfg, case) + dyn_edge_cases(dev, cfg):
         print(line, flush=True)
     rows = measure(dev, cfg, args.reps) + [
         measure_batch(dev, cfg, args.reps),

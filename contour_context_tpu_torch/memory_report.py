@@ -1,5 +1,5 @@
-"""Device memory of the port's three DB paths: the stream, the block build
-and map serving, each in a process of its own.
+"""Device memory of the port's DB paths: the stream, the block build, map
+serving, and two maps in one process, each path in a process of its own.
 
     python contour_context_tpu_torch/memory_report.py [--root DIR] [--out FILE]
 
@@ -12,13 +12,19 @@ over for the revisits):
 - block: `block_chain_pts_async` over 3 blocks of 16;
 - serving: that block-built map serves the 48 revisit clouds through
   `localize_block_async(chunk=16)`; its peaks are read from the start of
-  serving.
+  serving;
+- two_maps: two DBs in one process, each built through
+  `block_chain_pts_async` over the same 3 blocks of 16 (each holding the
+  build and query graphs of 16), then the second serves the 48 revisit
+  clouds.
 
 Each path prints one JSON line: the bytes allocated after it (resident),
 the peak allocated during it, the bytes reserved after it and at most
-during it, the bytes of the DB's CUDA graph pool (None where the DB has no
-graphs), and the bytes reserved and allocated after the DB's graphs are
-dropped and the allocator's cache is emptied. `--root` imports the package
+during it, the bytes of the process's CUDA graph pools (`pool`: one pool a
+device shared by every DB where `pool_scope` is "process", the sum of the
+DBs' own pools where a tree keeps one a DB; None where no DB has graphs),
+and the bytes reserved and allocated after every DB's graphs are dropped
+and the allocator's cache is emptied. `--root` imports the package
 and `tests/synth.py` from another checkout, so two trees are read in one
 call. Needs a CUDA device.
 """
@@ -33,7 +39,7 @@ import sys
 from typing import Optional, Sequence
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-PATHS = ("stream", "block", "serving")
+PATHS = ("stream", "block", "serving", "two_maps")
 N_SCANS, BLOCK = 48, 16
 
 
@@ -67,33 +73,49 @@ def run_path(path: str, root: str) -> dict:
 
     pts = clouds(lane_poses(0, N_SCANS))
     torch.cuda.reset_peak_memory_stats()
-    db = tdb.ContourDB(cfg, capacity=8192, device="cuda")
-    if path == "stream":
-        for i in range(N_SCANS):
-            db.step_async(pts[i], i, 0.1 * i)
-    else:
+
+    def block_map():
+        m = tdb.ContourDB(cfg, capacity=8192, device="cuda")
         nb = N_SCANS // BLOCK
-        db.block_chain_pts_async(
+        m.block_chain_pts_async(
             torch.from_numpy(pts).reshape((nb, BLOCK) + pts.shape[1:]),
             list(range(N_SCANS)),
             [[0.1 * i for i in range(k, k + BLOCK)]
              for k in range(0, N_SCANS, BLOCK)])
-        if path == "serving":
+        return m
+
+    if path == "stream":
+        dbs = [tdb.ContourDB(cfg, capacity=8192, device="cuda")]
+        for i in range(N_SCANS):
+            dbs[0].step_async(pts[i], i, 0.1 * i)
+    else:
+        dbs = [block_map() for _ in range(2 if path == "two_maps" else 1)]
+        if path != "block":
             rev = clouds(lane_poses(0, N_SCANS, dy=1.5))
             torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            db.localize_block_async(rev, chunk=BLOCK)
+            if path == "serving":
+                torch.cuda.reset_peak_memory_stats()
+            dbs[-1].localize_block_async(rev, chunk=BLOCK)
     torch.cuda.synchronize()
-    out = dict(path=path, root=root,
+    db = dbs[-1]
+    stats = [m.graph_stats() for m in dbs] \
+        if hasattr(db, "graph_stats") else None
+    # a tree whose graph_stats names the pool shares one a device
+    shared = stats is not None and "pool" in stats[0]
+    out = dict(path=path, root=root, dbs=len(dbs),
                store=db.store_bytes() if hasattr(db, "store_bytes") else None,
                resident=torch.cuda.memory_allocated(),
                peak=torch.cuda.max_memory_allocated(),
                reserved=torch.cuda.memory_reserved(),
                peak_reserved=torch.cuda.max_memory_reserved(),
-               pool=db.graph_stats()["pool_bytes"]
-               if hasattr(db, "graph_stats") else None)
-    if hasattr(db, "drop_graphs"):
-        db.drop_graphs()
+               pool=None if stats is None else
+               stats[0]["pool_bytes"] if shared else
+               sum(st["pool_bytes"] for st in stats),
+               pool_scope=None if stats is None else
+               "process" if shared else "db")
+    for m in dbs:
+        if hasattr(m, "drop_graphs"):
+            m.drop_graphs()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     out.update(reserved_after_drop=torch.cuda.memory_reserved(),

@@ -29,7 +29,6 @@ import torch
 
 from contour_context_tpu_torch.config import PipelineConfig
 from contour_context_tpu_torch.db import ContourDB, drain_handles
-from contour_context_tpu_torch.ops.descriptor import build_descriptor
 from contour_context_tpu_torch.utils.io import pad_points
 
 
@@ -185,7 +184,7 @@ class OnlineSpinner:
             if self.fused_step:
                 h = self.db.step_async(dev_pts, seq, ts)
             else:
-                desc = build_descriptor(dev_pts, cfg.cm, cfg.gmm)
+                desc = self.db._build_one(dev_pts)
                 h = self.db.query_async(desc)
                 self.db.add_scan(desc, seq, ts)
                 self.db.push_and_balance(ts)

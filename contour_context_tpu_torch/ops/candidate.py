@@ -13,12 +13,13 @@ from __future__ import annotations
 import math
 from typing import NamedTuple
 
-import numpy as np
 import torch
 
 from contour_context_tpu_torch.config import DIST_BIN_LAYERS, LAYER_AREA_WEIGHTS
 from contour_context_tpu_torch.ops.kernels import (P_PROP, TF_ANG_MERGE,
-                                                   TF_TRANS_MERGE, merge_hints)
+                                                   TF_TRANS_MERGE,
+                                                   dyn_pass_scan,
+                                                   dyn_post_scan, merge_hints)
 from contour_context_tpu_torch.types import device_const
 
 N_LEV = 6
@@ -220,33 +221,19 @@ def dynamic_pass_scan(pass1, ovlp_sum, ovlp_max1, in_ang, indiv, orie,
     """DYNAMIC_THRES re-gating of the check cascade (contour_db.h:439-458;
     candidate.py:290-319): hints are re-gated in order along the last dim,
     and each full pass raises the five working count bars to that hint's
-    final pair count, clamped by the upper-bound ensemble. The recurrence
-    is sequential and tiny (five ints over H rows), so it runs on the host,
-    every leading index (the B queries of a block) advancing together: one
-    copy of the six (..., H) inputs down, one of the two masks back.
-    Returns (pass2, pass3) under the dynamic bars, on the inputs' device."""
-    lbv = np.array([lb.sim_constell.i_ovlp_sum, lb.sim_constell.i_ovlp_max_one,
-                    lb.sim_constell.i_in_ang_rng, lb.sim_pair.i_indiv_sim,
-                    lb.sim_pair.i_orie_sim], np.int64)
-    ubv = np.array([ub.sim_constell.i_ovlp_sum, ub.sim_constell.i_ovlp_max_one,
-                    ub.sim_constell.i_in_ang_rng, ub.sim_pair.i_indiv_sim,
-                    ub.sim_pair.i_orie_sim], np.int64)
-    shape = tuple(pass1.shape)
-    H = shape[-1]
-    cols = torch.stack([x.to(torch.int32) for x in (
-        pass1, ovlp_sum, ovlp_max1, in_ang, indiv, orie)], dim=-1) \
-        .reshape(-1, H, 6).cpu().numpy().astype(np.int64)
-    bars = np.tile(lbv, (cols.shape[0], 1))
-    out = np.zeros((cols.shape[0], H, 2), np.bool_)
-    for t in range(H):
-        row = cols[:, t]
-        pass2 = (row[:, 0] > 0) & (row[:, 1:4] >= bars[:, 0:3]).all(axis=1)
-        pass3 = pass2 & (row[:, 4:6] >= bars[:, 3:5]).all(axis=1)
-        raised = np.minimum(np.maximum(bars, row[:, 5:6]), ubv)
-        bars = np.where(pass3[:, None], raised, bars)
-        out[:, t, 0], out[:, t, 1] = pass2, pass3
-    mask = torch.from_numpy(out).reshape(shape + (2,)).to(pass1.device)
-    return mask[..., 0], mask[..., 1]
+    final pair count, clamped by the upper-bound ensemble. Every leading
+    index (the B queries of a block) advances on its own. On the device
+    with no host sync: the `dyn_pass_scan` kernel on a CUDA device, its
+    plain version on the CPU. Returns (pass2, pass3) under the dynamic
+    bars."""
+    lbv = (lb.sim_constell.i_ovlp_sum, lb.sim_constell.i_ovlp_max_one,
+           lb.sim_constell.i_in_ang_rng, lb.sim_pair.i_indiv_sim,
+           lb.sim_pair.i_orie_sim)
+    ubv = (ub.sim_constell.i_ovlp_sum, ub.sim_constell.i_ovlp_max_one,
+           ub.sim_constell.i_in_ang_rng, ub.sim_pair.i_indiv_sim,
+           ub.sim_pair.i_orie_sim)
+    return dyn_pass_scan(pass1, ovlp_sum, ovlp_max1, in_ang, indiv, orie,
+                         lbv, ubv)
 
 
 def dynamic_post_scan(in_use, area, neg_d, corr0, lb_post, ub_post):
@@ -254,28 +241,13 @@ def dynamic_post_scan(in_use, area, neg_d, corr0, lb_post, ub_post):
     candidate.py:322-344): candidates are screened in first-seen order along
     the last dim, and each one passing all three screens (area %, distance
     censor, init correlation) raises the working bars to its own scores,
-    clamped by the upper bounds. On the host like `dynamic_pass_scan`, in
-    float32 (min, max and >= round nothing). Returns the keep mask on the
-    inputs' device."""
-    f32 = np.float32
-    lbv = np.array([lb_post.area_perc, lb_post.neg_est_dist,
-                    lb_post.correlation], f32)
-    ubv = np.array([ub_post.area_perc, ub_post.neg_est_dist,
-                    ub_post.correlation], f32)
-    shape = tuple(in_use.shape)
-    C = shape[-1]
-    cols = torch.stack([in_use.to(torch.float32), area.to(torch.float32),
-                        neg_d.to(torch.float32), corr0.to(torch.float32)],
-                       dim=-1).reshape(-1, C, 4).cpu().numpy()
-    bars = np.tile(lbv, (cols.shape[0], 1))
-    keep = np.zeros((cols.shape[0], C), np.bool_)
-    for t in range(C):
-        x = cols[:, t, 1:]
-        k = (cols[:, t, 0] > 0.5) & (x >= bars).all(axis=1)
-        bars = np.where(k[:, None], np.minimum(np.maximum(bars, x), ubv),
-                        bars)
-        keep[:, t] = k
-    return torch.from_numpy(keep).reshape(shape).to(in_use.device)
+    clamped by the upper bounds, in float32 (min, max and >= round
+    nothing). On the device like `dynamic_pass_scan` (the `dyn_post_scan`
+    kernel). Returns the keep mask."""
+    return dyn_post_scan(
+        in_use, area, neg_d, corr0,
+        (lb_post.area_perc, lb_post.neg_est_dist, lb_post.correlation),
+        (ub_post.area_perc, ub_post.neg_est_dist, ub_post.correlation))
 
 
 def _area_weights(device) -> torch.Tensor:

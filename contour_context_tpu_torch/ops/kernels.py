@@ -1,8 +1,8 @@
 """The port's hand-written CUDA kernels, their plain torch twins, and the build.
 
 Four kernel entries replace the JAX package's two Pallas kernels
-(`contour_context_tpu/ops/pallas_kernels.py`), and two more take the JAX
-package's device-side while-loops off the host:
+(`contour_context_tpu/ops/pallas_kernels.py`), and four more take the JAX
+package's device-side while-loops and scans off the host:
 
 - `ring_key_divs` (csrc/ring_key.cu): the ring-key Gaussian contraction of
   `make_keys`, replacing `_ring_kernel`.
@@ -26,6 +26,11 @@ package's device-side while-loops off the host:
   loop over every candidate row of B queries, its trip count read on the
   device (the lax.while_loop of the JAX `ops/candidate.merge_proposals`;
   the plain version reads its trip count on the host).
+- `dyn_pass_scan` and `dyn_post_scan` (csrc/dyn_thres.cu): the two
+  DYNAMIC_THRES recurrences of B queries, the re-gating of the cascade and
+  the post screens with rising bars (the two lax.scans of the JAX
+  `ops/candidate.py`; the plain versions step along the last axis in
+  torch.where ops).
 
 Each wrapper takes its plain twin for CPU tensors only; a CUDA tensor launches
 the kernel or raises. The kernels are compiled at first use with nvcc into one
@@ -36,11 +41,13 @@ Each wrapper counts its kernel launches in its `launches` attribute.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import math
 import os
 import subprocess
+import threading
 from pathlib import Path
 
 import numpy as np
@@ -58,7 +65,7 @@ INV_SQRT_2PI = 1.0 / math.sqrt(2.0 * math.pi)
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _SOURCES = ("ring_key.cu", "search_tilemin.cu", "cc_labels.cu",
-            "merge_hints.cu")
+            "merge_hints.cu", "dyn_thres.cu")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 _lib = None
 
@@ -117,6 +124,10 @@ def build() -> ctypes.CDLL:
     lib.cc_merge_hints.restype = ci
     lib.cc_merge_hints.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci, ci, ci,
                                    cf, cf, cf, cf, cf, vp]
+    lib.cc_dyn_pass_scan.restype = ci
+    lib.cc_dyn_pass_scan.argtypes = [vp] * 8 + [ci] * 12 + [vp]
+    lib.cc_dyn_post_scan.restype = ci
+    lib.cc_dyn_post_scan.argtypes = [vp] * 5 + [ci, ci] + [cf] * 6 + [vp]
     _lib = lib
     return lib
 
@@ -251,7 +262,7 @@ def ring_key_divs(anchors, pool, centers, roi_radius: float):
         return ring_key_divs_plain(anchors, pool, centers, roi_radius)
     divs, counts = _ring_launch("ring_key_divs", anchors[None], pool[None],
                                 centers, roi_radius)
-    ring_key_divs.launches += 1
+    add_launches({"ring_key_divs": 1})
     return divs[0], counts[0]
 
 
@@ -267,7 +278,7 @@ def ring_key_divs_batch(anchors_b, pool_b, centers, roi_radius: float):
                                          roi_radius)
     out = _ring_launch("ring_key_divs_batch", anchors_b, pool_b, centers,
                        roi_radius)
-    ring_key_divs_batch.launches += 1
+    add_launches({"ring_key_divs_batch": 1})
     return out
 
 
@@ -345,7 +356,7 @@ def search_tilemin(keys_q, q_levels, q, state):
         Q, A, NA, int(keys_q.dtype == torch.bfloat16),
         _pack_levels(q_levels), L, _stream(keys_q.device))
     _raise_on(rc, "search_tilemin")
-    search_tilemin.launches += 1
+    add_launches({"search_tilemin": 1})
     return out
 
 
@@ -419,7 +430,7 @@ def search_tilemin_batch(keys_q, q_levels, q_b, searchable_b):
         out.data_ptr(), B, Q, A, NA, int(keys_q.dtype == torch.bfloat16),
         _pack_levels(q_levels), L, _stream(keys_q.device))
     _raise_on(rc, "search_tilemin_batch")
-    search_tilemin_batch.launches += 1
+    add_launches({"search_tilemin_batch": 1})
     return out
 
 
@@ -539,7 +550,7 @@ def cc_labels(masks):
     rc = lib.cc_cc_labels(masks.data_ptr(), labels.data_ptr(), N, nr, nc,
                           _stream(masks.device))
     _raise_on(rc, "cc_labels")
-    cc_labels.launches += 1
+    add_launches({"cc_labels": 1})
     return labels
 
 
@@ -651,7 +662,7 @@ def merge_hints(hint_of, T, votes):
         float(np.float32(1.0) / two_pi), TF_TRANS_MERGE, TF_ANG_MERGE,
         _stream(dev))
     _raise_on(rc, "merge_hints")
-    merge_hints.launches += 1
+    add_launches({"merge_hints": 1})
     return prop_T, prop_votes, prop_n, key_of_m
 
 
@@ -659,11 +670,164 @@ merge_hints.launches = 0
 
 
 # ---------------------------------------------------------------------------
+# the two DYNAMIC_THRES recurrences
+# ---------------------------------------------------------------------------
+
+def dyn_pass_scan_plain(pass1, ovlp_sum, ovlp_max1, in_ang, indiv, orie,
+                        lb, ub):
+    """The re-gating of the check cascade under DYNAMIC_THRES
+    (contour_db.h:439-458; the lax.scan of the JAX
+    `ops/candidate.dynamic_pass_scan`): pass1 (..., H) bool and the five
+    (..., H) integer pair counts of each hint in check order, `lb` and `ub`
+    five ints each (the bars of ovlp_sum, ovlp_max1, in_ang, indiv, orie)
+    -> (pass2, pass3) (..., H) bool. The working bars start at lb; hint t
+    passes check 2 iff pass1 and its first three counts reach bars 0-2,
+    check 3 iff check 2 and its last two reach bars 3-4, and a check-3 pass
+    raises every bar to min(max(bar, orie_t), ub). Every leading index
+    advances together, one step of torch.where ops a hint on the inputs'
+    device: no host sync."""
+    shape = tuple(pass1.shape)
+    H = shape[-1]
+    if H == 0 or pass1.numel() == 0:
+        return (torch.zeros(shape, dtype=torch.bool, device=pass1.device),
+                torch.zeros(shape, dtype=torch.bool, device=pass1.device))
+    dev = pass1.device
+    i32 = torch.int32
+    p1 = pass1.reshape(-1, H).to(torch.bool)
+    cnt = torch.stack([x.reshape(-1, H).to(i32) for x in (
+        ovlp_sum, ovlp_max1, in_ang, indiv, orie)], dim=-1)   # (R, H, 5)
+    bars = device_const(tuple(int(v) for v in lb), i32, dev) \
+        .expand(p1.shape[0], 5)
+    ubv = device_const(tuple(int(v) for v in ub), i32, dev)
+    out2, out3 = [], []
+    for t in range(H):
+        x = cnt[:, t]
+        p2 = p1[:, t] & (x[:, 0:3] >= bars[:, 0:3]).all(dim=1)
+        p3 = p2 & (x[:, 3:5] >= bars[:, 3:5]).all(dim=1)
+        raised = torch.minimum(torch.maximum(bars, x[:, 4:5]), ubv)
+        bars = torch.where(p3[:, None], raised, bars)
+        out2.append(p2)
+        out3.append(p3)
+    return (torch.stack(out2, dim=-1).reshape(shape),
+            torch.stack(out3, dim=-1).reshape(shape))
+
+
+def dyn_pass_scan(pass1, ovlp_sum, ovlp_max1, in_ang, indiv, orie, lb, ub):
+    """Kernel wrapper of `dyn_pass_scan_plain` (same signature and outputs,
+    bit-identical): one launch for every leading index, a CTA a row, one
+    thread walking the row's hints."""
+    if pass1.device.type == "cpu":
+        return dyn_pass_scan_plain(pass1, ovlp_sum, ovlp_max1, in_ang, indiv,
+                                   orie, lb, ub)
+    if pass1.device.type != "cuda":
+        raise ValueError(f"dyn_pass_scan: unsupported device {pass1.device}")
+    shape = tuple(pass1.shape)
+    if not shape:
+        raise ValueError("dyn_pass_scan: pass1 is 0-d, expected (..., HC)")
+    H = shape[-1]
+    pass1 = pass1.contiguous()
+    _check("pass1", pass1, torch.bool)
+    cols = [x.to(torch.int32).contiguous() for x in (
+        ovlp_sum, ovlp_max1, in_ang, indiv, orie)]
+    for name, x in zip(("ovlp_sum", "ovlp_max1", "in_ang", "indiv", "orie"),
+                       cols):
+        if tuple(x.shape) != shape or x.device != pass1.device:
+            raise ValueError(f"dyn_pass_scan: {name} {tuple(x.shape)} on "
+                             f"{x.device}, expected {shape} on "
+                             f"{pass1.device}")
+    if len(lb) != 5 or len(ub) != 5:
+        raise ValueError("dyn_pass_scan: five lower and five upper bars")
+    lib = build()
+    pass2 = torch.empty(shape, dtype=torch.bool, device=pass1.device)
+    pass3 = torch.empty(shape, dtype=torch.bool, device=pass1.device)
+    rc = lib.cc_dyn_pass_scan(
+        pass1.data_ptr(), *[x.data_ptr() for x in cols], pass2.data_ptr(),
+        pass3.data_ptr(), math.prod(shape[:-1]), H, *[int(v) for v in lb],
+        *[int(v) for v in ub], _stream(pass1.device))
+    _raise_on(rc, "dyn_pass_scan")
+    add_launches({"dyn_pass_scan": 1})
+    return pass2, pass3
+
+
+dyn_pass_scan.launches = 0
+
+
+def dyn_post_scan_plain(in_use, area, neg_d, corr0, lb, ub):
+    """The post-processing screens under DYNAMIC_THRES (contour_db.h:
+    532-574; the lax.scan of the JAX `ops/candidate.dynamic_post_scan`):
+    in_use (..., C) bool and the float32 area %, distance censor and init
+    correlation of each candidate row in first-seen order, `lb` and `ub`
+    three floats each (taken as float32) -> keep (..., C) bool. Row t is
+    kept iff in use and its three scores reach the working bars (which
+    start at lb); a kept row raises the bars to min(max(bar, score), ub).
+    One step of torch.where ops a row on the inputs' device: no host
+    sync; min, max and >= round nothing."""
+    shape = tuple(in_use.shape)
+    C = shape[-1]
+    if C == 0 or in_use.numel() == 0:
+        return torch.zeros(shape, dtype=torch.bool, device=in_use.device)
+    dev = in_use.device
+    f32 = torch.float32
+    use = in_use.reshape(-1, C).to(torch.bool)
+    v = torch.stack([x.reshape(-1, C).to(f32) for x in (area, neg_d, corr0)],
+                    dim=-1)                                  # (R, C, 3)
+    bars = device_const(tuple(float(x) for x in lb), f32, dev) \
+        .expand(use.shape[0], 3)
+    ubv = device_const(tuple(float(x) for x in ub), f32, dev)
+    keep = []
+    for t in range(C):
+        x = v[:, t]
+        k = use[:, t] & (x >= bars).all(dim=1)
+        bars = torch.where(k[:, None],
+                           torch.minimum(torch.maximum(bars, x), ubv), bars)
+        keep.append(k)
+    return torch.stack(keep, dim=-1).reshape(shape)
+
+
+def dyn_post_scan(in_use, area, neg_d, corr0, lb, ub):
+    """Kernel wrapper of `dyn_post_scan_plain` (same signature and output,
+    bit-identical): one launch, a CTA a row, one thread walking it."""
+    if in_use.device.type == "cpu":
+        return dyn_post_scan_plain(in_use, area, neg_d, corr0, lb, ub)
+    if in_use.device.type != "cuda":
+        raise ValueError(f"dyn_post_scan: unsupported device {in_use.device}")
+    shape = tuple(in_use.shape)
+    if not shape:
+        raise ValueError("dyn_post_scan: in_use is 0-d, expected (..., C)")
+    C = shape[-1]
+    in_use = in_use.contiguous()
+    _check("in_use", in_use, torch.bool)
+    vals = [x.to(torch.float32).contiguous() for x in (area, neg_d, corr0)]
+    for name, x in zip(("area", "neg_d", "corr0"), vals):
+        if tuple(x.shape) != shape or x.device != in_use.device:
+            raise ValueError(f"dyn_post_scan: {name} {tuple(x.shape)} on "
+                             f"{x.device}, expected {shape} on "
+                             f"{in_use.device}")
+    if len(lb) != 3 or len(ub) != 3:
+        raise ValueError("dyn_post_scan: three lower and three upper bars")
+    lib = build()
+    keep = torch.empty(shape, dtype=torch.bool, device=in_use.device)
+    # ctypes.c_float rounds each bar to float32, as the plain version does
+    rc = lib.cc_dyn_post_scan(
+        in_use.data_ptr(), *[x.data_ptr() for x in vals], keep.data_ptr(),
+        math.prod(shape[:-1]), C, *[float(x) for x in lb],
+        *[float(x) for x in ub],
+        _stream(in_use.device))
+    _raise_on(rc, "dyn_post_scan")
+    add_launches({"dyn_post_scan": 1})
+    return keep
+
+
+dyn_post_scan.launches = 0
+
+
+# ---------------------------------------------------------------------------
 # launch counts
 # ---------------------------------------------------------------------------
 
 WRAPPERS = (ring_key_divs, ring_key_divs_batch, search_tilemin,
-            search_tilemin_batch, cc_labels, merge_hints)
+            search_tilemin_batch, cc_labels, merge_hints, dyn_pass_scan,
+            dyn_post_scan)
 
 
 def launch_counts() -> dict:
@@ -671,13 +835,40 @@ def launch_counts() -> dict:
     return {w.__name__: w.launches for w in WRAPPERS}
 
 
+_COUNT_LOCK = threading.Lock()
+_CAPTURING = threading.local()
+
+
 def add_launches(counts: dict) -> None:
-    """Add {wrapper name: n} to the counts: a CUDA graph's launches of each
-    kernel, once a replay (a replay runs no wrapper)."""
-    for w in WRAPPERS:
-        w.launches += counts.get(w.__name__, 0)
+    """Add {wrapper name: n} to the counts: a wrapper's launch, or a CUDA
+    graph's launches of each kernel, once a replay (a replay runs no
+    wrapper). Under a lock: the online spinner counts from its own
+    thread. Inside `recording_launches` this thread's launches go to the
+    recording instead."""
+    rec = getattr(_CAPTURING, "launches", None)
+    if rec is not None:
+        for k, n in counts.items():
+            rec[k] = rec.get(k, 0) + n
+        return
+    with _COUNT_LOCK:
+        for w in WRAPPERS:
+            w.launches += counts.get(w.__name__, 0)
+
+
+@contextlib.contextmanager
+def recording_launches():
+    """Yields {wrapper name: n}, the launches this thread's wrappers make
+    inside the block, which are not counted: a CUDA graph capture records
+    its kernels and runs none (other threads count as usual)."""
+    prev = getattr(_CAPTURING, "launches", None)
+    _CAPTURING.launches = rec = {}
+    try:
+        yield rec
+    finally:
+        _CAPTURING.launches = prev
 
 
 def reset_launches() -> None:
-    for w in WRAPPERS:
-        w.launches = 0
+    with _COUNT_LOCK:
+        for w in WRAPPERS:
+            w.launches = 0

@@ -3,13 +3,16 @@
 Replays a sequence (test/batch_bin_test.cpp:105-248) on the DB's device, in
 one of four ways that write the same outcome file:
 - `run` (the default, as in the JAX package and both CLIs): per scan through
-  the unfused API (`build_descriptor`, `query_async`, `add_scan`,
-  `push_and_balance`), with a per-stage timing report;
+  the unfused API (the DB's per-scan build, `query_async`, `add_scan`,
+  `push_and_balance`; on a CUDA device one CUDA graph replay each), with a
+  per-stage timing report;
 - `run` with `fused_step=True`: the same order in one `ContourDB.step_async`
   a scan (build -> query -> append -> window), which also writes the DB's
   record ring;
-- `run_blocked`: `block` scans at a time through `process_block_async` (one
-  batched key search a block; needs regularly spaced timestamps);
+- `run_blocked`: `block` scans at a time, built by one batched build (on a
+  CUDA device one replay of the DB's build graph of `block`), then
+  `process_block_async` (one batched key search a block; needs regularly
+  spaced timestamps);
 - `run_chained`: `chain` scans staged and copied at a time, then stepped one
   by one (`step_chain_async`, exact at any timestamp spacing).
 Scans are read by the native loader (utils/native_loader.py) unless
@@ -41,8 +44,6 @@ from contour_context_tpu_torch.db import (
 )
 from contour_context_tpu_torch.eval.evaluator import ContLCDEvaluator
 from contour_context_tpu_torch.ops.descriptor import (
-    build_descriptor,
-    build_descriptors,
     dequantize_points,
     rasterize_bev,
 )
@@ -92,11 +93,12 @@ class LoopClosurePipeline:
         self.cfg = cfg
         self.evaluator = evaluator
         self.db = ContourDB(cfg, capacity, device=device)
-        # the report's header names how the fused step runs on the card
+        # the report's header names how the stages run on the card
         mode = ""
         if self.db.device.type == "cuda":
-            mode = (" (fused step: one CUDA graph replay)" if self.db.graphed
-                    else " (fused step: eager, dynamic_thres)")
+            mode = (" (unfused stages: one CUDA graph replay each; fused "
+                    "step: one CUDA graph replay)" if self.db.graphed else
+                    " (unfused stages and fused step: eager bodies)")
         self.stp = SequentialTimeProfiler("cont2-torch batch" + mode)
         self.results: List[LoopResult] = []
         # synchronise after each stage, so the timing report holds device
@@ -230,10 +232,12 @@ class LoopClosurePipeline:
             self.stp.record("scan step (fused)")
             self._push_pending((info, handle))
             return
-        desc = build_descriptor(dev_pts, cfg.cm, cfg.gmm)
+        desc = self.db._build_one(dev_pts)
         self._sync()
         self.stp.record("make bev")
         if self.save_mid_dir is not None:
+            # fetched now: on a CUDA device `desc` is the build graph's
+            # static output, which the next scan's replay overwrites
             from contour_context_tpu_torch.utils.dumps import (
                 save_bev_image, save_contours)
 
@@ -337,7 +341,7 @@ class LoopClosurePipeline:
             self.stp.lap()
             self.stp.start()
             dev_pts = self._stage_group(infos, (n_done // block) % 2)
-            descs = build_descriptors(dev_pts, self.cfg.cm, self.cfg.gmm)
+            descs = self.db._build_batch(dev_pts)
             self.stp.record("make bev")
             self.stp.start()
             h = self.db.process_block_async(descs, [i.seq for i in infos],

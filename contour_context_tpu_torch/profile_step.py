@@ -320,7 +320,8 @@ def run(device: str = "cuda", lane_scans: int = 132, reps: int = 20,
         """The next scan through the eager body the step's graph captured
         (the same records and state: the stream goes on whole)."""
         nonlocal k
-        db._step(clouds[k], k, 0.1 * k, False)
+        with db.eager():
+            db.step_async(clouds[k], k, 0.1 * k)
         k += 1
 
     while k < first:

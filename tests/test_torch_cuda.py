@@ -66,6 +66,14 @@ This file imports no jax, so it runs where only torch is installed:
   included; 20 graphed steps and a chain of 16 with no host sync (sync
   debug mode "error"); blocks and serving chunks as build and query graph
   replays bit-equal to the eager calls, with no host sync.
+- every stage a replay: the two dynamic-threshold kernels bit-equal to
+  their plain versions at the edges and on revisit queries' inputs; the
+  pipeline's default (unfused) path and `run_blocked`, with and without
+  `dynamic_thres`, as replays writing the outcome file of the eager bodies
+  bit for bit, with no host sync after the captures, a `query_async`
+  record equal to `step_async`'s for the same scan and window state; two
+  DBs with graphs of 8 holding one pool, and one DB's `drop_graphs`
+  leaving the other's replays right.
 """
 
 import numpy as np
@@ -74,7 +82,9 @@ import torch
 
 from synth import make_world, render_scan
 
-from contour_context_tpu_torch.config import ContourManagerConfig, PipelineConfig
+from contour_context_tpu_torch.config import (ContourDBConfig,
+                                              ContourManagerConfig,
+                                              PipelineConfig)
 from contour_context_tpu_torch.utils.io import pad_points
 from contour_context_tpu_torch import db as tdb
 from contour_context_tpu_torch import kernel_times as kt
@@ -914,11 +924,12 @@ def _stream_db(cfg, clouds, graphed, n, q16=False, capacity=8):
     from contour_context_tpu_torch.utils.io import quantize_points_q16
 
     db = tdb.ContourDB(cfg, capacity=capacity, device="cuda")
+    db._use_graphs = graphed
     for i in range(n):
         pts = clouds[i % len(clouds)]
         if q16:
             pts = quantize_points_q16(pts)
-        db._step(pts, i, 6.0 * i, graphed)
+        db.step_async(pts, i, 6.0 * i)
     return db
 
 
@@ -974,16 +985,17 @@ def test_graphed_stream_and_chain_make_no_host_sync_on_card(cuda):
         db.step_async(clouds[i % 12], i, 6.0 * i) for i in range(1, 21)]))
     assert delta == {"ring_key_divs": 20, "ring_key_divs_batch": 0,
                      "search_tilemin": 20, "search_tilemin_batch": 0,
-                     "cc_labels": 20, "merge_hints": 20}, delta
+                     "cc_labels": 20, "merge_hints": 20, "dyn_pass_scan": 0,
+                     "dyn_post_scan": 0}, delta
     buf = np.concatenate([clouds, clouds[:4]])
     ts = [6.0 * i for i in range(21, 37)]
     h = _no_syncs(lambda: db.step_chain_dyn_async(buf, list(range(21, 37)),
                                                   ts))
     assert h.row0 == 21 and h.recs.shape == (16, 18)
     e = tdb.ContourDB(cfg, capacity=64, device="cuda")
+    e._use_graphs = False
     for i in range(37):
-        e._step(buf[i - 21] if i >= 21 else clouds[i % 12], i, 6.0 * i,
-                False)
+        e.step_async(buf[i - 21] if i >= 21 else clouds[i % 12], i, 6.0 * i)
     _assert_same_db(db, e, 37)
     assert len(h.get()) == 16
 
@@ -1000,24 +1012,27 @@ def test_graphed_block_and_serving_equal_eager_on_card(cuda):
     dbs = {}
     for graphed in (True, False):
         db = tdb.ContourDB(cfg, capacity=32, device="cuda")
-        db._block_chain_pts(torch.from_numpy(pts[:8])[None], list(range(8)),
-                            [[6.0 * i for i in range(8)]], graphed)
+        db._use_graphs = graphed
+        db.block_chain_pts_async(torch.from_numpy(pts[:8])[None],
+                                 list(range(8)),
+                                 [[6.0 * i for i in range(8)]])
         dbs[graphed] = db
     g, e = dbs[True], dbs[False]
-    step = (lambda db, graphed: db._block_chain_pts(
+    step = (lambda db: db.block_chain_pts_async(
         pts[8:16][None], list(range(8, 16)), [[6.0 * i for i in
-                                                range(8, 16)]], graphed))
-    delta = _launch_delta(lambda: _no_syncs(lambda: step(g, True)))
+                                                range(8, 16)]]))
+    delta = _launch_delta(lambda: _no_syncs(lambda: step(g)))
     assert delta == {"ring_key_divs": 0, "ring_key_divs_batch": 1,
                      "search_tilemin": 0, "search_tilemin_batch": 1,
-                     "cc_labels": 1, "merge_hints": 1}, delta
-    step(e, False)
+                     "cc_labels": 1, "merge_hints": 1, "dyn_pass_scan": 0,
+                     "dyn_post_scan": 0}, delta
+    step(e)
     _assert_same_db(g, e, 16)
     assert int((g.recs_store[8:16, 0] > 0.5).sum()) >= 2
     recs = {}
     for graphed, db in dbs.items():
-        db._localize(pts[8:14], 4, graphed)             # captures at B = 4
-        recs[graphed] = db._localize(pts[2:12], 4, graphed)
+        db.localize_block_async(pts[8:14], 4)           # captures at B = 4
+        recs[graphed] = db.localize_block_async(pts[2:12], 4)
     delta = _launch_delta(lambda: _no_syncs(
         lambda: g.localize_block_async(pts[2:12], chunk=4)))
     assert delta["ring_key_divs_batch"] == delta["search_tilemin_batch"] \
@@ -1034,20 +1049,32 @@ def test_graphed_serving_pads_to_its_chunk_and_drops_its_graphs_on_card(
     10 and 20 clouds at chunk 8 capture one build and one query graph, a
     request with no chunk one more pair at SERVE_CHUNK, and every record
     equals the eager body's on the same chunks (the request padded with
-    zero clouds to whole chunks). drop_graphs empties the DB's graphs and
-    gives their pool back to the card; the next call captures again and
-    its records are the same."""
+    zero clouds to whole chunks). drop_graphs empties the DB's graphs; the
+    device's pool, shared by every DB, goes back to the card once no other
+    DB's graph lives; the next call captures again and its records are the
+    same."""
+    import gc
+
+    from contour_context_tpu_torch import graphs
+
+    gc.collect()
+    live = graphs.device_pool(cuda).live
+    assert not len(live), "graphs of another test's DBs are still alive"
     cfg, clouds = _revisit_clouds()
     pts = np.concatenate([clouds, clouds[:8]])
     db = tdb.ContourDB(cfg, capacity=32, device="cuda")
-    db._block_chain_pts(torch.from_numpy(clouds[:8])[None], list(range(8)),
-                        [[6.0 * i for i in range(8)]], False)
+    with db.eager():
+        db.block_chain_pts_async(torch.from_numpy(clouds[:8])[None],
+                                 list(range(8)),
+                                 [[6.0 * i for i in range(8)]])
 
     def same(B, chunk):
         a = db.localize_block_async(pts[:B], chunk=chunk).recs
         c = chunk or tdb.SERVE_CHUNK
         pad = np.zeros((-B % c,) + pts.shape[1:], pts.dtype)
-        b = db._localize(np.concatenate([pts[:B], pad]), c, False).recs[:B]
+        with db.eager():
+            b = db.localize_block_async(np.concatenate([pts[:B], pad]),
+                                        c).recs[:B]
         assert a.shape == (B, 18)
         assert torch.equal(a.view(torch.int32), b.view(torch.int32)), B
 
@@ -1064,8 +1091,199 @@ def test_graphed_serving_pads_to_its_chunk_and_drops_its_graphs_on_card(
     torch.cuda.empty_cache()
     before = torch.cuda.memory_reserved()
     db.drop_graphs()
-    assert not db._graphs.graphs and db.graph_stats()["pool_bytes"] == 0
+    assert not db._graphs.graphs and not len(live)
+    assert db.graph_stats()["pool_bytes"] == 0
     assert torch.cuda.memory_reserved() <= before - pool
     same(10, 8)
     assert len(db._graphs.graphs) == 2
 
+
+
+def _dyn(cfg):
+    return PipelineConfig(cm=cfg.cm, db=ContourDBConfig(dynamic_thres=True))
+
+
+@pytest.mark.cuda
+def test_dyn_thres_kernels_match_plain_on_card(cuda):
+    """dyn_pass_scan and dyn_post_scan bit-equal to their plain versions at
+    the edges (nothing passes, every row passes, the bars clamp at ub on
+    the first row; B = 1, 16 and 17; H at its cap and past the kernel's
+    chunk) and on the inputs the query path gives them for 4 revisit
+    queries; one launch each a call."""
+    cfg, clouds = _revisit_clouds()
+    dyn = _dyn(cfg)
+    assert len(kt.dyn_edge_cases(cuda, dyn)) == 2
+    db = tdb.ContourDB(dyn, capacity=16, device="cuda")
+    for i in range(8):
+        db.step_async(clouds[i], i, 6.0 * i)
+    pa, po = kt.dyn_cases(db, torch.from_numpy(clouds[8:12]).to(cuda), dyn)
+    assert pa[0].shape == (4, 256) and po[0].shape == (4, 64)
+    kernels.reset_launches()
+    kt.hold_dyn_pass(pa, "4 revisit queries")
+    kt.hold_dyn_post(po, "4 revisit queries")
+    assert kernels.dyn_pass_scan.launches == kernels.dyn_post_scan.launches \
+        == 1
+    assert int(kernels.dyn_pass_scan_plain(*pa)[1].sum()) > 0
+
+
+def _write_dataset(d, poses, dt=6.0):
+    from synth import se3_from_xyt
+
+    world = make_world(11, n_structs=220, extent=160.0)
+    pl, ll = [], []
+    for i, p in enumerate(poses):
+        pts = render_scan(world, p, seed=500 + i)
+        arr = np.zeros((len(pts), 4), np.float32)
+        arr[:, :3] = pts
+        bp = str(d / ("%06d.bin" % i))
+        arr.tofile(bp)
+        pl.append("%.6f %s" % (dt * i, " ".join(
+            "%.6f" % v for v in se3_from_xyt(p)[:3, :4].reshape(-1))))
+        ll.append("%.6f %d %s" % (dt * i, i, bp))
+    (d / "p.txt").write_text("\n".join(pl))
+    (d / "l.txt").write_text("\n".join(ll))
+    return str(d / "p.txt"), str(d / "l.txt")
+
+
+UNFUSED_POSES = [(10.0 * i, 0.0, 0.0) for i in range(8)] + [
+    (10.5, 0.8, 0.2), (30.0, -1.0, -0.15), (50.2, 0.7, 0.1),
+    (20.3, 0.5, -0.1), (40.1, -0.4, 0.05), (60.0, 0.0, 0.0),
+    (12.0, -0.6, 0.1), (31.0, 0.4, -0.05)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dynamic", [False, True])
+def test_unfused_pipeline_replays_equal_eager_on_card(cuda, tmp_path,
+                                                      dynamic):
+    """The pipeline's default path on the card, every stage a replay (the
+    per-scan build, query_async, add_scan, push_and_balance), and
+    `run_blocked` (the build graph of 4, the append graph, the query graph
+    of 4), each writing the outcome file of the same run through the eager
+    bodies bit for bit; after the captures of the first two scans the
+    default path makes no host sync; a query_async record equals the
+    step_async record of the same scan at the same window state."""
+    from contour_context_tpu_torch.eval.evaluator import ContLCDEvaluator
+    from contour_context_tpu_torch.pipeline import LoopClosurePipeline
+
+    base, _ = _revisit_clouds()
+    cfg = _dyn(base) if dynamic else base
+    f_pose, f_laser = _write_dataset(tmp_path, UNFUSED_POSES)
+
+    def pipeline(graphed):
+        p = LoopClosurePipeline(cfg, ContLCDEvaluator(
+            f_pose, f_laser, cfg.correlation_thres), 32, device="cuda")
+        p.db._use_graphs = graphed
+        return p
+
+    outs = {}
+    for mode, graphed in (("graphed", True), ("eager", False)):
+        p = pipeline(graphed)
+        assert p.spin_once() and p.spin_once()      # the captures
+        launches = _launch_delta(lambda: _no_syncs(
+            lambda: [p.spin_once() for _ in range(len(UNFUSED_POSES) - 2)]))
+        p.drain()
+        out = tmp_path / f"{mode}.txt"
+        p.save_outcome(str(out))
+        outs[mode] = out.read_text()
+        n = len(UNFUSED_POSES) - 2
+        assert launches["ring_key_divs"] == launches["search_tilemin"] == n
+        assert launches["dyn_pass_scan"] == (n if dynamic else 0)
+        if graphed:
+            keys = set(p.db._graphs.graphs)
+            assert {("add_scan",), ("push",), ("query_step",)} <= keys
+    assert outs["graphed"] == outs["eager"]
+    assert sum(1 for ln in outs["graphed"].splitlines()
+               if ln.startswith("0\t")) >= 3
+    for mode, graphed in (("blocked", True), ("blocked eager", False)):
+        p = pipeline(graphed)
+        p.run_blocked(block=4)
+        out = tmp_path / "blocked.txt"
+        p.save_outcome(str(out))
+        outs[mode] = out.read_text()
+    assert outs["blocked"] == outs["blocked eager"]
+
+    # query_async against step_async: the same scan at the same state
+    db_q = tdb.ContourDB(cfg, capacity=32, device="cuda")
+    db_s = tdb.ContourDB(cfg, capacity=32, device="cuda")
+    _, clouds = _revisit_clouds()
+    for i in range(12):
+        desc = db_q._build_one(clouds[i])
+        h = db_q.query_async(desc)
+        db_q.add_scan(desc, i, 6.0 * i)
+        db_q.push_and_balance(6.0 * i)
+        db_s.step_async(clouds[i], i, 6.0 * i)
+        if h is not None:
+            assert torch.equal(h.rec.view(torch.int32),
+                               db_s.recs_store[i].view(torch.int32)), i
+    for name, x, y in zip(db_q.store._fields, db_q.store, db_s.store):
+        assert torch.equal(x, y), name
+    for name in ("keys_q", "ts_store", "state"):
+        assert torch.equal(getattr(db_q, name), getattr(db_s, name)), name
+
+
+@pytest.mark.cuda
+def test_two_dbs_share_one_pool_on_card(cuda):
+    """Two block-built DBs with the build, append and query graphs of 8 hold
+    one graph pool: every graph of both carries the same pool id, which is
+    the id of the pool's segments in the allocator's snapshot, and the
+    second DB's captures grow the card's reserved memory by less than half
+    the pool the first one filled (a pool of its own would add about as
+    much again). drop_graphs on the first leaves the second's replays
+    bit-equal to its eager calls; once the second's graphs go too, the
+    pool's memory goes back to the card."""
+    import gc
+
+    from contour_context_tpu_torch import graphs
+
+    gc.collect()
+    pool = graphs.device_pool(cuda)
+    assert not len(pool.live), "graphs of another test's DBs are still alive"
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    cfg, clouds = _revisit_clouds()
+    pts = torch.from_numpy(np.concatenate([clouds, clouds[:4]]))
+    ts = [[6.0 * i for i in range(k, k + 8)] for k in (0, 8)]
+
+    def block_map():
+        m = tdb.ContourDB(cfg, capacity=32, device="cuda")
+        m.block_chain_pts_async(pts.reshape(2, 8, *pts.shape[1:]),
+                                list(range(16)), ts)
+        torch.cuda.synchronize()
+        return m
+
+    def pool_ids(m):
+        return {tuple(g.graph.pool()) for g in m._graphs.graphs.values()}
+
+    a = block_map()
+    pool_a = a.graph_stats()["pool_bytes"]
+    # a capture empties the allocator's cache as it starts: empty it here
+    # too, so the growth is what the second DB holds
+    torch.cuda.empty_cache()
+    reserved_a = torch.cuda.memory_reserved()
+    b = block_map()
+    grown = torch.cuda.memory_reserved() - reserved_a
+    assert pool_a > 0 and grown < pool_a // 2, (grown, pool_a)
+    assert len(a._graphs.graphs) == len(b._graphs.graphs) == 3
+    ids = pool_ids(a) | pool_ids(b)
+    assert len(ids) == 1, ids
+    (pid,) = ids
+    segs = [seg["total_size"] for seg in torch.cuda.memory_snapshot()
+            if tuple(seg.get("segment_pool_id", ())) == pid]
+    assert segs and sum(segs) == b.graph_stats()["pool_bytes"] >= pool_a
+    assert len(pool.live) == 6          # build, append, query of 8, twice
+    reserved = torch.cuda.memory_reserved()
+    a.drop_graphs()
+    assert not a._graphs.graphs and len(b._graphs.graphs) == 3
+    assert b.graph_stats()["pool_bytes"] > 0
+    assert torch.cuda.memory_reserved() <= reserved
+    serve = torch.from_numpy(clouds[8:12])
+    g = _no_syncs(lambda: b.localize_block_async(serve, chunk=8).recs.clone())
+    with b.eager():
+        e = b.localize_block_async(serve, 8).recs
+    assert torch.equal(g.view(torch.int32), e.view(torch.int32))
+    assert (g[:, 0] > 0.5).sum() >= 2
+    pool_b = b.graph_stats()["pool_bytes"]
+    reserved = torch.cuda.memory_reserved()
+    b.drop_graphs()
+    assert not len(pool.live) and b.graph_stats()["pool_bytes"] == 0
+    assert torch.cuda.memory_reserved() <= reserved - pool_b
