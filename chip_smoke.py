@@ -31,11 +31,15 @@ exit code is not 0):
    LM held against a float64 one on the same inputs; 0 host syncs a scan;
 3d. (after 4) the CC-label kernel bit-equal to its plain version on masks
    made to stress it (a spiral, a comb, a checkerboard, full, empty,
-   staircases, a random field) and at the main path's shapes (a revisit
+   staircases, a random field, a U joined in its last rows, a serpentine,
+   two interleaved combs; at 150 x 150 and, for the cluster's strips, at
+   37 x 41, 8 x 8 and 5 x 7) and at the main path's shapes (a revisit
    scan's 6 level masks, the stream's first block's 96), the merge kernel
-   at a revisit query's and 16 revisit queries' inputs on the stream's DB,
-   each with its device time warm and cold, bound and share, call and plain
-   ms; what the always-run cascade chunk costs 8 queries of the stream;
+   on rows made to stress its lanes and at a revisit query's and 16
+   revisit queries' inputs on the stream's DB, each with its device time
+   warm and cold, bound and share, call and plain ms, and its split by
+   phase (clock64 stamps of the kernel's measurement entry); what the
+   always-run cascade chunk costs 8 queries of the stream;
 5. the CLI's default (unfused) path on 24 scans written in the KITTI
    two-file format, every stage a replay of one of the DB's graphs (the
    per-scan build, query_async, add_scan, push_and_balance): the CLI's
@@ -1560,8 +1564,18 @@ def main() -> None:
         kt.hold_cc(torch.from_numpy(m)[None].to(dev), name)
     kt.hold_cc(torch.from_numpy(np.stack(list(adv.values()))).to(dev),
                "every adversarial mask in one launch")
+    # the cluster's strips: 5 rows and a last of 2, one row, none
+    for nr, nc in ((37, 41), (8, 8), (5, 7)):
+        kt.hold_cc(torch.from_numpy(np.stack(list(
+            kt.adversarial_masks(nr, nc).values()))).to(dev), f"{nr} x {nc}")
     log(f"cc_labels on {sorted(adv)} (150 x 150), each alone and all in "
-        f"one launch: bit-equal to the plain version")
+        f"one launch, and all at 37 x 41, 8 x 8 and 5 x 7 in one launch "
+        f"each: bit-equal to the plain version")
+    stress = kt.merge_stress_cases()
+    for name, args in stress.items():
+        kt.hold_merge(*(torch.from_numpy(x).to(dev) for x in args), name)
+    log(f"merge_hints on the rows made to stress its lanes {sorted(stress)}: "
+        f"bit-equal to the plain version")
     one_rev = torch.from_numpy(clouds[rev0 + 10]).to(dev)[None]
     block0 = torch.from_numpy(np.stack(clouds[:16])).to(dev)
     revs16 = torch.from_numpy(np.stack(clouds[rev0 + 16:rev0 + 32])).to(dev)
@@ -1573,17 +1587,34 @@ def main() -> None:
     merge_row["block"] = kt.measure_merge(
         *kt.merge_case(db, revs16, cfg),
         "16 revisit queries on the stream's DB")
+    cc_row["max_active_clusters"] = kt.cc_max_active_clusters(
+        kt.masks_of(block0, cfg))
+    cc_row["phase_split"] = kt.cc_phase_split(kt.masks_of(one_rev, cfg))
+    cc_row["block"]["phase_split"] = kt.cc_phase_split(
+        kt.masks_of(block0, cfg))
+    merge_row["phase_split"] = kt.merge_phase_split(
+        *kt.merge_case(db, one_rev, cfg))
+    merge_row["block"]["phase_split"] = kt.merge_phase_split(
+        *kt.merge_case(db, revs16, cfg))
     for r in (cc_row, cc_row["block"], merge_row, merge_row["block"]):
-        extra = (f"{r['components']} components" if "components" in r else
+        extra = (f"{r['components']} components, clusters of 8 CTAs, "
+                 f"{cc_row['max_active_clusters']} resident at once"
+                 if "components" in r else
                  f"{r['hints']} hints in {r['rows_walked']} rows, the "
-                 f"longest {r['longest_row']}")
+                 f"longest {r['longest_row']}, chain bound "
+                 f"{r['chain_bound_us']:.4f} us")
+        ps = r["phase_split"]
         log(f"{r['name']}: {r['shape']}, {extra}: device "
             f"{r['device_us_warm']:.3f} us warm, {r['device_us_cold']:.3f} us "
             f"cold (torch.profiler, mean of 200); bound {r['bound_us']:.4f} "
             f"us by {r['bound_by']} ({r['bytes']} B), share "
             f"{r['share_of_bound']:.4f} cold; call {r['ms']:.4f} ms (host + "
             f"launch), plain {r['plain_ms']:.4f} ms; bit-equal to the plain "
-            f"version ({smi})")
+            f"version; by phase (clock64, the slowest of {ps['ctas']} CTAs, "
+            f"us at the maximum SM clock) "
+            + ", ".join(f"{n} {u:.3f}" for n, u in
+                        zip(ps["phases"], ps["us_slowest_cta"]))
+            + f" ({smi})")
     rows += [cc_row, merge_row]
     # the always-run cascade chunk: the cascade of 8 queries across the
     # stream with every chunk against only the chunks JAX's loop would run

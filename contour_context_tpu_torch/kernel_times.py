@@ -1,7 +1,7 @@
 """Device times of the port's CUDA kernels beside their bounds.
 
     python -m contour_context_tpu_torch.kernel_times [--reps 200]
-        [--out FILE] [--compare ROOT ...]
+        [--out FILE] [--compare ROOT ...] [--only cc_merge]
 
 Run from the repository root on a machine with a CUDA card (it renders a
 scan with `tests/synth.py`). `chip_smoke.py` runs the same measurement in
@@ -46,10 +46,20 @@ The two kernels that take the JAX package's while-loops off the host
 of a scan's and a block's level masks and the proposal merge of one and of
 16 revisit queries' inputs (`merge_case`, on a DB the caller holds), each
 held bit-equal to its plain version first (`hold_cc`, `hold_merge`, also
-on `adversarial_masks`); their bound is their bytes (masks in, labels out;
-hint rows and poses in, proposals out). `cascade_case` counts what the
-cascade's always-run chunk costs a query (device ops and busy time of
-every chunk against the query's own chunks).
+on `adversarial_masks` and `merge_stress_cases`); the CC bound is its
+bytes (masks in, labels out), the merge's the larger of its bytes (hint
+rows and poses in, proposals out) and its serial chain (the longest row's
+hints, MERGE_CHAIN_STEPS dependent steps each, one a clock:
+`merge_chain_bound`). `cc_merge_rows` runs both on the smoke stream's
+inputs (`cc_merge_cases`: the stream is rebuilt here, `stream_case`) for
+this checkout and every `--compare` checkout in turns, and splits each by
+phase (`cc_phase_split`, `merge_phase_split`: clock64 stamps that thread
+0 of each CTA writes at the phase boundaries, from the measurement-only C
+entry `cc_<kernel>_phases` built from the same source; the main path
+never calls it; a checkout without it gets no split); `--only cc_merge`
+stops there. `cascade_case` counts what the cascade's always-run chunk
+costs a query (device ops and busy time of every chunk against the
+query's own chunks).
 
 The two `dynamic_thres` kernels (`measure_dyn_pass`, `measure_dyn_post`;
 `chip_smoke.py` phase 9): the inputs the query path hands them for a
@@ -62,15 +72,18 @@ candidate at the card's maximum SM clock (`dyn_bound`).
 Then `scaling_rows`: both batched kernels across the sizes their paths
 give them (the ring at B = 1-64 and at 9-36 anchors, the tile-min at B =
 4-64 and on a capacity-65536 map), each beside its bytes, operations,
-bound and share. `--compare ROOT ...` times the kernels of other checkouts (an unpacked commit: `git archive <commit> | tar -x -C
-ROOT`, in a gitignored directory) through the same rows in the same
-process, in turns, for an A/B on one card.
+bound and share. `--compare ROOT ...` times the kernels of other
+checkouts (an unpacked commit: `git archive <commit> | tar -x -C ROOT`, in
+a gitignored directory) through the same scaling, CC and merge rows in the
+same process, in turns, for an A/B on one card.
 """
 
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
+import math
 import os
 import subprocess
 import sys
@@ -683,7 +696,13 @@ def adversarial_masks(nr: int = 150, nc: int = 150) -> dict:
     spiral one pixel wide (one component whose path winds through the
     whole mask), a comb (teeth joined by a spine along the last row), a
     checkerboard (8-connected: one component), full, empty, a diagonal
-    staircase (8-connected steps only) and a random field at density 0.5."""
+    staircase (8-connected steps only), a random field at density 0.5, and
+    three that stress the kernel's strips of rows: a U whose two arms join
+    only in the last rows (the minimum in the first strip, the join in the
+    last), a vertical serpentine one pixel wide whose every turn crosses
+    all strips, and two interleaved combs (teeth on alternate columns, one
+    comb's spine on the first row, the other's on the last): two
+    components that both cross every strip."""
     spiral = np.zeros((nr, nc), bool)
     r0, c0, r1, c1 = 0, 0, nr - 1, nc - 1
     while r0 <= r1 and c0 <= c1:
@@ -702,13 +721,102 @@ def adversarial_masks(nr: int = 150, nc: int = 150) -> dict:
     ii, jj = np.indices((nr, nc))
     stair = (ii == jj) | (ii == jj + 1)
     stair[:, 1::2] &= ii[:, 1::2] == jj[:, 1::2]
+    u = np.zeros((nr, nc), bool)
+    w = max(1, nc // 16)
+    a, b = nc // 4, max(nc // 4 + w + 1, 3 * nc // 4)
+    u[:, a:a + w] = u[:, b:b + w] = True
+    u[nr - max(1, nr // 16):, a:b + w] = True
+    serp = np.zeros((nr, nc), bool)
+    serp[:, ::2] = True
+    serp[-1, 1::4] = True                   # turns at the bottom
+    serp[0, 3::4] = True                    # and at the top
+    combs = np.zeros((nr, nc), bool)
+    combs[:nr - 2, ::4] = True              # comb 1: teeth from the top
+    combs[0] = True                         # and its spine
+    combs[2:, 2::4] = True                  # comb 2: teeth to the bottom
+    combs[-1] = True                        # and its spine
     return {"spiral": spiral, "comb": comb,
             "checkerboard": (ii + jj) % 2 == 0,
             "full": np.ones((nr, nc), bool),
             "empty": np.zeros((nr, nc), bool),
             "staircase": ii == jj,
             "staircase, two wide": stair,
-            "random": np.random.default_rng(5).random((nr, nc)) < 0.5}
+            "random": np.random.default_rng(5).random((nr, nc)) < 0.5,
+            "U, joined in the last rows": u, "serpentine": serp,
+            "two interleaved combs": combs}
+
+
+def merge_stress_cases(MP: int = 128, C: int = 32) -> dict:
+    """{name: (hint_of (B, C, MP) int32, T (B, MP, 3) f32, votes (B, MP)
+    int32)} (numpy) merge inputs that stress the walk's lanes: C = 32 rows
+    is one warp a query, each hint in one row, poses in clusters a few
+    cells apart (some merge, some open a proposal, some overflow the four
+    slots), votes 1-8:
+    - "ragged warp": the lanes' trip counts far apart: query 0's rows hold
+      0, 1, ..., 15 hints and the rest; query 1's rows lengths halving
+      from MP / 2 (64, 32, ..., 1, 0, ...); query 2 one row of all MP;
+    - "full row": query 0's first row and query 1's last row hold all MP
+      hints (the walk reads every id of the row), every other row none;
+    - "across the wrap": every hint's angle within 0.1 of +-pi, the sign
+      drawn at random, so matches and merged angles cross the wrap;
+    - "at the radius": rows of four hints, the last three within 2^-16 of
+      the merge radius (2 cells) from the first, so their squared norms
+      fall in the band where the kernel asks hypotf itself;
+    - "subnormal poses": the ragged rows with every position under 2^-126,
+      so the merged poses are subnormal and the kernel divides with
+      __fdiv_rn itself."""
+    rng = np.random.default_rng(MP + C)
+
+    def poses(B, theta, scale=1.0):
+        T = np.zeros((B, MP, 3), np.float32)
+        T[..., :2] = (rng.integers(0, 3, (B, MP, 2)) * 3.0 +
+                      rng.normal(0, 0.6, (B, MP, 2))) * scale
+        T[..., 2] = theta(B)
+        return T, rng.integers(1, 9, (B, MP)).astype(np.int32)
+
+    def rows_of(lengths):
+        """hint_of (C, MP) whose row c holds lengths[c] hints, drawn
+        without replacement"""
+        perm = rng.permutation(MP)
+        h = np.full((C, MP), -1, np.int32)
+        at = 0
+        for c, n in enumerate(lengths):
+            h[c, :n] = perm[at:at + n]
+            at += n
+        return h
+
+    def lengths(ns):
+        return list(ns) + [0] * (C - len(ns))
+
+    near0 = lambda B: rng.choice([-3.1, 0.0, 3.1], (B, MP)) + \
+        rng.normal(0, 0.12, (B, MP))
+    ramp = list(range(16))
+    ragged = np.stack([
+        rows_of(lengths(ramp + [MP - sum(ramp)])),
+        rows_of(lengths([MP >> (k + 1) for k in range(8)])),
+        rows_of(lengths([0, 0, 0, MP]))])
+    full = np.stack([rows_of(lengths([MP])), rows_of([0] * (C - 1) + [MP])])
+    wrap = np.stack([rows_of(lengths([MP // 8] * 8)) for _ in range(2)])
+    sign = lambda B: np.where(rng.random((B, MP)) < 0.5, -1.0, 1.0)
+    rad = rows_of(lengths([4] * min(C, MP // 4)))[None]
+    T_rad, v_rad = poses(1, near0)
+    for ids in rad[0, :, :4]:
+        if ids[0] < 0:
+            continue
+        x0, y0 = T_rad[0, ids[0], :2]
+        for i in ids[1:]:
+            phi = rng.uniform(-np.pi, np.pi)
+            d = kernels.TF_TRANS_MERGE * (1 + rng.uniform(-1, 1) * 2.0 ** -16)
+            T_rad[0, i] = (x0 + d * np.cos(phi), y0 + d * np.sin(phi),
+                           T_rad[0, ids[0], 2] + rng.normal(0, 0.05))
+    return {
+        "ragged warp": (ragged, *poses(3, near0)),
+        "full row": (full, *poses(2, near0)),
+        "across the wrap": (wrap, *poses(2, lambda B: sign(B) * (
+            np.pi - rng.uniform(0.0, 0.1, (B, MP))))),
+        "at the radius": (rad, T_rad, v_rad),
+        "subnormal poses": (ragged, *poses(3, near0, 1e-39)),
+    }
 
 
 def masks_of(points_b, cfg: PipelineConfig):
@@ -718,11 +826,12 @@ def masks_of(points_b, cfg: PipelineConfig):
     return td.level_masks(bev, cfg.cm)
 
 
-def hold_cc(masks, what: str) -> float:
-    """One `cc_labels` launch against its plain version on the same masks:
-    raises unless the two are bit-equal, returns the largest absolute
-    difference it measured (0.0 then)."""
-    lab_k = kernels.cc_labels(masks)
+def hold_cc(masks, what: str, kmod=None) -> float:
+    """One `cc_labels` launch (of `kmod`, default this checkout's kernels)
+    against its plain version on the same masks: raises unless the two are
+    bit-equal, returns the largest absolute difference it measured (0.0
+    then)."""
+    lab_k = (kmod or kernels).cc_labels(masks)
     lab_p = kernels.cc_labels_plain(masks)
     err = float((lab_k - lab_p).abs().max())
     assert torch.equal(lab_k, lab_p), \
@@ -779,11 +888,12 @@ def cascade_case(db, points_b, cfg: PipelineConfig):
             device_ops(lambda: cascade(own)) if own else (0, 0.0), n_run)
 
 
-def hold_merge(hint_of, T, votes, what: str) -> float:
-    """One `merge_hints` launch against its plain version on the same
-    inputs: raises unless every output is bit-equal, returns the largest
-    absolute difference of the poses (0.0 then)."""
-    out_k = kernels.merge_hints(hint_of, T, votes)
+def hold_merge(hint_of, T, votes, what: str, kmod=None) -> float:
+    """One `merge_hints` launch (of `kmod`, default this checkout's
+    kernels) against its plain version on the same inputs: raises unless
+    every output is bit-equal, returns the largest absolute difference of
+    the poses (0.0 then)."""
+    out_k = (kmod or kernels).merge_hints(hint_of, T, votes)
     out_p = kernels.merge_hints_plain(hint_of, T, votes)
     err = float((out_k[0] - out_p[0]).abs().max())
     for name, a, b in zip(("prop_T", "prop_votes", "prop_n", "key_of_m"),
@@ -816,10 +926,33 @@ def merge_bound(hint_of, T, votes):
     return _bound(n_bytes, 0.0) + (n_bytes,)
 
 
-def measure_cc(masks, label: str, reps: int = 200) -> dict:
+# dependent steps of one hint on the merge walk's serial chain, as the
+# source writes them, floorf and a division counted as one step each: the
+# clamped angle difference of a slot (sub, add, mul, floor, mul, sub, abs,
+# compare: 8; its radius test beside it is shorter), the slot's match (and:
+# 1), the first match over the four slots (4 selects), the slot (1), the
+# old proposal's values (2 selects), the merged angle (sub, two
+# compare-and-selects, mul, div, add: 8) and the write into the slot
+# (compare, select: 2)
+MERGE_CHAIN_STEPS = 26
+
+
+def merge_chain_bound(hint_of, clk_hz: float) -> float:
+    """The merge walk's serial chain (us): the longest row's hints, each
+    MERGE_CHAIN_STEPS dependent steps, one step a clock at the card's
+    maximum SM clock; the rows run side by side, a row's hints one after
+    another."""
+    longest = int((hint_of >= 0).sum(-1).max()) if hint_of.numel() else 0
+    return 1e6 * longest * MERGE_CHAIN_STEPS / clk_hz
+
+
+def measure_cc(masks, label: str, reps: int = 200, kmod=None) -> dict:
     """The CC kernel's row on `masks` (N, nr, nc): held against its plain
-    version, then timed (device us warm and cold, call and plain ms)."""
-    err = hold_cc(masks, label)
+    version, then timed (device us warm and cold, call and plain ms).
+    `kmod` is the kernel module to time (default this checkout's; see
+    `other_kernels`), held against this checkout's plain version."""
+    kmod = kmod or kernels
+    err = hold_cc(masks, label, kmod)
     b_us, b_by, n_bytes = cc_bound(masks)
     lab = kernels.cc_labels_plain(masks)
     S = masks.shape[-1] * masks.shape[-2]
@@ -830,16 +963,22 @@ def measure_cc(masks, label: str, reps: int = 200) -> dict:
         components=int((lab == torch.arange(S, device=lab.device)).sum()),
         max_abs_err=err, bound_us=b_us, bound_by=b_by, bytes=n_bytes,
         library_ms=None,
-        **_measure(lambda: kernels.cc_labels(masks),
+        **_measure(lambda: kmod.cc_labels(masks),
                    lambda: kernels.cc_labels_plain(masks),
                    "cc_labels_kernel", reps)))
 
 
-def measure_merge(hint_of, T, votes, label: str, reps: int = 200) -> dict:
+def measure_merge(hint_of, T, votes, label: str, reps: int = 200,
+                  kmod=None) -> dict:
     """The merge kernel's row on its inputs: held against its plain
-    version, then timed."""
-    err = hold_merge(hint_of, T, votes, label)
+    version, then timed; its bound is the larger of its bytes and its
+    serial chain (`merge_chain_bound`)."""
+    kmod = kmod or kernels
+    err = hold_merge(hint_of, T, votes, label, kmod)
     b_us, b_by, n_bytes = merge_bound(hint_of, T, votes)
+    chain_us = merge_chain_bound(hint_of, max_sm_clock_hz())
+    if chain_us > b_us:
+        b_us, b_by = chain_us, "operations"
     return _shares(dict(
         name="merge_hints", route="cuda",
         source="contour_context_tpu_torch/csrc/merge_hints.cu",
@@ -849,10 +988,181 @@ def measure_merge(hint_of, T, votes, label: str, reps: int = 200) -> dict:
         rows_walked=int((hint_of[..., 0] >= 0).sum()),
         longest_row=int((hint_of >= 0).sum(-1).max()),
         max_abs_err=err, bound_us=b_us, bound_by=b_by, bytes=n_bytes,
-        library_ms=None,
-        **_measure(lambda: kernels.merge_hints(hint_of, T, votes),
+        chain_bound_us=chain_us, library_ms=None,
+        **_measure(lambda: kmod.merge_hints(hint_of, T, votes),
                    lambda: kernels.merge_hints_plain(hint_of, T, votes),
                    "merge_hints_kernel", reps)))
+
+
+LANE_SCANS = 132          # the smoke stream's lane length
+
+
+def stream_case(dev, cfg: PipelineConfig):
+    """The smoke's stream (`chip_smoke.py` phase 4): lane 0, lane 1 and lane
+    0 again 1.5 m aside, 132 scans each (seeds drawn in order from
+    default_rng(0)), stepped into a card DB of capacity 8192 at 10 Hz.
+    Returns (db, clouds)."""
+    from contour_context_tpu_torch import db as tdb
+    from contour_context_tpu_torch.profile_step import lane_poses
+
+    world, render_scan = _world()
+    rng = np.random.default_rng(0)
+    plan = (lane_poses(0, LANE_SCANS) + lane_poses(1, LANE_SCANS)
+            + lane_poses(0, LANE_SCANS, dy=1.5))
+    clouds = [pad_points(render_scan(world, p, seed=int(
+        rng.integers(1 << 30))), cfg.cm.max_points) for p in plan]
+    db = tdb.ContourDB(cfg, capacity=8192, device=dev)
+    for k, c in enumerate(clouds):
+        db.step_async(c, k, 0.1 * k)
+    torch.cuda.synchronize()
+    return db, clouds
+
+
+def cc_merge_cases(dev, cfg: PipelineConfig):
+    """The inputs `chip_smoke.py` phase 3d times the CC and merge kernels
+    on: ({label: masks}, {label: (hint_of, T, votes)}), the level masks of
+    a revisit scan (1, 6, 150, 150) and of the stream's first block (16,
+    6, 150, 150), and the merge inputs of that revisit query and of 16
+    revisit queries on the stream's DB (`stream_case`)."""
+    db, clouds = stream_case(dev, cfg)
+    rev0 = 2 * LANE_SCANS
+    one = torch.from_numpy(clouds[rev0 + 10]).to(dev)[None]
+    block0 = torch.from_numpy(np.stack(clouds[:16])).to(dev)
+    revs16 = torch.from_numpy(np.stack(clouds[rev0 + 16:rev0 + 32])).to(dev)
+    cc = {"a revisit scan": masks_of(one, cfg),
+          "the stream's first block of 16": masks_of(block0, cfg)}
+    merge = {"a revisit query on the stream's DB": merge_case(db, one, cfg),
+             "16 revisit queries on the stream's DB":
+                 merge_case(db, revs16, cfg)}
+    del db
+    return cc, merge
+
+
+STAMP_SLOTS = 16          # clock64 slots a CTA of a *_phases entry writes
+
+
+def _phase_split(lib, kernel: str, n_ctas: int, call, reps: int) -> dict:
+    """Run the measurement entry `cc_<kernel>_phases` (thread 0 of each CTA
+    writes clock64() at each phase boundary) reps times after 5 warm-ups:
+    each phase's cycles, mean over CTAs and launches, and the slowest CTA's
+    (mean over launches), in us at the card's maximum SM clock. None when
+    the library has no such entry (an older checkout)."""
+    try:
+        entry = getattr(lib, f"cc_{kernel}_phases")
+        names_fn = getattr(lib, f"cc_{kernel}_phase_names")
+    except AttributeError:
+        return None
+    names_fn.restype = ctypes.c_char_p
+    names = names_fn().decode().split(",")
+    entry.restype = ctypes.c_int
+    n = len(names)
+    stamps = torch.zeros((n_ctas, STAMP_SLOTS), dtype=torch.int64,
+                         device="cuda")
+    mean = torch.zeros(n + 1, dtype=torch.float64, device="cuda")
+    worst = torch.zeros(n + 1, dtype=torch.float64, device="cuda")
+    for i in range(5 + reps):
+        stamps.zero_()
+        rc = call(entry, ctypes.c_void_p(stamps.data_ptr()))
+        if rc != 0:
+            raise RuntimeError(f"cc_{kernel}_phases failed: CUDA error {rc}")
+        if i >= 5:
+            d = torch.cat([stamps[:, 1:n + 1] - stamps[:, :n],
+                           stamps[:, n:n + 1] - stamps[:, :1]], 1).double()
+            mean += d.mean(0)
+            worst += d.max(0).values
+    clk = max_sm_clock_hz()
+    mean, worst = (mean / reps).tolist(), (worst / reps).tolist()
+    return {"phases": names, "ctas": n_ctas,
+            "cycles_mean": mean[:n], "cycles_slowest_cta": worst[:n],
+            "us_slowest_cta": [1e6 * c / clk for c in worst[:n]],
+            "total_us_slowest_cta": 1e6 * worst[n] / clk}
+
+
+def cc_phase_split(masks, kmod=None, reps: int = 50):
+    """`_phase_split` of the CC kernel of `kmod` on masks (N, nr, nc)."""
+    lib = (kmod or kernels).build()
+    N, nr, nc = masks.reshape(-1, *masks.shape[-2:]).shape
+    labels = torch.empty((N, nr * nc), dtype=torch.int32, device="cuda")
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    try:
+        per_mask = lib.cc_cc_labels_ctas_per_mask
+    except AttributeError:
+        return None
+    per_mask.restype = ci
+
+    def call(entry, stamps):
+        entry.argtypes = [vp, vp, ci, ci, ci, vp, vp]
+        return entry(masks.data_ptr(), labels.data_ptr(), N, nr, nc, stamps,
+                     torch.cuda.current_stream().cuda_stream)
+
+    return _phase_split(lib, "cc_labels", N * per_mask(), call, reps)
+
+
+def cc_max_active_clusters(masks, kmod=None):
+    """How many of the CC kernel's clusters the card holds at once at this
+    mask size (cudaOccupancyMaxActiveClusters, through the library's
+    measurement entry), None for a checkout without it."""
+    lib = (kmod or kernels).build()
+    try:
+        fn = lib.cc_cc_labels_max_active_clusters
+    except AttributeError:
+        return None
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int, ctypes.c_int]
+    n = fn(*masks.shape[-2:])
+    if n < 0:
+        raise RuntimeError(f"cudaOccupancyMaxActiveClusters failed: {-n}")
+    return n
+
+
+def merge_phase_split(hint_of, T, votes, kmod=None, reps: int = 50):
+    """`_phase_split` of the merge kernel of `kmod` on its inputs."""
+    kmod = kmod or kernels
+    lib = kmod.build()
+    B, C, MP = hint_of.shape
+    outs = [torch.empty(s, dtype=d, device="cuda") for s, d in (
+        ((B, C, kernels.P_PROP, 3), torch.float32),
+        ((B, C, kernels.P_PROP), torch.int32), ((B, C), torch.int32),
+        ((B, MP), torch.int32))]
+    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    two_pi = np.float32(2 * math.pi)
+
+    def call(entry, stamps):
+        entry.argtypes = [vp] * 7 + [ci] * 3 + [cf] * 5 + [vp, vp]
+        return entry(hint_of.data_ptr(), T.data_ptr(), votes.data_ptr(),
+                     *[o.data_ptr() for o in outs], B, C, MP,
+                     float(np.float32(math.pi)), float(two_pi),
+                     float(np.float32(1.0) / two_pi), kernels.TF_TRANS_MERGE,
+                     kernels.TF_ANG_MERGE, stamps,
+                     torch.cuda.current_stream().cuda_stream)
+
+    return _phase_split(lib, "merge_hints", B, call, reps)
+
+
+def cc_merge_rows(dev, cfg: PipelineConfig, kmods, reps: int = 200) -> list:
+    """The CC and merge kernels of each module in `kmods` (in that order:
+    turns for an A/B) on `cc_merge_cases`' inputs: each row held bit-equal
+    to this checkout's plain version, timed (`measure_cc`,
+    `measure_merge`) and split by phase where the checkout has the
+    measurement entry (`cc_phase_split`, `merge_phase_split`), its
+    `turn` and `source` root named."""
+    cc, merge = cc_merge_cases(dev, cfg)
+    rows = []
+    for turn, kmod in enumerate(kmods):
+        root = os.path.dirname(os.path.dirname(os.path.dirname(
+            os.path.abspath(kmod.__file__))))
+        for label, masks in cc.items():
+            r = measure_cc(masks, label, reps, kmod)
+            r["phase_split"] = cc_phase_split(masks, kmod)
+            r["max_active_clusters"] = cc_max_active_clusters(masks, kmod)
+            rows.append(r)
+        for label, args in merge.items():
+            r = measure_merge(*args, label, reps, kmod)
+            r["phase_split"] = merge_phase_split(*args, kmod)
+            rows.append(r)
+        for r in rows[-len(cc) - len(merge):]:
+            r["turn"], r["root"] = turn, os.path.relpath(root, ROOT)
+    return rows
 
 
 DYN_REPLACES = "contour_context_tpu/ops/candidate.py"
@@ -1158,8 +1468,12 @@ def main(argv: Optional[Sequence[str]] = None) -> list:
     ap.add_argument("--reps", type=int, default=200)
     ap.add_argument("--out", help="also write the rows here as JSON")
     ap.add_argument("--compare", metavar="ROOT", nargs="+", default=[],
-                    help="time the scaling rows of the checkouts at ROOT ... "
-                    "too, in turns (each ROOT, this, this, each ROOT again)")
+                    help="time the scaling rows and the CC and merge rows of "
+                    "the checkouts at ROOT ... too, in turns (each ROOT, "
+                    "this, this, each ROOT again)")
+    ap.add_argument("--only", choices=["cc_merge"],
+                    help="cc_merge: only the CC and merge rows (with their "
+                    "phase split), in turns with --compare")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available")
@@ -1167,6 +1481,20 @@ def main(argv: Optional[Sequence[str]] = None) -> list:
     kernels.build()
     dev = torch.device("cuda", 0)
     cfg = PipelineConfig()
+    others = [other_kernels(root) for root in args.compare]
+    for other in others:
+        other.build()
+    order = others + [kernels, kernels] + others[::-1] if others \
+        else [kernels]
+    cc_merge = cc_merge_rows(dev, cfg, order, args.reps)
+    for r in cc_merge:
+        print(json.dumps(r), flush=True)
+    if args.only == "cc_merge":
+        print(f"card: {smi}", flush=True)
+        if args.out:
+            with open(args.out, "w") as f:
+                json.dump({"card": smi, "cc_merge": cc_merge}, f, indent=1)
+        return cc_merge
     case = ring_block_case(dev, cfg)
     for line in edge_cases(dev, cfg) + batch_edge_cases(dev, cfg) + \
             ring_batch_edge_cases(dev, cfg, case) + dyn_edge_cases(dev, cfg):
@@ -1176,11 +1504,6 @@ def main(argv: Optional[Sequence[str]] = None) -> list:
         measure_ring_batch(dev, cfg, case, args.reps)]
     for r in rows:
         print(json.dumps(r), flush=True)
-    others = [other_kernels(root) for root in args.compare]
-    for other in others:
-        other.build()
-    order = others + [kernels, kernels] + others[::-1] if others \
-        else [kernels]
     scaling = []
     for turn, kmod in enumerate(order):
         for r in scaling_rows(dev, cfg, case, kmod):
@@ -1193,7 +1516,8 @@ def main(argv: Optional[Sequence[str]] = None) -> list:
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"card": smi, "rows": rows, "scaling": scaling,
-                       "launch_floor_us": floor}, f, indent=1)
+                       "cc_merge": cc_merge, "launch_floor_us": floor}, f,
+                      indent=1)
     return rows
 
 

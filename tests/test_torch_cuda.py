@@ -58,9 +58,11 @@ This file imports no jax, so it runs where only torch is installed:
   same code on the same rows of the same card), through the tile-min and
   the batched ring kernels;
 - one dispatch: the CC-label kernel bit-equal to its plain version on the
-  adversarial masks and on a scan's and a block's level masks; the merge
-  kernel bit-equal to its plain version on the inputs of B = 1 and B = 16
-  queries and on random rows; the stream as CUDA graph replays (f32 and
+  adversarial masks (150 x 150, 37 x 41, 8 x 8 and 5 x 7: the cluster's
+  strips of many rows, one row and none) and on a scan's and a block's
+  level masks; the merge kernel bit-equal to its plain version on the
+  inputs of B = 1 and B = 16 queries, on random rows and on rows made to
+  stress its lanes; the stream as CUDA graph replays (f32 and
   q16 payloads, across two grows, each capturing again) bit-equal to the
   eager body it captured, each kernel counted once a step, replays
   included; 20 graphed steps and a chain of 16 with no host sync (sync
@@ -855,21 +857,26 @@ def _launch_delta(fn):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", sorted(kt.adversarial_masks(8, 8))
-                         + ["one scan", "a block of 16", "37 x 41"])
+                         + ["one scan", "a block of 16", "37 x 41", "8 x 8",
+                            "5 x 7"])
 def test_cc_labels_kernel_matches_plain_on_card(cuda, name):
     """The CC kernel bit-equal to its plain version on the masks made to
-    stress a labelling (150 x 150, alone and all in one launch) and on the
-    level masks of a scan (B = 1: 6 masks) and of a block (B = 16: 96)."""
+    stress a labelling (150 x 150, alone and all in one launch), on the
+    level masks of a scan (B = 1: 6 masks) and of a block (B = 16: 96), and
+    on every adversarial mask at 37 x 41 (strips of 5 rows, the last of 2),
+    8 x 8 (a row a strip) and 5 x 7 (three strips with no rows)."""
     cfg, clouds = _revisit_clouds()
     if name == "one scan":
         masks = kt.masks_of(torch.from_numpy(clouds[8:9]).to(cuda), cfg)
     elif name == "a block of 16":
         masks = kt.masks_of(torch.from_numpy(np.concatenate(
             [clouds, clouds[:4]])).to(cuda), cfg)
-    elif name == "37 x 41":
-        # an odd pixel count: the kernel's byte-wise loads
+    elif " x " in name:
+        # odd pixel counts, strip starts off any 4-byte boundary, strips of
+        # one row and strips with none
+        nr, nc = (int(v) for v in name.split(" x "))
         masks = torch.from_numpy(np.stack(list(
-            kt.adversarial_masks(37, 41).values()))).to(cuda)
+            kt.adversarial_masks(nr, nc).values()))).to(cuda)
     else:
         adv = kt.adversarial_masks(cfg.cm.n_row, cfg.cm.n_col)
         masks = torch.from_numpy(adv[name])[None].to(cuda)
@@ -916,6 +923,19 @@ def test_merge_hints_kernel_matches_plain_on_card(cuda, B):
                   torch.from_numpy(T).to(cuda),
                   torch.from_numpy(rng.integers(1, 9, (B, MP))
                                    .astype(np.int32)).to(cuda), "random")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(kt.merge_stress_cases()))
+def test_merge_hints_kernel_matches_plain_on_stress_rows(cuda, name):
+    """The merge kernel bit-equal to its plain version (run on the card) on
+    the rows made to stress its lanes: trip counts from 0 to MP in one
+    warp, full rows of MP hints, angles across the wrap; one launch."""
+    hint_of, T, votes = (torch.from_numpy(x).to(cuda)
+                         for x in kt.merge_stress_cases()[name])
+    kernels.reset_launches()
+    assert kt.hold_merge(hint_of, T, votes, name) == 0.0
+    assert kernels.merge_hints.launches == 1
 
 
 def _stream_db(cfg, clouds, graphed, n, q16=False, capacity=8):

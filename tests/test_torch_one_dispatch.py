@@ -17,13 +17,19 @@ On the CPU each kernel wrapper takes its plain version; this file holds:
 - the plain `cc_labels` against JAX's `cc_labels` under the config's
   `cc_flush`, exactly, on synth scans' level masks and on masks made to
   stress a labelling (a spiral one pixel wide, a comb, a checkerboard,
-  full, empty, diagonal staircases, a random field); the card tests hold
+  full, empty, diagonal staircases, a random field, and for the kernel's
+  strips of rows a U joined only in its last rows, a serpentine crossing
+  every strip at each turn, two interleaved combs); the card tests hold
   the kernel to the plain version on the same masks;
 - the merge's plain loop (`kernels.merge_hints_plain`) against a per-row
   walk written the way the kernel walks (a row's hints in arrival order,
-  float32 numpy), and the port's `merge_proposals` against JAX's on the
-  cascade outputs of a found revisit, at the default and squeezed caps;
-- the merge kernel's byte bound against a count of what its walk reads;
+  float32 numpy), also on rows made to stress the kernel's lanes (trip
+  counts from 0 to MP in one warp, full rows, angles across the wrap), and
+  the port's `merge_proposals` against JAX's on the cascade outputs of a
+  found revisit, at the default and squeezed caps;
+- the merge kernel's byte bound against a count of what its walk reads,
+  and its chain bound (the longest row's hints, a fixed count of dependent
+  steps each);
 - the device-indexed appends and record writes against the host-indexed
   writes they replace, bit for bit, over a 40-scan stream (and 5 blocks of
   8) that crosses two grows.
@@ -243,13 +249,15 @@ def test_plain_cc_labels_match_jax(carried, jax_cc, name):
 
 
 def test_adversarial_masks_are_what_they_say():
-    """The spiral, comb, checkerboard and staircases are one 8-connected
-    component each (scipy's labelling), the random field many."""
+    """The spiral, comb, checkerboard, staircases, U and serpentine are one
+    8-connected component each (scipy's labelling), the two interleaved
+    combs two, the random field many."""
     import scipy.ndimage as ndi
 
     counts = {k: ndi.label(m, structure=np.ones((3, 3)))[1]
               for k, m in kt.adversarial_masks().items()}
     assert counts.pop("empty") == 0 and counts.pop("random") > 10
+    assert counts.pop("two interleaved combs") == 2
     assert set(counts.values()) == {1}, counts
     lab = kernels.cc_labels_plain(
         torch.from_numpy(kt.adversarial_masks()["spiral"])[None])
@@ -332,12 +340,19 @@ def _synthetic_merge(seed: int, B: int = 4, C: int = 8, MP: int = 24):
 
 
 @pytest.mark.parametrize("source", ["default", "squeezed", "synthetic 0",
-                                    "synthetic 1"])
+                                    "synthetic 1"]
+                         + sorted(kt.merge_stress_cases()))
 def test_merge_plain_matches_row_walk(carried, jax_cascades, source):
     """`merge_hints_plain` (all rows at once, one trip a hint position)
     equals the kernel's per-row walk: slots, votes, counts and keys
-    exactly, poses to 1e-5 (numpy's cos and sin against torch's)."""
-    if source.startswith("synthetic"):
+    exactly, poses to 1e-5 (numpy's cos and sin against torch's); on the
+    cascade outputs of a revisit, on random rows, and on the rows made to
+    stress the kernel's lanes (`kernel_times.merge_stress_cases`: trip
+    counts from 0 to MP in one warp, full rows, angles across the wrap)."""
+    if source in kt.merge_stress_cases():
+        inputs = tuple(torch.from_numpy(x)
+                       for x in kt.merge_stress_cases()[source])
+    elif source.startswith("synthetic"):
         inputs = _synthetic_merge(int(source[-1]))
     else:
         cfg, tcfg = CASES[source]
@@ -379,6 +394,20 @@ def test_merge_bound_counts_what_the_walk_reads(seed):
     assert n_bytes == 4 * ids + 16 * hints + outputs
     assert n_bytes < sum(t.numel() * 4 for t in (hint_of, T, votes)) \
         + outputs
+
+
+def test_merge_chain_bound_is_the_longest_rows_chain():
+    """`kernel_times.merge_chain_bound`: the longest row's hints times
+    MERGE_CHAIN_STEPS dependent steps, one a clock; rows side by side do
+    not add up, and an empty input bounds at 0."""
+    hint_of, _, _ = (torch.from_numpy(x) for x in
+                     kt.merge_stress_cases()["ragged warp"])
+    clk = 2e9
+    assert kt.merge_chain_bound(hint_of, clk) == pytest.approx(
+        1e6 * 128 * kt.MERGE_CHAIN_STEPS / clk)
+    assert kt.merge_chain_bound(hint_of[:1, :16], clk) == pytest.approx(
+        1e6 * 15 * kt.MERGE_CHAIN_STEPS / clk)
+    assert kt.merge_chain_bound(torch.full((2, 4, 8), -1), clk) == 0.0
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
