@@ -118,14 +118,17 @@ exit code is not 0):
    map's captures growing the reserved memory by less than half of it);
 9. `dynamic_thres=True`: both dynamic kernels bit-equal to their plain
    versions at the edges (nothing passes, every row passes, the bars clamp
-   at ub on the first row; B = 1, 16 and 17; H at its cap and past the
-   kernel's chunk), a 64-scan stream as replays of the step's graph (the
-   scans after the first under sync debug mode "error"; one launch of each
-   dynamic kernel a scan) against the eager body bit for bit and the CPU
-   in the record bands, ms/scan graphed and eager; one block of 16
+   at ub on the first row; B = 1, 16 and 17; H at its cap and rows of
+   2500; counts and bars at the int32 extremes; every step a rise; a NaN
+   upper bar, NaN scores, signed zeros at the bars), a 64-scan stream as
+   replays of the step's graph (the scans after the first under sync
+   debug mode "error"; one launch of each dynamic kernel a scan) against
+   the eager body bit for bit and the CPU in the record bands, ms/scan
+   graphed and eager; one block of 16
    revisit queries as the build and query graphs of 16, against the eager
-   bodies and the CPU; each kernel at the stream's and the block's inputs,
-   with its device time warm and cold, bound, call and plain ms;
+   bodies and the CPU; each kernel at the stream's and the block's inputs
+   and on a row where every step is a rise, with its device time warm and
+   cold, its ballot rounds and split by phase, bound, call and plain ms;
 10. the user-facing surface, each path's launches counted from 0 just
    before it: the stream's first 80 clouds in chains (`step_chain_async`, 4
    of 16, then 5 + 11 of a 16-row buffer through `step_chain_dyn_async`, the
@@ -623,12 +626,32 @@ def phase_9(cfg, clouds, rev0: int, smi: str):
     pass_row["block"] = kt.measure_dyn_pass(pa16, "the block of 16", reps)
     post_row = kt.measure_dyn_post(po1, "a revisit query of the stream", reps)
     post_row["block"] = kt.measure_dyn_post(po16, "the block of 16", reps)
-    for r in (pass_row, pass_row["block"], post_row, post_row["block"]):
+    # the rows on which every step is a rise: the walks' most rounds
+    wp, wo = kt.dyn_worst_cases(dev)
+    pass_row["every_rise"] = kt.measure_dyn_pass(wp, "every hint a rise", reps)
+    post_row["every_rise"] = kt.measure_dyn_post(wo, "every candidate a rise",
+                                                 reps)
+    # at the default bars a row's bars rise at most 3 times (the clamped
+    # orie takes the values 4, 5 and 6): at most 4 ballot rounds a row
+    assert pass_row["rounds"] <= 4 and pass_row["block"]["rounds"] <= 4, \
+        (pass_row["rounds"], pass_row["block"]["rounds"])
+    # every step a rise: a round for each lane's steps, and the last
+    for r, args in ((pass_row, wp), (post_row, wo)):
+        assert r["every_rise"]["rounds"] == \
+            args[0].shape[-1] // kt.DYN_LANE_STEPS + 1, r["every_rise"]
+    for r in (pass_row, pass_row["block"], pass_row["every_rise"], post_row,
+              post_row["block"], post_row["every_rise"]):
+        ps = r["phase_split"]
         log(f"{r['name']}: {r['shape']}, {r['passed']} passing: device "
             f"{r['device_us_warm']:.3f} us warm, {r['device_us_cold']:.3f} "
-            f"us cold (torch.profiler, mean of {reps}); bound "
+            f"us cold (torch.profiler, mean of {reps}); {r['rounds']:g} "
+            f"ballot rounds (the most of a row; mean "
+            f"{ps['count_mean']:.2f}); split by phase (clock64, the slowest "
+            f"row) " + ", ".join(f"{n} {us:.3f}" for n, us in zip(
+                ps["phases"], ps["us_slowest_cta"])) + " us; bound "
             f"{r['bound_us']:.4f} us by {r['bound_by']} ({r['bytes']} B, "
-            f"{r['steps']} dependent steps a row); call {r['ms']:.4f} ms "
+            f"{r['steps']} dependent steps, ceil(log2) of a row); call "
+            f"{r['ms']:.4f} ms "
             f"(host + launch), plain {r['plain_ms']:.4f} ms; bit-equal to "
             f"the plain version ({smi})")
     for r in (pass_row, post_row):

@@ -1,7 +1,7 @@
 """Device times of the port's CUDA kernels beside their bounds.
 
     python -m contour_context_tpu_torch.kernel_times [--reps 200]
-        [--out FILE] [--compare ROOT ...] [--only cc_merge]
+        [--out FILE] [--compare ROOT ...] [--only cc_merge|dyn]
 
 Run from the repository root on a machine with a CUDA card (it renders a
 scan with `tests/synth.py`). `chip_smoke.py` runs the same measurement in
@@ -66,16 +66,24 @@ The two `dynamic_thres` kernels (`measure_dyn_pass`, `measure_dyn_post`;
 revisit query and a block of 16 (`dyn_cases`, on a DB the caller holds),
 each held bit-equal to its plain version first (`hold_dyn_pass`,
 `hold_dyn_post`, also at `dyn_edge_cases`); their bound is the larger of
-their bytes and their serial chain, one dependent step a hint or a
-candidate at the card's maximum SM clock (`dyn_bound`).
+their bytes and ceil(log2 H) dependent steps (H hints or candidates a
+row: a row's last output depends on all H steps' inputs), one a clock at
+the card's maximum SM clock (`dyn_bound`). `dyn_rows` runs
+both on phase 9's inputs (`dyn_stream_cases`: its 64-scan DB is rebuilt
+here) and on the rows where every step is a rise (`dyn_worst_cases`), for
+this checkout and every `--compare` checkout in turns, and splits each by
+phase with the walk's ballot rounds (`dyn_phase_split`: clock64 stamps of
+lane 0 of each row's warp from the measurement-only entries
+`cc_dyn_pass_scan_phases` / `cc_dyn_post_scan_phases`); `--only dyn`
+stops there.
 
 Then `scaling_rows`: both batched kernels across the sizes their paths
 give them (the ring at B = 1-64 and at 9-36 anchors, the tile-min at B =
 4-64 and on a capacity-65536 map), each beside its bytes, operations,
 bound and share. `--compare ROOT ...` times the kernels of other
 checkouts (an unpacked commit: `git archive <commit> | tar -x -C ROOT`, in
-a gitignored directory) through the same scaling, CC and merge rows in the
-same process, in turns, for an A/B on one card.
+a gitignored directory) through the same scaling, CC, merge and dynamic
+scan rows in the same process, in turns, for an A/B on one card.
 """
 
 from __future__ import annotations
@@ -315,15 +323,9 @@ def ring_case(dev, cfg: PipelineConfig):
 
 def ring_block_case(dev, cfg: PipelineConfig, B: int = 16):
     """anchors (B, 36, 8), pool (B, 4096, 8), centres of the smoke stream's
-    first B scans (its seeds, drawn in order from default_rng(0)), and the
-    same of one all-zero cloud (a serving pad), built on dev."""
-    from contour_context_tpu_torch.profile_step import lane_poses
-
-    world, render_scan = _world()
-    rng = np.random.default_rng(0)
-    pts = np.stack([pad_points(render_scan(world, p, seed=int(
-        rng.integers(1 << 30))), cfg.cm.max_points)
-        for p in lane_poses(0, B)])
+    first B scans (`stream_clouds`, B at most a lane's 132), and the same
+    of one all-zero cloud (a serving pad), built on dev."""
+    pts = np.stack(stream_clouds(cfg, range(B)))
     block = ring_inputs_of(torch.from_numpy(pts).to(dev), cfg)
     zero = ring_inputs_of(torch.zeros((1,) + pts.shape[1:], device=dev), cfg)
     return block, zero
@@ -997,20 +999,29 @@ def measure_merge(hint_of, T, votes, label: str, reps: int = 200,
 LANE_SCANS = 132          # the smoke stream's lane length
 
 
-def stream_case(dev, cfg: PipelineConfig):
-    """The smoke's stream (`chip_smoke.py` phase 4): lane 0, lane 1 and lane
-    0 again 1.5 m aside, 132 scans each (seeds drawn in order from
-    default_rng(0)), stepped into a card DB of capacity 8192 at 10 Hz.
-    Returns (db, clouds)."""
-    from contour_context_tpu_torch import db as tdb
+def stream_clouds(cfg: PipelineConfig, idx=None) -> list:
+    """The smoke's stream (`chip_smoke.py` phase 4) as padded clouds: lane
+    0, lane 1 and lane 0 again 1.5 m aside, 132 scans each, the seeds drawn
+    in order from default_rng(0) for the whole stream; the scans at the
+    indices `idx` (default: all of them, in order)."""
     from contour_context_tpu_torch.profile_step import lane_poses
 
     world, render_scan = _world()
     rng = np.random.default_rng(0)
     plan = (lane_poses(0, LANE_SCANS) + lane_poses(1, LANE_SCANS)
             + lane_poses(0, LANE_SCANS, dy=1.5))
-    clouds = [pad_points(render_scan(world, p, seed=int(
-        rng.integers(1 << 30))), cfg.cm.max_points) for p in plan]
+    seeds = [int(rng.integers(1 << 30)) for _ in plan]
+    return [pad_points(render_scan(world, plan[i], seed=seeds[i]),
+                       cfg.cm.max_points)
+            for i in (range(len(plan)) if idx is None else idx)]
+
+
+def stream_case(dev, cfg: PipelineConfig):
+    """The smoke's stream (`stream_clouds`) stepped into a card DB of
+    capacity 8192 at 10 Hz. Returns (db, clouds)."""
+    from contour_context_tpu_torch import db as tdb
+
+    clouds = stream_clouds(cfg)
     db = tdb.ContourDB(cfg, capacity=8192, device=dev)
     for k, c in enumerate(clouds):
         db.step_async(c, k, 0.1 * k)
@@ -1041,12 +1052,15 @@ def cc_merge_cases(dev, cfg: PipelineConfig):
 STAMP_SLOTS = 16          # clock64 slots a CTA of a *_phases entry writes
 
 
-def _phase_split(lib, kernel: str, n_ctas: int, call, reps: int) -> dict:
+def _phase_split(lib, kernel: str, n_ctas: int, call, reps: int,
+                 count_slot: Optional[int] = None) -> dict:
     """Run the measurement entry `cc_<kernel>_phases` (thread 0 of each CTA
     writes clock64() at each phase boundary) reps times after 5 warm-ups:
     each phase's cycles, mean over CTAs and launches, and the slowest CTA's
-    (mean over launches), in us at the card's maximum SM clock. None when
-    the library has no such entry (an older checkout)."""
+    (mean over launches), in us at the card's maximum SM clock; with
+    `count_slot`, also the count each CTA wrote there ("count_mean" over
+    CTAs and launches, "count_max"). None when the library has no such
+    entry (an older checkout)."""
     try:
         entry = getattr(lib, f"cc_{kernel}_phases")
         names_fn = getattr(lib, f"cc_{kernel}_phase_names")
@@ -1060,6 +1074,7 @@ def _phase_split(lib, kernel: str, n_ctas: int, call, reps: int) -> dict:
                          device="cuda")
     mean = torch.zeros(n + 1, dtype=torch.float64, device="cuda")
     worst = torch.zeros(n + 1, dtype=torch.float64, device="cuda")
+    count = torch.zeros(2, dtype=torch.float64, device="cuda")
     for i in range(5 + reps):
         stamps.zero_()
         rc = call(entry, ctypes.c_void_p(stamps.data_ptr()))
@@ -1070,12 +1085,18 @@ def _phase_split(lib, kernel: str, n_ctas: int, call, reps: int) -> dict:
                            stamps[:, n:n + 1] - stamps[:, :1]], 1).double()
             mean += d.mean(0)
             worst += d.max(0).values
+            if count_slot is not None:
+                c = stamps[:, count_slot].double()
+                count += torch.stack([c.mean(), c.max()])
     clk = max_sm_clock_hz()
     mean, worst = (mean / reps).tolist(), (worst / reps).tolist()
-    return {"phases": names, "ctas": n_ctas,
-            "cycles_mean": mean[:n], "cycles_slowest_cta": worst[:n],
-            "us_slowest_cta": [1e6 * c / clk for c in worst[:n]],
-            "total_us_slowest_cta": 1e6 * worst[n] / clk}
+    out = {"phases": names, "ctas": n_ctas,
+           "cycles_mean": mean[:n], "cycles_slowest_cta": worst[:n],
+           "us_slowest_cta": [1e6 * c / clk for c in worst[:n]],
+           "total_us_slowest_cta": 1e6 * worst[n] / clk}
+    if count_slot is not None:
+        out["count_mean"], out["count_max"] = (count / reps).tolist()
+    return out
 
 
 def cc_phase_split(masks, kmod=None, reps: int = 50):
@@ -1139,6 +1160,12 @@ def merge_phase_split(hint_of, T, votes, kmod=None, reps: int = 50):
     return _phase_split(lib, "merge_hints", B, call, reps)
 
 
+def _root_of(kmod) -> str:
+    """The checkout a kernel module builds from, relative to this one."""
+    return os.path.relpath(os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(kmod.__file__)))), ROOT)
+
+
 def cc_merge_rows(dev, cfg: PipelineConfig, kmods, reps: int = 200) -> list:
     """The CC and merge kernels of each module in `kmods` (in that order:
     turns for an A/B) on `cc_merge_cases`' inputs: each row held bit-equal
@@ -1149,8 +1176,6 @@ def cc_merge_rows(dev, cfg: PipelineConfig, kmods, reps: int = 200) -> list:
     cc, merge = cc_merge_cases(dev, cfg)
     rows = []
     for turn, kmod in enumerate(kmods):
-        root = os.path.dirname(os.path.dirname(os.path.dirname(
-            os.path.abspath(kmod.__file__))))
         for label, masks in cc.items():
             r = measure_cc(masks, label, reps, kmod)
             r["phase_split"] = cc_phase_split(masks, kmod)
@@ -1161,11 +1186,12 @@ def cc_merge_rows(dev, cfg: PipelineConfig, kmods, reps: int = 200) -> list:
             r["phase_split"] = merge_phase_split(*args, kmod)
             rows.append(r)
         for r in rows[-len(cc) - len(merge):]:
-            r["turn"], r["root"] = turn, os.path.relpath(root, ROOT)
+            r["turn"], r["root"] = turn, _root_of(kmod)
     return rows
 
 
 DYN_REPLACES = "contour_context_tpu/ops/candidate.py"
+DYN_SOURCE = "contour_context_tpu_torch/csrc/dyn_thres.cu"
 
 
 def dyn_cases(db, points_b, cfg: PipelineConfig):
@@ -1198,11 +1224,12 @@ def dyn_cases(db, points_b, cfg: PipelineConfig):
     return seen["pass"], seen["post"]
 
 
-def hold_dyn_pass(args, what: str) -> float:
-    """One `dyn_pass_scan` launch against its plain version on `args`:
-    raises unless both masks are bit-equal; returns the largest absolute
-    difference (0.0 then)."""
-    k2, k3 = kernels.dyn_pass_scan(*args)
+def hold_dyn_pass(args, what: str, kmod=None) -> float:
+    """One `dyn_pass_scan` launch (of `kmod`, default this checkout's)
+    against this checkout's plain version on `args`: raises unless both
+    masks are bit-equal; returns the largest absolute difference (0.0
+    then)."""
+    k2, k3 = (kmod or kernels).dyn_pass_scan(*args)
     p2, p3 = kernels.dyn_pass_scan_plain(*args)
     err = float(max((k2 != p2).sum(), (k3 != p3).sum()))
     assert torch.equal(k2, p2) and torch.equal(k3, p3), \
@@ -1210,9 +1237,9 @@ def hold_dyn_pass(args, what: str) -> float:
     return err
 
 
-def hold_dyn_post(args, what: str) -> float:
+def hold_dyn_post(args, what: str, kmod=None) -> float:
     """One `dyn_post_scan` launch against its plain version on `args`."""
-    k = kernels.dyn_post_scan(*args)
+    k = (kmod or kernels).dyn_post_scan(*args)
     p = kernels.dyn_post_scan_plain(*args)
     err = float((k != p).sum())
     assert torch.equal(k, p), \
@@ -1220,52 +1247,165 @@ def hold_dyn_post(args, what: str) -> float:
     return err
 
 
-def dyn_bound(masks_in, ints_in, masks_out, steps: int, clk_hz: float):
-    """(bound us, bound_by, bytes) of a dynamic scan: each input byte read
-    once, each output mask written once, over 3.35 TB/s; against the
-    serial chain, `steps` dependent steps a row (H hints or C candidates)
-    at one step a clock at the card's maximum SM clock, which the rows
-    cannot share out."""
+def dyn_bound(masks_in, ints_in, masks_out, n: int, clk_hz: float):
+    """(bound us, bound_by, bytes, dependent steps) of a dynamic scan on
+    rows of n hints or candidates: each input byte read once, each output
+    mask written once, over 3.35 TB/s; against ceil(log2 n) dependent
+    steps, one a clock at the card's maximum SM clock. A row's last output
+    depends on the inputs of all n of its steps, and operations of two
+    operands join n inputs in no fewer levels (the clamped running max
+    composes as a parallel prefix in that many); the rows run side by
+    side."""
     n_bytes = sum(t.numel() * t.element_size()
                   for t in (*masks_in, *ints_in, *masks_out))
-    return _bound(n_bytes, steps / clk_hz) + (n_bytes,)
+    steps = math.ceil(math.log2(n)) if n > 1 else 1
+    return _bound(n_bytes, steps / clk_hz) + (n_bytes, steps)
 
 
-def _dyn_row(name, line, args, label, fn, plain, hold, ins, ints, outs,
-             reps, clk):
-    err = hold(args, label)
-    H = ins[0].shape[-1]
-    b_us, b_by, n_bytes = dyn_bound(ins, ints, outs, H, clk)
+def dyn_phase_split(name: str, args, kmod=None, reps: int = 50):
+    """`_phase_split` of the dynamic scan `name` ("dyn_pass_scan" or
+    "dyn_post_scan") of `kmod` on its wrapper's args: each row's load (and
+    thresholds), walk and write, stamped by lane 0 of the row's warp
+    through the measurement entry `cc_<name>_phases`, and the walk's ballot
+    rounds a row ("count_mean", "count_max"). None for a checkout without
+    the entries."""
+    lib = (kmod or kernels).build()
+    try:
+        slot = lib.cc_dyn_round_slot()
+    except AttributeError:
+        return None
+    pass_scan = name == "dyn_pass_scan"
+    n_in = 6 if pass_scan else 4
+    val = torch.int32 if pass_scan else torch.float32
+    ins = [args[0].contiguous()] + [x.to(val).contiguous()
+                                    for x in args[1:n_in]]
+    bars = (*args[n_in], *args[n_in + 1])
+    shape = tuple(ins[0].shape)
+    outs = [torch.empty(shape, dtype=torch.bool, device=ins[0].device)
+            for _ in range(2 if pass_scan else 1)]
+    rows = math.prod(shape[:-1])
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    bar_t, bar_of = (ci, int) if pass_scan else (ctypes.c_float, float)
+
+    def call(entry, stamps):
+        entry.argtypes = ([vp] * (len(ins) + len(outs)) + [ci, ci]
+                          + [bar_t] * len(bars) + [vp, vp])
+        return entry(*[x.data_ptr() for x in ins + outs], rows, shape[-1],
+                     *[bar_of(v) for v in bars], stamps,
+                     torch.cuda.current_stream().cuda_stream)
+
+    return _phase_split(lib, name, rows, call, reps, count_slot=slot)
+
+
+def _dyn_row(name, line, args, label, kmod, ins, ints, outs, reps, clk):
+    hold = hold_dyn_pass if name == "dyn_pass_scan" else hold_dyn_post
+    err = hold(args, label, kmod)
+    b_us, b_by, n_bytes, steps = dyn_bound(ins, ints, outs,
+                                           ins[0].shape[-1], clk)
+    split = dyn_phase_split(name, args, kmod)
     return _shares(dict(
-        name=name, route="cuda",
-        source="contour_context_tpu_torch/csrc/dyn_thres.cu",
+        name=name, route="cuda", source=DYN_SOURCE,
         replaces=f"{DYN_REPLACES}:{line}",
-        shape=f"{tuple(ins[0].shape)} ({label})", steps=H,
-        passed=int(outs[-1].sum()), max_abs_err=err, bound_us=b_us,
-        bound_by=b_by, bytes=n_bytes, library_ms=None,
-        **_measure(lambda: fn(*args), lambda: plain(*args),
+        shape=f"{tuple(ins[0].shape)} ({label})", steps=steps,
+        passed=int(outs[-1].sum()),
+        rounds=None if split is None else split["count_max"],
+        phase_split=split, max_abs_err=err, bound_us=b_us, bound_by=b_by,
+        bytes=n_bytes, library_ms=None,
+        **_measure(lambda: getattr(kmod, name)(*args),
+                   lambda: getattr(kernels, name + "_plain")(*args),
                    name + "_kernel", reps)))
 
 
-def measure_dyn_pass(args, label: str, reps: int = 200) -> dict:
+def measure_dyn_pass(args, label: str, reps: int = 200, kmod=None) -> dict:
     """The pass scan's row on its inputs: held against its plain version,
-    then timed (device us warm and cold, call and plain ms)."""
+    then timed (device us warm and cold, call and plain ms), split by phase
+    with its ballot rounds where the checkout has the measurement entry.
+    `kmod` is the kernel module to time (default this checkout's)."""
     p2, p3 = kernels.dyn_pass_scan_plain(*args)
-    return _dyn_row("dyn_pass_scan", 290, args, label,
-                    kernels.dyn_pass_scan, kernels.dyn_pass_scan_plain,
-                    hold_dyn_pass, [args[0]],
-                    [x.to(torch.int32) for x in args[1:6]], [p2, p3], reps,
-                    max_sm_clock_hz())
+    return _dyn_row("dyn_pass_scan", 290, args, label, kmod or kernels,
+                    [args[0]], [x.to(torch.int32) for x in args[1:6]],
+                    [p2, p3], reps, max_sm_clock_hz())
 
 
-def measure_dyn_post(args, label: str, reps: int = 200) -> dict:
+def measure_dyn_post(args, label: str, reps: int = 200, kmod=None) -> dict:
     """The post scan's row on its inputs."""
     keep = kernels.dyn_post_scan_plain(*args)
-    return _dyn_row("dyn_post_scan", 322, args, label,
-                    kernels.dyn_post_scan, kernels.dyn_post_scan_plain,
-                    hold_dyn_post, [args[0]],
-                    [x.to(torch.float32) for x in args[1:4]], [keep], reps,
-                    max_sm_clock_hz())
+    return _dyn_row("dyn_post_scan", 322, args, label, kmod or kernels,
+                    [args[0]], [x.to(torch.float32) for x in args[1:4]],
+                    [keep], reps, max_sm_clock_hz())
+
+
+RISE_UB = 10 ** 6         # the upper bars of the every-step-a-rise rows
+DYN_LANE_STEPS = 8        # steps a lane of the walks (csrc/dyn_thres.cu)
+
+
+def dyn_worst_cases(dev, H: int = 256, C: int = 64):
+    """The wrapper args on which each walk takes the most ballot rounds,
+    one row each: the pass scan with every hint passing and orie rising 1,
+    2, ..., H under lower bars 0 and upper bars RISE_UB; the post scan with
+    every candidate in use and its three scores rising under upper bars
+    RISE_UB. Every step is a rise: a round for each lane's
+    DYN_LANE_STEPS steps, plus one (33 at H 256, 9 at C 64)."""
+    p1 = torch.ones((1, H), dtype=torch.bool, device=dev)
+    full = torch.full((1, H), RISE_UB, dtype=torch.int32, device=dev)
+    orie = torch.arange(1, H + 1, dtype=torch.int32, device=dev)[None]
+    use = torch.ones((1, C), dtype=torch.bool, device=dev)
+    up = torch.arange(C, dtype=torch.float32, device=dev)[None] / C
+    return ((p1, full, full, full, full, orie, (0,) * 5, (RISE_UB,) * 5),
+            (use, up, up - 8.0, up, (-1.0, -9.0, -1.0),
+             (float(RISE_UB),) * 3))
+
+
+def dyn_stream_cases(dev, cfg: PipelineConfig) -> list:
+    """The inputs `chip_smoke.py` phase 9 times the dynamic scans on, and
+    the worst-case rows: [(kernel name, label, wrapper args)]. The DB is
+    phase 9's: the smoke stream's first 32 scans of lane 0 and their 32
+    revisits (`stream_clouds`), stepped 1 s apart into a card DB of
+    capacity 128 under `dynamic_thres`; the args are those of its 59th
+    scan's query and of a block of its last 16 (`dyn_cases`)."""
+    import dataclasses
+
+    from contour_context_tpu_torch import db as tdb
+
+    rev0 = 2 * LANE_SCANS
+    seq = stream_clouds(cfg, list(range(32)) + list(range(rev0, rev0 + 32)))
+    dyn = dataclasses.replace(
+        cfg, db=dataclasses.replace(cfg.db, dynamic_thres=True))
+    db = tdb.ContourDB(dyn, capacity=128, device=dev)
+    for k, c in enumerate(seq):
+        db.step_async(c, k, 1.0 * k)
+    pa1, po1 = dyn_cases(db, torch.from_numpy(seq[-5])[None].to(dev), dyn)
+    pa16, po16 = dyn_cases(db, torch.from_numpy(np.stack(seq[-16:])).to(dev),
+                           dyn)
+    wp, wo = dyn_worst_cases(dev)
+    del db
+    return [("dyn_pass_scan", "a revisit query of the stream", pa1),
+            ("dyn_pass_scan", "the block of 16", pa16),
+            ("dyn_pass_scan", "every hint a rise", wp),
+            ("dyn_post_scan", "a revisit query of the stream", po1),
+            ("dyn_post_scan", "the block of 16", po16),
+            ("dyn_post_scan", "every candidate a rise", wo)]
+
+
+def dyn_rows(dev, cfg: PipelineConfig, kmods, reps: int = 200) -> list:
+    """Both dynamic scans of each module in `kmods` (in that order: turns
+    for an A/B) on `dyn_stream_cases`' inputs, each row held bit-equal to
+    this checkout's plain version, timed and split by phase
+    (`measure_dyn_pass`, `measure_dyn_post`), its `turn` and `root`
+    named."""
+    cases = dyn_stream_cases(dev, cfg)
+    rows = []
+    for turn, kmod in enumerate(kmods):
+        for name, label, args in cases:
+            measure = measure_dyn_pass if name == "dyn_pass_scan" \
+                else measure_dyn_post
+            r = measure(args, label, reps, kmod)
+            r["turn"], r["root"] = turn, _root_of(kmod)
+            rows.append(r)
+    return rows
+
+
+I32 = np.iinfo(np.int32)
 
 
 def dyn_edge_cases(dev, cfg: PipelineConfig) -> list:
@@ -1275,8 +1415,13 @@ def dyn_edge_cases(dev, cfg: PipelineConfig) -> list:
     ub); the bars clamp at ub on the first row (its orie, or its scores,
     above every upper bar) and then gate the rest; random inputs at B = 1,
     16 and 17; H at its cap (min(max_check_cands, Q*A*K)) and C at
-    max_cand_poses, and rows longer than the kernel's 1024-column chunk.
-    Returns one line a case."""
+    max_cand_poses, rows of 2500 (several windows of the walk, unaligned
+    rows); bars out of order; counts at INT32_MIN / INT32_MAX under cfg's
+    bars and under bars at the int32 extremes; every step a rise
+    (`dyn_worst_cases`); a NaN upper bar (the first kept row makes the bar
+    NaN, and nothing is kept after it: one row kept of each); NaN scores;
+    scores of -0.0 and +0.0 at bars of +0.0 and -0.0. Returns one line
+    for each kernel."""
     from contour_context_tpu_torch.ops.candidate import (dynamic_pass_scan,
                                                          dynamic_post_scan)
 
@@ -1312,6 +1457,9 @@ def dyn_edge_cases(dev, cfg: PipelineConfig) -> list:
         elif kind == "bars clamp at ub on the first row":
             p1[:, 0] = True
             cnt[:, :, 0] = max(ub_pass) + 5
+        elif kind == "counts at the int32 extremes":
+            cnt = rng.choice([I32.min, I32.min + 1, -1, 0, 3, 4, 5, 6, 7,
+                              I32.max - 1, I32.max], (5, B, H))
         args = (t(p1, torch.bool), *[t(c, torch.int32) for c in cnt])
         p2, p3 = dynamic_pass_scan(*args, lb, ub)     # the query path's call
         k2, k3 = dynamic_pass_scan(*[a.cpu() for a in args], lb, ub)
@@ -1337,6 +1485,8 @@ def dyn_edge_cases(dev, cfg: PipelineConfig) -> list:
         elif kind == "bars clamp at ub on the first row":
             use[:, 0] = True
             sc[:, :, 0] = np.asarray(ub_post, np.float32)[:, None] + 1.0
+        elif kind == "NaN scores":
+            sc[rng.random(sc.shape) < 0.2] = np.nan
         args = (t(use, torch.bool), *[t(x, torch.float32) for x in sc])
         keep = dynamic_post_scan(*args, lb.sim_post, ub.sim_post)
         keep_c = dynamic_post_scan(*[a.cpu() for a in args], lb.sim_post,
@@ -1350,23 +1500,64 @@ def dyn_edge_cases(dev, cfg: PipelineConfig) -> list:
         return f"{kind}, B {B}, C {n}: {int(keep.sum())} of {keep.numel()} kept"
 
     kinds = ("random", "nothing passes", "every row passes",
-             "bars clamp at ub on the first row")
+             "bars clamp at ub on the first row",
+             "counts at the int32 extremes")
     pass_lines = [pass_case(B, HC, k) for B in (1, 16, 17) for k in kinds]
     pass_lines.append(pass_case(3, 2500, "random"))
+    pass_lines.append(pass_case(3, 2500, "counts at the int32 extremes"))
     # bars out of order: lb above ub (the bars jump to ub at the first
-    # pass) and lb equal to ub, on counts around them
+    # pass) and lb equal to ub, on counts around them; bars at the int32
+    # extremes, on counts at them
     odd = ((5, 2, 7, 3, 9), (3, 8, 7, 1, 12))
-    args = (t(rng.random((16, HC)) < 0.8, torch.bool),
-            *[t(rng.integers(0, 13, (16, HC)), torch.int32)
-              for _ in range(5)])
-    hold_dyn_pass(args + odd, "bars out of order")
-    p3 = kernels.dyn_pass_scan(*args, *odd)[1]
-    pass_lines.append(f"bars out of order {odd}, B 16, H {HC}: "
-                      f"{int(p3.sum())} of {p3.numel()} pass")
+    ext = ((I32.min, 0, I32.max, 4, I32.min + 1),
+           (I32.max, I32.min, I32.max - 1, 6, I32.max))
+    for what, bars, vals in (("bars out of order", odd, None),
+                             ("bars at the int32 extremes", ext,
+                              [I32.min, I32.min + 1, -1, 0, 4, 6,
+                               I32.max - 1, I32.max])):
+        cnt = rng.integers(0, 13, (5, 16, HC)) if vals is None \
+            else rng.choice(vals, (5, 16, HC))
+        args = (t(rng.random((16, HC)) < 0.8, torch.bool),
+                *[t(c, torch.int32) for c in cnt])
+        hold_dyn_pass(args + bars, what)
+        p3 = kernels.dyn_pass_scan(*args, *bars)[1]
+        pass_lines.append(f"{what} {bars}, B 16, H {HC}: "
+                          f"{int(p3.sum())} of {p3.numel()} pass")
+    wp, wo = dyn_worst_cases(dev, HC, C)
+    hold_dyn_pass(wp, "every hint a rise")
+    assert kernels.dyn_pass_scan(*wp)[1].all()
+    pass_lines.append(f"every hint a rise (orie 1..{HC} under ub "
+                      f"{RISE_UB}), B 1, H {HC}: all pass")
     post_kinds = ("random", "nothing kept", "every row kept",
-                  "bars clamp at ub on the first row")
+                  "bars clamp at ub on the first row", "NaN scores")
     post_lines = [post_case(B, C, k) for B in (1, 16, 17) for k in post_kinds]
     post_lines.append(post_case(3, 2500, "random"))
+    hold_dyn_post(wo, "every candidate a rise")
+    assert kernels.dyn_post_scan(*wo).all()
+    post_lines.append(f"every candidate a rise, B 1, C {C}: all kept")
+    # a NaN upper bar: torch.minimum makes the first kept row's bar NaN,
+    # and no score reaches a NaN bar (contour_context_tpu's scan, and a
+    # config's `.nan`, do the same)
+    for B in (1, 16):
+        use = np.ones((B, C), bool)
+        sc = rng.uniform(0.2, 0.9, (3, B, C)).astype(np.float32)
+        args = (t(use, torch.bool), *[t(x, torch.float32) for x in sc])
+        bars = ((0.1, 0.1, 0.1), (float("nan"), 0.95, 0.95))
+        hold_dyn_post(args + bars, f"a NaN upper bar, B {B}")
+        keep = kernels.dyn_post_scan(*args, *bars)
+        assert (keep.sum(-1) == 1).all(), keep.sum(-1)
+        post_lines.append(f"a NaN upper bar {bars}, B {B}, C {C}: one row "
+                          "of each kept")
+    # -0.0 and +0.0 at the bars: one value to >=, min and max
+    zs = rng.choice(np.array([0.0, -0.0, 0.25], np.float32), (3, 16, C))
+    args = (t(rng.random((16, C)) < 0.9, torch.bool),
+            *[t(x, torch.float32) for x in zs])
+    for bars in (((0.0, -0.0, 0.0), (-0.0, 0.0, 0.5)),
+                 ((-0.0, -0.0, 0.0), (0.0, 0.25, -0.0))):
+        hold_dyn_post(args + bars, f"signed zeros at the bars {bars}")
+        keep = kernels.dyn_post_scan(*args, *bars)
+        post_lines.append(f"signed zeros at the bars {bars}, B 16, C {C}: "
+                          f"{int(keep.sum())} of {keep.numel()} kept")
     lines.append("dyn_pass_scan at the edges (the wrapper through "
                  "candidate.dynamic_pass_scan, card == CPU, kernel == plain "
                  "version bit for bit): " + "; ".join(pass_lines))
@@ -1468,12 +1659,15 @@ def main(argv: Optional[Sequence[str]] = None) -> list:
     ap.add_argument("--reps", type=int, default=200)
     ap.add_argument("--out", help="also write the rows here as JSON")
     ap.add_argument("--compare", metavar="ROOT", nargs="+", default=[],
-                    help="time the scaling rows and the CC and merge rows of "
-                    "the checkouts at ROOT ... too, in turns (each ROOT, "
+                    help="time the scaling, CC, merge and dynamic scan rows "
+                    "of the checkouts at ROOT ... too, in turns (each ROOT, "
                     "this, this, each ROOT again)")
-    ap.add_argument("--only", choices=["cc_merge"],
+    ap.add_argument("--only", choices=["cc_merge", "dyn"],
                     help="cc_merge: only the CC and merge rows (with their "
-                    "phase split), in turns with --compare")
+                    "phase split), in turns with --compare; dyn: only the "
+                    "two dynamic scans' rows (phase 9's inputs and the "
+                    "worst-case rows, with their phase split and rounds), "
+                    "the same way")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available")
@@ -1486,6 +1680,15 @@ def main(argv: Optional[Sequence[str]] = None) -> list:
         other.build()
     order = others + [kernels, kernels] + others[::-1] if others \
         else [kernels]
+    if args.only == "dyn":
+        dyn = dyn_rows(dev, cfg, order, args.reps)
+        for r in dyn:
+            print(json.dumps(r), flush=True)
+        print(f"card: {smi}", flush=True)
+        if args.out:
+            with open(args.out, "w") as f:
+                json.dump({"card": smi, "dyn": dyn}, f, indent=1)
+        return dyn
     cc_merge = cc_merge_rows(dev, cfg, order, args.reps)
     for r in cc_merge:
         print(json.dumps(r), flush=True)
@@ -1504,6 +1707,9 @@ def main(argv: Optional[Sequence[str]] = None) -> list:
         measure_ring_batch(dev, cfg, case, args.reps)]
     for r in rows:
         print(json.dumps(r), flush=True)
+    dyn = dyn_rows(dev, cfg, order, args.reps)
+    for r in dyn:
+        print(json.dumps(r), flush=True)
     scaling = []
     for turn, kmod in enumerate(order):
         for r in scaling_rows(dev, cfg, case, kmod):
@@ -1516,8 +1722,8 @@ def main(argv: Optional[Sequence[str]] = None) -> list:
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"card": smi, "rows": rows, "scaling": scaling,
-                       "cc_merge": cc_merge, "launch_floor_us": floor}, f,
-                      indent=1)
+                       "cc_merge": cc_merge, "dyn": dyn,
+                       "launch_floor_us": floor}, f, indent=1)
     return rows
 
 

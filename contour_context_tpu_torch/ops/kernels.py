@@ -30,7 +30,8 @@ package's device-side while-loops and scans off the host:
   DYNAMIC_THRES recurrences of B queries, the re-gating of the cascade and
   the post screens with rising bars (the two lax.scans of the JAX
   `ops/candidate.py`; the plain versions step along the last axis in
-  torch.where ops).
+  torch.where ops), a warp a row that skips from one rise of the bars to
+  the next.
 
 Each wrapper takes its plain twin for CPU tensors only; a CUDA tensor launches
 the kernel or raises. The kernels are compiled at first use with nvcc into one
@@ -714,8 +715,9 @@ def dyn_pass_scan_plain(pass1, ovlp_sum, ovlp_max1, in_ang, indiv, orie,
 
 def dyn_pass_scan(pass1, ovlp_sum, ovlp_max1, in_ang, indiv, orie, lb, ub):
     """Kernel wrapper of `dyn_pass_scan_plain` (same signature and outputs,
-    bit-identical): one launch for every leading index, a CTA a row, one
-    thread walking the row's hints."""
+    bit-identical): one launch for every leading index, a warp a row, 8
+    hints a lane, one ballot round for each lane whose hints raise the
+    bars."""
     if pass1.device.type == "cpu":
         return dyn_pass_scan_plain(pass1, ovlp_sum, ovlp_max1, in_ang, indiv,
                                    orie, lb, ub)
@@ -786,7 +788,8 @@ def dyn_post_scan_plain(in_use, area, neg_d, corr0, lb, ub):
 
 def dyn_post_scan(in_use, area, neg_d, corr0, lb, ub):
     """Kernel wrapper of `dyn_post_scan_plain` (same signature and output,
-    bit-identical): one launch, a CTA a row, one thread walking it."""
+    bit-identical, a NaN upper bar included): one launch, a warp a row
+    that skips from one rise of the bars to the next."""
     if in_use.device.type == "cpu":
         return dyn_post_scan_plain(in_use, area, neg_d, corr0, lb, ub)
     if in_use.device.type != "cuda":

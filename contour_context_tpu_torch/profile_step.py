@@ -1,7 +1,8 @@
 """Stage split and device profile of the fused scan step.
 
     python -m contour_context_tpu_torch.profile_step [--device cuda]
-        [--lane-scans 132] [--reps 20] [--profile-scans 50] [--out FILE]
+        [--lane-scans 132] [--reps 20] [--profile-scans 50] [--dynamic]
+        [--out FILE]
 
 Run from the repository root (it renders scans with `tests/synth.py`). It
 drives the stream of `chip_smoke.py` (bench.py's world and lane geometry:
@@ -27,10 +28,15 @@ up to the revisits, then on revisit scans 4.. it reports:
   device-busy ms and kernel launches per scan (the profiler records the
   kernels inside a graph replay), the top operators, and each CUDA kernel
   of the step (`ring_key_divs_kernel`, `search_tilemin_kernel`,
-  `cc_labels_kernel`, `merge_hints_kernel`) with its launches and mean
-  device time per launch, beside the window's searchable_n (CUDA only);
+  `cc_labels_kernel`, `merge_hints_kernel`, and with `--dynamic` the
+  `dyn_pass_scan_kernel` and `dyn_post_scan_kernel`) with its launches and
+  mean device time per launch, beside the window's searchable_n (CUDA
+  only);
 - the host synchronisations per scan by call site, from torch's sync debug
   mode (CUDA only).
+
+`--dynamic` runs the same stream with `dynamic_thres` on (the stream of
+`chip_smoke.py` phase 9 is its first 64 scans).
 
 The stage split syncs between stages, so its parts do not add up to the
 unsynchronised step. Each stage is run on the DB state of the scan before
@@ -40,6 +46,7 @@ the real `step_async` of that scan, so the stream's state is unchanged.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import statistics
@@ -227,15 +234,19 @@ def _device_busy(prof, n_scans: int):
     return busy_us / 1e3 / n_scans, kernels / n_scans
 
 
-def _kernel_us(prof, n_scans: int) -> dict:
+def _kernel_us(prof, n_scans: int, dynamic: bool = False) -> dict:
     """{kernel: {launches, mean device us per launch}} of the port's CUDA
-    kernels in a profile of n_scans scans. Each wrapper must have launched
-    its kernel once a scan (its own count) and the profile must hold a
-    record of every launch; raises otherwise."""
+    kernels in a profile of n_scans scans (with `dynamic`, the two dynamic
+    scans too). Each wrapper must have launched its kernel once a scan (its
+    own count) and the profile must hold a record of every launch; raises
+    otherwise."""
     wrappers = {"ring_key_divs_kernel": kernels.ring_key_divs,
                 "search_tilemin_kernel": kernels.search_tilemin,
                 "cc_labels_kernel": kernels.cc_labels,
                 "merge_hints_kernel": kernels.merge_hints}
+    if dynamic:
+        wrappers["dyn_pass_scan_kernel"] = kernels.dyn_pass_scan
+        wrappers["dyn_post_scan_kernel"] = kernels.dyn_post_scan
     out = {}
     for name, wrapper in wrappers.items():
         durs = kernel_durations_us(prof, name)
@@ -279,13 +290,18 @@ def _sync_sites(step, n_scans: int) -> Counter:
 
 def run(device: str = "cuda", lane_scans: int = 132, reps: int = 20,
         profile_scans: int = 50, sync_scans: int = 4,
-        max_points: Optional[int] = None, capacity: int = 8192) -> dict:
-    """Drive the stream and measure it; returns the numbers as a dict."""
+        max_points: Optional[int] = None, capacity: int = 8192,
+        dynamic: bool = False) -> dict:
+    """Drive the stream (with `dynamic_thres` when `dynamic`) and measure
+    it; returns the numbers as a dict."""
     sys.path.insert(0, os.path.join(ROOT, "tests"))
     from synth import make_world, render_scan
 
     cfg = PipelineConfig() if max_points is None else PipelineConfig(
         cm=ContourManagerConfig(max_points=max_points))
+    if dynamic:
+        cfg = dataclasses.replace(
+            cfg, db=dataclasses.replace(cfg.db, dynamic_thres=True))
     dev = torch.device(device)
     cuda = dev.type == "cuda"
     if cuda:
@@ -371,7 +387,8 @@ def run(device: str = "cuda", lane_scans: int = 132, reps: int = 20,
             step_eager()
             sync()
             eager_ms.append(1e3 * (time.perf_counter() - t0))
-    res = {"device": str(dev), "scans": [first, first + reps - 1],
+    res = {"device": str(dev), "dynamic_thres": dynamic,
+           "scans": [first, first + reps - 1],
            "stage_ms": {n: statistics.median(v) for n, v in times.items()},
            "stage_reps": {n: len(v) for n, v in times.items()},
            "step_eager_ms": statistics.median(eager_ms) if eager_ms
@@ -404,7 +421,8 @@ def run(device: str = "cuda", lane_scans: int = 132, reps: int = 20,
             busy, launches = _device_busy(prof, profile_scans)
             out["device_busy_ms_per_scan"] = busy
             out["kernel_launches_per_scan"] = launches
-            out["kernel_device_us"] = _kernel_us(prof, profile_scans)
+            out["kernel_device_us"] = _kernel_us(prof, profile_scans,
+                                                 dynamic)
     if cuda:
         res["host_syncs_per_scan"] = dict(_sync_sites(step, sync_scans))
     return res
@@ -421,10 +439,13 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     ap.add_argument("--max-points", type=int, default=None,
                     help="scan width (default: PipelineConfig's)")
     ap.add_argument("--capacity", type=int, default=8192)
+    ap.add_argument("--dynamic", action="store_true",
+                    help="the stream with dynamic_thres on")
     ap.add_argument("--out", help="also write the numbers here as JSON")
     args = ap.parse_args(argv)
     res = run(args.device, args.lane_scans, args.reps, args.profile_scans,
-              max_points=args.max_points, capacity=args.capacity)
+              max_points=args.max_points, capacity=args.capacity,
+              dynamic=args.dynamic)
     for name, ms in res["stage_ms"].items():
         print(f"{name:>24}: {ms:9.3f} ms median over "
               f"{res['stage_reps'][name]}")

@@ -1127,9 +1127,13 @@ def _dyn(cfg):
 def test_dyn_thres_kernels_match_plain_on_card(cuda):
     """dyn_pass_scan and dyn_post_scan bit-equal to their plain versions at
     the edges (nothing passes, every row passes, the bars clamp at ub on
-    the first row; B = 1, 16 and 17; H at its cap and past the kernel's
-    chunk) and on the inputs the query path gives them for 4 revisit
-    queries; one launch each a call."""
+    the first row; B = 1, 16 and 17; H at its cap and rows of 2500; counts
+    and bars at the int32 extremes; every step a rise; a NaN upper bar,
+    which the kernel before the warp walk got wrong; NaN scores; signed
+    zeros at the bars) and on the inputs the query path gives them for 4
+    revisit queries; one launch each a call. The walks' ballot rounds (the
+    measurement entries' count): at most 4 a row at the default bars, one
+    a lane of 8 steps plus one where every step is a rise."""
     cfg, clouds = _revisit_clouds()
     dyn = _dyn(cfg)
     assert len(kt.dyn_edge_cases(cuda, dyn)) == 2
@@ -1144,6 +1148,13 @@ def test_dyn_thres_kernels_match_plain_on_card(cuda):
     assert kernels.dyn_pass_scan.launches == kernels.dyn_post_scan.launches \
         == 1
     assert int(kernels.dyn_pass_scan_plain(*pa)[1].sum()) > 0
+    assert kt.dyn_phase_split("dyn_pass_scan", pa, reps=2)["count_max"] <= 4
+    wp, wo = kt.dyn_worst_cases(cuda)
+    kt.hold_dyn_pass(wp, "every hint a rise")
+    kt.hold_dyn_post(wo, "every candidate a rise")
+    for name, args in (("dyn_pass_scan", wp), ("dyn_post_scan", wo)):
+        assert kt.dyn_phase_split(name, args, reps=2)["count_max"] == \
+            args[0].shape[-1] // kt.DYN_LANE_STEPS + 1, name
 
 
 def _write_dataset(d, poses, dt=6.0):

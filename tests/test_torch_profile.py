@@ -34,6 +34,19 @@ def test_profile_step_runs_on_cpu(tmp_path):
     assert out.read_text().startswith("{")
 
 
+def test_profile_step_dynamic_runs_on_cpu():
+    """`--dynamic` (the stream under dynamic_thres, whose card run reports
+    the two dynamic scans' device time a launch) at the same small size."""
+    res = profile_step.main(["--device", "cpu", "--lane-scans", "7",
+                             "--reps", "2", "--profile-scans", "1",
+                             "--max-points", "16384", "--capacity", "16",
+                             "--dynamic"])
+    assert res["dynamic_thres"] is True
+    assert res["scans"] == [18, 19]
+    assert all(ms > 0 for ms in res["stage_ms"].values())
+    assert "kernel_device_us" not in res             # CUDA only
+
+
 def test_block_split_runs_on_cpu():
     """The block-step split (chip_smoke.py prints it from the card) on a
     small CPU map: positive parts, the batched tail's records equal to the
