@@ -116,6 +116,13 @@ exit code is not 0):
    serving map, each with the graphs of 16, hold one graph pool (one pool
    id on every graph, that id's segments the pool's bytes, and the serving
    map's captures growing the reserved memory by less than half of it);
+   then `range_search` (the tile-min cover, one replay of the range graph
+   of its cap) on the merged map, the stream DB and 65,536 rows tiled
+   from the merged map (every key tied with its copies), at radius 60 and
+   cap 256 and at radius 1e12 and cap 4096: graphed, through the eager
+   body and on a CPU copy, hits and counts equal across the three; ms/call
+   graphed and eager (CUDA events, medians of 15 in turns), the capture
+   time, one host sync a call (the fetch);
 9. `dynamic_thres=True`: both dynamic kernels bit-equal to their plain
    versions at the edges (nothing passes, every row passes, the bars clamp
    at ub on the first row; B = 1, 16 and 17; H at its cap and rows of
@@ -153,12 +160,20 @@ exit code is not 0):
    every serving chunk bit-equal to its eager calls;
 11. sharded serving and search (contour_context_tpu_torch/parallel.py),
    the launches of each path counted from 0 just before it: a world of one
-   rank over NCCL in this process (`sharded_search` on phase 3's tile-min
-   fixture with f32 keys, `sharded_query_step` on the stream's first two
-   found revisits, the 132 revisit clouds served by
-   `sharded_localize_block` in chunks of 16 on the merged map, each equal
-   to the single-device f32-key path; the host syncs of one chunk), then a
-   world of two ranks over gloo, both on this card, spawned: each loads
+   rank over NCCL in this process, every entry point one CUDA graph
+   replay a call (the first captures), each replay under sync debug mode
+   "error" and bit-equal to the eager body (`sharded_search` and
+   `sharded_search_batch` on phase 3's tile-min fixture with f32 keys,
+   `sharded_query_step` on the stream's first two found revisits,
+   `sharded_query_step_batch` on the first chunk, the 132 revisit clouds
+   served by `sharded_localize_block` in chunks of 16 on the merged map,
+   graphed and eager in turns, and two `sharded_process_block` of 16
+   revisit descriptors in turn through one graph on the sharded stream
+   DB; each equal to the single-device f32-key path; 0 host syncs a
+   chunk; the capture seconds, the launches of one replay and the shared
+   pool's bytes; no graph left once its shard is gone), then a
+   world of two ranks over gloo (eager: its collectives run on the host),
+   both on this card, spawned: each loads
    the merged map from its checkpoint, shards it and serves the 132
    clouds, serves the first chunk again from the map cut to an odd row
    count, and runs one `sharded_process_block` of 16 revisit descriptors
@@ -173,6 +188,7 @@ power limit, and {"ok": true, "device": ...}.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import os
 import sys
@@ -425,7 +441,7 @@ def phase_5(cfg, clouds, rev0: int, smi: str) -> dict:
             p = tpipe.LoopClosurePipeline(cfg, ContLCDEvaluator(
                 f_pose, f_laser, cfg.correlation_thres), 64, block,
                 device="cuda")
-            p.db._use_graphs = graphed
+            p.db._graphs.enabled = graphed
             return p
 
         def outcome(p):
@@ -506,6 +522,106 @@ def phase_5(cfg, clouds, rev0: int, smi: str) -> dict:
     return launches
 
 
+def _keys_only_db(m, rows: int, device):
+    """A DB on `device` whose store is `rows` rows tiled from m's n rows
+    (row i holds row i % n: every key tied with its copies, across the
+    search's tiles), keys only (range_search reads no other leaf), the
+    window over all of it."""
+    from contour_context_tpu_torch import db as tdb
+
+    idx = torch.arange(rows, device=m.store.keys.device) % m.n
+    keys = m.store.keys.index_select(0, idx).to(device)
+    t = tdb.ContourDB(m.cfg, capacity=rows, device=device)
+    t.store = type(m.store)(*[keys if f == "keys" else
+                              keys.new_zeros((rows, 0))
+                              for f in m.store._fields])
+    t.keys_q = tdb.keys_to_q_layout(keys, t._kq_dtype()).contiguous()
+    t.ts_store = torch.zeros((rows,), device=device)
+    t.recs_store = torch.zeros((rows, tdb.RECORD_WIDTH), device=device)
+    t.state = torch.tensor([rows, rows], dtype=torch.int32, device=device)
+    t.n = rows
+    return t
+
+
+def phase_8_range(served, served_c, db, desc_g, smi: str) -> dict:
+    """range_search as one replay of the range graph on three stores: the
+    merged map, the stream DB and 65,536 rows tiled from the merged map;
+    graphed, through the eager body and on a CPU copy, hits and counts
+    equal across the three; ms/call graphed and eager (CUDA events, the
+    median of REPS in turns), the capture time, the host syncs of one
+    call (one: the fetch)."""
+    from contour_context_tpu_torch import db as tdb
+    from contour_context_tpu_torch.profile_step import host_syncs
+
+    REPS = 15
+    desc_c = type(desc_g)(*[x.cpu() for x in desc_g])
+    ev0 = torch.cuda.Event(enable_timing=True)
+    ev1 = torch.cuda.Event(enable_timing=True)
+    tiled = _keys_only_db(served, 65536, "cuda")
+    stores = (("the merged map", served, served_c),
+              ("the stream DB", db, None),
+              ("65536 rows tiled from the merged map", tiled, None))
+    out = {}
+    for what, m, m_c in stores:
+        if m_c is None:
+            m_c = _keys_only_db(m, m.n, "cpu")
+            if m is db:     # the stream DB's window, not all its rows
+                m_c.state = m.state.cpu()
+        Q, (L, D, NA) = len(m.cfg.db.q_levels), m.keys_q.shape
+        A = m.store.keys.shape[2]
+        row = {"rows": m.n, "capacity": m.capacity,
+               "distances": Q * A * NA}
+        for radius, cap in ((60.0, 256), (1e12, 4096)):
+            got = m.range_search(desc_g, radius, cap)     # the capture
+            key = ("range_search", cap, m.keys_q.dtype, m.capacity)
+            cap_s = m._graphs.capture_s[key]
+            with m.eager():
+                eager = m.range_search(desc_g, radius, cap)
+            cpu = m_c.range_search(desc_c, radius, cap)
+            assert got == eager, (what, radius, cap)
+            assert got[1] == cpu[1] > 0 and \
+                [h[:4] for h in got[0]] == [h[:4] for h in cpu[0]], \
+                (what, radius, cap)
+            np.testing.assert_allclose([h[4] for h in got[0]],
+                                       [h[4] for h in cpu[0]], rtol=1e-6,
+                                       atol=0)
+            syncs = host_syncs(lambda: m.range_search(desc_g, radius, cap))
+            assert syncs == 1, (what, syncs)
+            ms = {True: [], False: []}
+            for _ in range(REPS):
+                for graphed in (True, False):
+                    torch.cuda.synchronize()
+                    ev0.record()
+                    if graphed:
+                        m.range_search(desc_g, radius, cap)
+                    else:
+                        with m.eager():
+                            m.range_search(desc_g, radius, cap)
+                    ev1.record()
+                    torch.cuda.synchronize()
+                    ms[graphed].append(ev0.elapsed_time(ev1))
+            row[f"cap {cap}"] = dict(
+                radius=radius, in_range=got[1], hits=len(got[0]),
+                graphed_ms=float(np.median(ms[True])),
+                eager_ms=float(np.median(ms[False])), capture_s=cap_s,
+                host_syncs=syncs)
+            log(f"range_search on {what} ({m.n} rows, capacity "
+                f"{m.capacity}, {Q * A * NA} distances, keys_q "
+                f"{str(m.keys_q.dtype)[6:]}), radius {radius}, cap {cap}: "
+                f"{got[1]} in range, {len(got[0])} hits equal graphed, "
+                f"eager and on the CPU; {row[f'cap {cap}']['graphed_ms']:.3f}"
+                f" ms/call graphed against "
+                f"{row[f'cap {cap}']['eager_ms']:.3f} eager (CUDA events, "
+                f"median of {REPS} in turns; the tile-min cover, not a full "
+                f"sort), captured in {cap_s:.3f} s; {syncs} host sync a "
+                f"call (the fetch) ({smi})")
+        out[what] = row
+    tiled.drop_graphs()
+    del tiled
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_9(cfg, clouds, rev0: int, smi: str):
     """`dynamic_thres` on the card as replays: a 64-scan stream (16 + 16
     lane-0 scans, then their 32 revisits, 1 s apart) graphed, its scans
@@ -536,7 +652,7 @@ def phase_9(cfg, clouds, rev0: int, smi: str):
     for mode in ("graphed", "eager", "cpu"):
         device = "cpu" if mode == "cpu" else "cuda"
         m = tdb.ContourDB(dyn, capacity=128, device=device)
-        m._use_graphs = mode == "graphed"
+        m._graphs.enabled = mode == "graphed"
         if mode == "graphed":
             kernels.reset_launches()
         t0 = time.perf_counter()
@@ -1061,6 +1177,7 @@ def _phase11_rank(mesh, job: dict) -> dict:
     out["block_launches"] = launch_counts(kernels)
     out["block_state"] = st.cpu()
     out["block_rows"] = (bshard.base, bshard.store.keys.shape[0])
+    out["graph_stats"] = mesh.graph_stats()
     return out
 
 
@@ -1116,12 +1233,67 @@ def phase_11(cfg, clouds, db, served, rev0: int, smi: str) -> dict:
 
         single_ms, recs32 = serve_single()
 
-        # ---- world 1 over NCCL, in this process ------------------------
+        # the single-device block step of the sharded paths: B revisit
+        # descriptors on the stream DB with f32 keys, twice in turn
+        block_rows = list(range(len(clouds) - B, len(clouds)))
+        block_descs = td.build_descriptors(torch.from_numpy(
+            np.stack([clouds[r] for r in block_rows])).to(dev), cfg.cm,
+            cfg.gmm)
+        n0 = db.n
+        block_ts = [0.1 * (n0 + i) for i in range(2 * B)]
+        ts_dev = [torch.tensor(block_ts[k * B:(k + 1) * B], device=dev)
+                  for k in (0, 1)]
+        s32 = tdb.ContourDB.load(f_stream, cfg32, capacity=db.capacity,
+                                 device="cuda")
+        rec_b = s32.process_block_async(
+            block_descs, [n0 + i for i in range(B)], block_ts[:B]).recs
+        state_b = s32.state.cpu()
+        rec_b2 = torch.cat([rec_b, s32.process_block_async(
+            block_descs, [n0 + B + i for i in range(B)], block_ts[B:]).recs])
+        ref_b2 = (s32.state.clone(), s32.ts_store.clone(),
+                  s32.recs_store.clone(), type(s32.store)(*[
+                      x[:n0 + 2 * B].clone() for x in s32.store]))
+        del s32
+
+        # ---- world 1 over NCCL, in this process: every entry point one
+        # replay a call (its first call captures), held against its eager
+        # body ------------------------------------------------------------
         dist.init_process_group("nccl", init_method="file://"
                                 + os.path.join(d, "init1"), rank=0,
                                 world_size=1)
+        mesh = None
         try:
             mesh = par.make_mesh(device=dev)
+            assert mesh.graphed, mesh.graph_stats()
+
+            def flat(x):
+                return [x] if isinstance(x, torch.Tensor) else list(x)
+
+            gs = {"capture_s": {}, "launches": {}, "pool_bytes": 0}
+
+            def keep_stats():
+                """The mesh's graphs before a shard goes (its graphs go
+                with it)."""
+                st = mesh.graph_stats()
+                gs["capture_s"].update(st["capture_s"])
+                gs["launches"].update(st["launches"])
+                gs["pool_bytes"] = max(gs["pool_bytes"], st["pool_bytes"])
+                gs["pool"] = st["pool"]
+
+            def replayed(fn, what):
+                """fn() captured (its first call), replayed under sync debug
+                mode "error" and run eagerly, the three bit for bit equal:
+                the replay's result and its launches."""
+                first = fn()
+                kernels.reset_launches()
+                again = no_syncs(fn)
+                n = launch_counts(kernels)
+                with mesh.eager():
+                    eager = fn()
+                for x, y, z in zip(flat(first), flat(again), flat(eager)):
+                    assert torch.equal(x, y) and torch.equal(x, z), what
+                return again, n
+
             # the tile-min fixture of phase 3 with f32 keys at
             # searchable_n 7000
             kb, qk = kt.tile_store(8192)
@@ -1133,20 +1305,30 @@ def phase_11(cfg, clouds, db, served, rev0: int, smi: str) -> dict:
             sh_fix = par.shard_store(fixture, mesh)
             state = torch.tensor([8192, 7000], dtype=torch.int32, device=dev)
             q = torch.from_numpy(qk).to(dev)
-            kernels.reset_launches()
-            got = par.sharded_search(sh_fix.keys_q, q, state[1], ql,
-                                     cfg.db.nnk, mesh)
-            launches["search_fixture"] = launch_counts(kernels)
+            got, launches["search_fixture"] = replayed(
+                lambda: par.sharded_search(sh_fix.keys_q, q, state[1], ql,
+                                           cfg.db.nnk, mesh), "search")
             want = tdb.search(kq32, q, state, ql, cfg.db.nnk)
             for a, b in zip(got, want):
                 assert torch.equal(a, b), "sharded search on the fixture"
             assert torch.equal(sh_fix.keys_q, kq32)
+            sb2 = torch.tensor([7000, 246], dtype=torch.int32, device=dev)
+            got_b, launches["search_batch_fixture"] = replayed(
+                lambda: par.sharded_search_batch(
+                    sh_fix.keys_q, torch.stack([q, q]), sb2, ql, cfg.db.nnk,
+                    mesh), "search batch")
+            for a, b in zip(got_b, want):
+                assert torch.equal(a[0], b), "sharded batched search"
+            keep_stats()
             del sh_fix, fixture, keys, kq32
-            log(f"sharded search (world 1, NCCL): the tile-min fixture "
-                f"(6, 10, 49152) f32 at searchable_n 7000, "
+            log(f"sharded search (world 1, NCCL, graphed): the tile-min "
+                f"fixture (6, 10, 49152) f32 at searchable_n 7000, "
                 f"{int(want[3].sum())} valid hits: bit-equal to the "
-                f"single-device search with f32 keys_q; launches "
-                f"{launches['search_fixture']}")
+                f"single-device search with f32 keys_q, the batched search "
+                f"(limits 7000 and 246) row 0 too; each one replay a call "
+                f"with 0 host syncs, bit-equal to its eager body; launches "
+                f"of a replay {launches['search_fixture']}, batched "
+                f"{launches['search_batch_fixture']}")
 
             # two found revisits of the stream at their replayed window
             # states, on the sharded stream DB
@@ -1168,10 +1350,13 @@ def phase_11(cfg, clouds, db, served, rev0: int, smi: str) -> dict:
                                            .to(dev), cfg.cm, cfg.gmm)
                 cases.append((row, desc, st, tdb.query_step(
                     db.store, kq_s, desc, st, cfg32)))
-            kernels.reset_launches()
-            recs_q = [par.sharded_query_step(sh_s, desc, st, cfg32, mesh)
-                      for _, desc, st, _ in cases]
-            launches["query_step"] = launch_counts(kernels)
+            recs_q, counts = [], []
+            for _, desc, st, _ in cases:
+                rec, n = replayed(lambda: par.sharded_query_step(
+                    sh_s, desc, st, cfg32, mesh), "query step")
+                recs_q.append(rec)
+                counts.append(n)
+            launches["query_step"] = add_counts(*counts)
             assert launches["query_step"] == dict(
                 one_a_scan(len(rows)), ring_key_divs=0, cc_labels=0), \
                 launches
@@ -1181,70 +1366,158 @@ def phase_11(cfg, clouds, db, served, rev0: int, smi: str) -> dict:
                                      f"sharded query of scan {row}")
                 assert rec[0] > 0.5, row
                 n_bit += int(torch.equal(rec, ref))
-            log(f"sharded query step (world 1, NCCL): the stream's first "
-                f"two found revisits {rows} on the sharded stream DB equal "
-                f"the single-device f32-key records ({n_bit} of "
+            log(f"sharded query step (world 1, NCCL, graphed): the stream's "
+                f"first two found revisits {rows} on the sharded stream DB "
+                f"equal the single-device f32-key records ({n_bit} of "
                 f"{len(rows)} bit for bit; found, gidx and counters "
-                f"exactly); launches {launches['query_step']}")
+                f"exactly), each one replay with 0 host syncs, bit-equal to "
+                f"its eager body; launches of the replays "
+                f"{launches['query_step']}")
+            keep_stats()
             del sh_s, kq_s
 
-            # serving: the 132 revisit clouds in chunks on the sharded map
+            # serving: the 132 revisit clouds in chunks on the sharded map,
+            # graphed and eager in turns
             sh_m = par.shard_store(map32.store, mesh)
+            descs0 = td.build_descriptors(torch.from_numpy(pts[:B]).to(dev),
+                                          cfg.cm, cfg.gmm)
+            sb0 = map32.state[1].expand(B).contiguous()
+            got_q, launches["query_batch"] = replayed(
+                lambda: par.sharded_query_step_batch(sh_m, descs0, sb0,
+                                                     cfg32, mesh),
+                "batched query")
+            assert_records_close(got_q.cpu().numpy(), recs32[:B],
+                                 "sharded batched query, first chunk")
             got0 = par.sharded_localize_block(sh_m, map32.state, pts[:B],
-                                              cfg32, mesh)
+                                              cfg32, mesh)   # the capture
             assert_records_close(got0.cpu().numpy(), recs32[:B],
                                  "sharded localization, first chunk")
             bit0 = bool(np.array_equal(got0.cpu().numpy(), recs32[:B]))
-            kernels.reset_launches()
-            torch.cuda.synchronize()
-            ev0.record()
-            recs1 = [par.sharded_localize_block(sh_m, map32.state,
-                                                pts[i:i + B], cfg32, mesh)
-                     for i in range(0, len(pts), B)]
-            ev1.record()
-            torch.cuda.synchronize()
-            w1_ms = ev0.elapsed_time(ev1) / n_rev
-            launches["world1"] = launch_counts(kernels)
+            turns, recs_t = [], []
+            for graphed in (True, False, True, False):
+                ctx = contextlib.nullcontext() if graphed else mesh.eager()
+                if graphed and not turns:
+                    kernels.reset_launches()
+                torch.cuda.synchronize()
+                with ctx:
+                    ev0.record()
+                    r1 = [par.sharded_localize_block(
+                        sh_m, map32.state, pts[i:i + B], cfg32, mesh)
+                        for i in range(0, len(pts), B)]
+                    ev1.record()
+                torch.cuda.synchronize()
+                if graphed and not turns:
+                    launches["world1"] = launch_counts(kernels)
+                turns.append((graphed, ev0.elapsed_time(ev1) / n_rev))
+                recs_t.append(torch.cat(r1)[:n_rev])
+            for r1 in recs_t[1:]:
+                assert torch.equal(r1, recs_t[0]), "graphed vs eager serving"
+            w1_ms = float(np.mean([t for g, t in turns if g]))
+            w1_eager_ms = float(np.mean([t for g, t in turns if not g]))
             n_chunks = len(pts) // B
             assert launches["world1"] == one_a_block(n_chunks), \
                 launches["world1"]
-            recs1 = torch.cat(recs1)[:n_rev].cpu().numpy()
+            recs1 = recs_t[0].cpu().numpy()
             assert_records_close(recs1, recs32, "sharded serving, world 1")
             bit1 = bool(np.array_equal(recs1, recs32))
             syncs = host_syncs(lambda: par.sharded_localize_block(
                 sh_m, map32.state, pts[:B], cfg32, mesh))
+            assert syncs == 0, syncs
+            no_syncs(lambda: par.sharded_localize_block(
+                sh_m, map32.state, pts[:B], cfg32, mesh))
             err = kt.hold_batch(
-                sh_m.keys_q, ql, td.build_descriptors(
-                    torch.from_numpy(pts[:B]).to(dev), cfg.cm, cfg.gmm)
-                .keys[:, list(ql)].to(torch.float32).contiguous(),
-                map32.state[1].expand(B).contiguous(),
-                "world 1's map shard")
+                sh_m.keys_q, ql, descs0.keys[:, list(ql)].to(torch.float32)
+                .contiguous(), sb0, "world 1's map shard")
+            keep_stats()
             del sh_m
+
+            # the block step, twice in turn through one graph, graphed and
+            # eager, on the sharded stream DB (f32 keys)
+            blocks = {}
+            for graphed in (True, False):
+                s = tdb.ContourDB.load(f_stream, cfg32, capacity=db.capacity,
+                                       device="cuda")
+                sh_b = par.shard_store(s.store, mesh)
+                ts_s, st_s, rs_s = s.ts_store, s.state, s.recs_store
+                del s
+                ctx = contextlib.nullcontext() if graphed else mesh.eager()
+                with ctx:
+                    r_a = par.sharded_process_block(
+                        sh_b, ts_s, st_s, rs_s, block_descs, ts_dev[0], n0,
+                        cfg32, mesh)
+                    if graphed:
+                        kernels.reset_launches()
+                        r_b = no_syncs(lambda: par.sharded_process_block(
+                            sh_b, ts_s, st_s, rs_s, block_descs, ts_dev[1],
+                            n0 + B, cfg32, mesh))
+                        launches["world1_block"] = launch_counts(kernels)
+                    else:
+                        r_b = par.sharded_process_block(
+                            sh_b, ts_s, st_s, rs_s, block_descs, ts_dev[1],
+                            n0 + B, cfg32, mesh)
+                blocks[graphed] = (torch.cat([r_a, r_b]), st_s, ts_s, rs_s,
+                                   sh_b)
+            (g_r, g_st, g_ts, g_rs, g_sh), (e_r, e_st, e_ts, e_rs, e_sh) = \
+                blocks[True], blocks[False]
+            assert torch.equal(g_r, e_r) and torch.equal(g_st, e_st)
+            assert torch.equal(g_ts, e_ts) and torch.equal(g_rs, e_rs)
+            for x, y in zip((*g_sh.store, g_sh.keys_q),
+                            (*e_sh.store, e_sh.keys_q)):
+                assert torch.equal(x, y), "graphed vs eager block shards"
+            st_ref, ts_ref, rs_ref, store_ref = ref_b2
+            assert torch.equal(g_st, st_ref) and torch.equal(g_ts, ts_ref)
+            for x, y in zip(g_sh.store, store_ref):
+                assert torch.equal(x[:n0 + 2 * B], y), "block store"
+            assert_records_close(g_r.cpu().numpy(), rec_b2.cpu().numpy(),
+                                 "sharded block steps, world 1")
+            assert launches["world1_block"] == dict(
+                one_a_block(1), ring_key_divs_batch=0, cc_labels=0), \
+                launches["world1_block"]
+            bit_b = bool(torch.equal(g_r, rec_b2))
+            keep_stats()
+            del blocks, g_sh, e_sh
+            gc.collect()
+            left = mesh.graph_stats()["capture_s"]
+            assert not left, f"graphs outlived their shards: {left}"
+            log(f"sharded block step (world 1, NCCL, graphed): two blocks "
+                f"of {B} revisit descriptors in turn (rows {n0}.. and "
+                f"{n0 + B}..) on the sharded stream DB through one graph, "
+                f"the second with 0 host syncs: records, window state "
+                f"{g_st.tolist()}, timestamps, record ring and shard bit-equal"
+                f" to the eager calls'; the single-device f32 blocks' store "
+                f"and window state bit for bit, their records "
+                f"{'bit for bit' if bit_b else 'in the record bands'}; "
+                f"launches of a replay {launches['world1_block']}")
+            log(f"sharded graphs (world 1, NCCL): capture s "
+                f"{ {k: round(v, 3) for k, v in gs['capture_s'].items()} }; "
+                f"launches of one replay {gs['launches']}; the device's "
+                f"shared graph pool {gs['pool_bytes']} bytes ({gs['pool']})")
         finally:
+            if mesh is not None:
+                mesh.drop_graphs()      # before the communicator goes
             dist.destroy_process_group()
         # the single-device serving again, after world 1: the two bracket it
         single_ms_after, again = serve_single()
         assert_records_close(again, recs32, "single-device serving again")
         log(f"sharded serving (world 1, NCCL): {n_rev} revisit clouds in "
             f"{n_chunks} chunks of {B} on the {map32.n}-row merged map "
-            f"sharded to one rank: launches {launches['world1']}; records "
-            f"equal the single-device f32-key serving's (the first chunk "
+            f"sharded to one rank, each chunk one replay (the data-parallel "
+            f"build, the descriptor all-gather and the query): launches "
+            f"{launches['world1']}; graphed and eager in turns "
+            f"({', '.join(f'{t:.3f}' for _, t in turns)} ms/query), every "
+            f"turn's records bit-equal; records equal the single-device "
+            f"f32-key serving's (the first chunk "
             f"{'bit for bit' if bit0 else 'in the record bands'}, all "
             f"{'bit for bit' if bit1 else 'in the record bands'}); "
-            f"{syncs} host syncs a chunk; the batched tile-min bit-equal to "
-            f"its plain version on the shard (max abs err {err})")
+            f"{syncs} host syncs a chunk (sync debug mode \"error\"); the "
+            f"batched tile-min bit-equal to its plain version on the shard "
+            f"(max abs err {err})")
 
         # ---- world 2 over gloo, both ranks on this card, spawned -------
         cut = served.n - 1
-        block_rows = list(range(len(clouds) - B, len(clouds)))
-        block_descs = td.build_descriptors(torch.from_numpy(
-            np.stack([clouds[r] for r in block_rows])).to(dev), cfg.cm,
-            cfg.gmm)
-        n0 = db.n
-        block_ts = [0.1 * (n0 + i) for i in range(B)]
         job = dict(cfg=cfg32, chunk=B, map=f_map, stream=f_stream,
                    clouds=os.path.join(d, "revisit.npy"), n_clouds=n_rev,
-                   cut=cut, capacity=db.capacity, block_ts=block_ts,
+                   cut=cut, capacity=db.capacity, block_ts=block_ts[:B],
                    block_descs=type(block_descs)(*[x.cpu()
                                                    for x in block_descs]))
         kernels.build()     # the ranks load the library built here
@@ -1254,17 +1527,10 @@ def phase_11(cfg, clouds, db, served, rev0: int, smi: str) -> dict:
         spawn_s = time.perf_counter() - t0
         # the single-device references of the uneven map and the block
         u = type(map32.store)(*[x[:cut] for x in map32.store])
-        descs0 = td.build_descriptors(torch.from_numpy(pts[:B]).to(dev),
-                                      cfg.cm, cfg.gmm)
         rec_u = tdb.query_step_batch(
             u, tdb.keys_to_q_layout(u.keys).contiguous(), descs0,
             torch.full((B,), cut, dtype=torch.int32, device=dev), cfg32)
-        s32 = tdb.ContourDB.load(f_stream, cfg32, capacity=db.capacity,
-                                 device="cuda")
-        rec_b = s32.process_block_async(
-            block_descs, [n0 + i for i in range(B)], block_ts).recs
-        state_b = s32.state.cpu()
-        del s32, u
+        del u
     rec_u, rec_b = rec_u.cpu().numpy(), rec_b.cpu().numpy()
     bits = {}
     for r, res in enumerate(per_rank):
@@ -1279,6 +1545,8 @@ def phase_11(cfg, clouds, db, served, rev0: int, smi: str) -> dict:
         assert res["block_launches"] == dict(
             one_a_block(1), ring_key_divs_batch=0, cc_labels=0), res
         assert res["held_err"] == 0.0
+        assert not res["graph_stats"]["graphed"] and \
+            res["graph_stats"]["reason"] == "gloo", res["graph_stats"]
         bits[r] = [bool(np.array_equal(got, recs32)),
                    bool(np.array_equal(res["uneven"].numpy(), rec_u)),
                    bool(np.array_equal(res["block"].numpy(), rec_b))]
@@ -1312,7 +1580,10 @@ def phase_11(cfg, clouds, db, served, rev0: int, smi: str) -> dict:
             f"[{r * res['n_loc']}, {(r + 1) * res['n_loc']}) of the map, "
             f"shard {res['shard_bytes']} bytes, peak allocated "
             f"{res['peak_bytes']} bytes while serving; launches serving "
-            f"{res['launches']}, block step {res['block_launches']}; "
+            f"{res['launches']}, block step {res['block_launches']} (eager:"
+            f" graphed {res['graph_stats']['graphed']}, reason "
+            f"{res['graph_stats']['reason']!r}, gloo's collectives run on "
+            f"the host); "
             f"records bit-equal to the single-device f32 ones (serving, "
             f"uneven, block): {bits[r]}")
     log(f"sharded serving (world 2, gloo, both ranks on one card, "
@@ -1330,7 +1601,8 @@ def phase_11(cfg, clouds, db, served, rev0: int, smi: str) -> dict:
         f"of {db.capacity}) equals the single-device block with "
         f"keys_bf16=False ({found_b}/{B} found), window state "
         f"{state_b.tolist()}")
-    log(f"sharded serving ms/query: world 1 (NCCL) {w1_ms:.3f}, world 2 "
+    log(f"sharded serving ms/query: world 1 (NCCL) {w1_ms:.3f} graphed, "
+        f"{w1_eager_ms:.3f} eager (the mean of two turns each), world 2 "
         f"(gloo, through the host) {per_rank[0]['ms_per_query']:.3f} "
         f"(rank 0, host clock between barriers), the single-device f32-key "
         f"serving {single_ms:.3f} before world 1 and {single_ms_after:.3f} "
@@ -1498,7 +1770,7 @@ def main() -> None:
     # the same scans through the eager body the graph captured, on a DB of
     # its own: the graphed records and store must equal it bit for bit
     db_e = tdb.ContourDB(cfg, capacity=8192, device="cuda")
-    db_e._use_graphs = False
+    db_e._graphs.enabled = False
     for k in range(WARMUP):
         db_e.step_async(clouds[k], k, 0.1 * k)
     torch.cuda.synchronize()
@@ -1668,7 +1940,7 @@ def main() -> None:
         blocks 2.. (CUDA events: the first block captures the graphs) and
         the ms/scan of the whole map (every block and the tail over N_MAP
         scans, the captures included)."""
-        m._use_graphs = graphed
+        m._graphs.enabled = graphed
         e_all = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
         torch.cuda.synchronize()
         e_all[0].record()
@@ -2042,6 +2314,7 @@ def main() -> None:
     assert n_g == n_c > 0 and [h[:4] for h in hits_g] == [h[:4] for h in hits_c]
     np.testing.assert_allclose([h[4] for h in hits_g], [h[4] for h in hits_c],
                                rtol=1e-6, atol=0)
+    range_rows = phase_8_range(served, served_c, db, desc_g, smi)
     chunk_ops, chunk_busy = device_ops(lambda: served.localize_block_async(
         revisit[:BLOCK], chunk=BLOCK))
     chunk_syncs = host_syncs(lambda: served.localize_block_async(

@@ -14,8 +14,9 @@ host keeps a mirror of n for its handles. Nothing in a step syncs the host:
 the CC labels and the proposal merge are one kernel launch each, the
 cascade runs every chunk, and a host payload goes up through pinned memory.
 On a CUDA device the step, a block step's build, append and window pushes
-and queries, a serving chunk, and each stage of the unfused API (the
-per-scan build, `query_async`, `add_scan`, `push_and_balance`) run as one
+and queries, a serving chunk, each stage of the unfused API (the
+per-scan build, `query_async`, `add_scan`, `push_and_balance`) and
+`range_search` run as one
 CUDA graph replay each (`graphs.GraphSet`), the port's counterpart of the
 JAX package's one jitted dispatch, with `dynamic_thres` as well. One
 switch, `graphed`, chooses: the CPU runs every body eagerly, and so does
@@ -42,7 +43,6 @@ of `contour_context_tpu.db`, member for member.
 
 from __future__ import annotations
 
-import contextlib
 import io
 import math
 import zipfile
@@ -73,7 +73,7 @@ from contour_context_tpu_torch.ops.cascade import (
     check_sim_batched,
     run_cascade,
 )
-from contour_context_tpu_torch.graphs import GraphSet
+from contour_context_tpu_torch.graphs import GraphSet, tensor_tag
 from contour_context_tpu_torch.ops.descriptor import (
     build_descriptor,
     build_descriptors,
@@ -103,6 +103,19 @@ from contour_context_tpu_torch.types import (
 RECORD_WIDTH = 18
 # the chunk a graphed localize_block_async serves in when given none
 SERVE_CHUNK = 16
+
+
+def upload(x, device: torch.device):
+    """Host data (numpy or a CPU tensor) as a tensor on `device`. To a
+    CUDA device it goes through pinned memory, non_blocking: no host sync,
+    and the pinned block is not reused before its copy ran. A tensor
+    already on the device passes through."""
+    t = torch.as_tensor(x)
+    if t.device == device:
+        return t
+    if device.type == "cuda" and t.device.type == "cpu":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
 
 
 def keys_to_q_layout(keys, dtype=None):
@@ -649,47 +662,108 @@ def query_step_batch(store: ScanDesc, keys_q, descs: ScanDesc, searchable_b,
     return query_from_hits(store, descs, hits, cfg, depth)
 
 
-def range_search_impl(keys_q, q_keys, searchable_n, max_dist_sq: float,
-                      q_levels: Tuple[int, ...], cap: int):
-    """layerRangeSearch analog (db._range_search): every searchable key of
-    the f32 search-layout store keys_q (L, D, NA) within max_dist_sq of any
-    query (q_level, anchor) key, ascending (distance, flat index), at most
-    `cap` rows. Returns one (cap + 1, 5) f64 tensor (a single copy to the
-    host; f64 holds the f32 distances and the count exactly): row 0 col 0
-    is the total in-range count, rows 1.. are (gidx, level, seq_src,
-    seq_tgt, dist_sq), dist_sq -1 when unused."""
+def range_radius(max_dist_sq) -> float:
+    """The radius `range_search` compares with: max_dist_sq in float32,
+    clamped strictly below the masked-row sentinel (radii beyond it are
+    meaningless, and the clamp keeps the mask value out of range), as
+    db._range_search clamps it."""
+    return float(min(np.float32(max_dist_sq),
+                     np.float32(MAX_DIST_SQ * (1 - 1e-6))))
+
+
+def _range_distances(keys_q, q_keys, searchable_n, max_dist_sq, q_levels):
+    """The (Q*A, NA) masked squared distances of the query's (level,
+    anchor) keys to the f32 search-layout store, MAX_DIST_SQ where out of
+    range; the in-range mask; the radius; the (Q,) level ids."""
     L, D, NA = keys_q.shape
-    A = q_keys.shape[1]
     dev = keys_q.device
     lv = device_const(q_levels, torch.long, dev)
     q = q_keys[lv].to(torch.float32)
-    Q = len(q_levels)
+    Q, A = q.shape[:2]
     cols = torch.arange(NA, dtype=torch.int32, device=dev)
-    flat = masked_key_distances(
+    d2 = masked_key_distances(
         keys_q.index_select(0, lv).reshape(Q, D, 1, NA), q, searchable_n, NA,
-        cols).reshape(-1)
-    # radii beyond the invalid-row sentinel are meaningless, and clamping
-    # keeps the mask value strictly out of range
-    thr = min(np.float32(max_dist_sq), np.float32(MAX_DIST_SQ * (1 - 1e-6)))
-    inr = flat < float(thr)
-    order = stable_argsort(torch.where(inr, flat, MAX_DIST_SQ))[:cap]
-    vals = flat[order]
-    ok = inr[order]
-    R = NA
-    qi = torch.div(order, A * R, rounding_mode="floor")
-    rem = order % (A * R)
-    ai = torch.div(rem, R, rounding_mode="floor")
-    ri = rem % R
+        cols).reshape(Q * A, NA)
+    thr = max_dist_sq if isinstance(max_dist_sq, torch.Tensor) \
+        else range_radius(max_dist_sq)
+    inr = d2 < thr
+    return torch.where(inr, d2, MAX_DIST_SQ), inr, thr, lv
+
+
+def _range_pack(order, vals, thr, inr, lv, A: int, cap: int):
+    """The (cap + 1, 5) f64 result of a range search from the selected flat
+    indices `order` into the (Q, A, NA) distances and their distances
+    `vals` (MAX_DIST_SQ where out of range)."""
+    NA = inr.shape[1]
+    qi = torch.div(order, A * NA, rounding_mode="floor")
+    rem = order % (A * NA)
+    ai = torch.div(rem, NA, rounding_mode="floor")
+    ri = rem % NA
     f64 = torch.float64
     hits = torch.stack([
         torch.div(ri, A, rounding_mode="floor").to(f64), lv[qi].to(f64),
         (ri % A).to(f64), ai.to(f64), vals.to(f64)], dim=1)
-    hits = torch.where(ok[:, None], hits, -1.0)
+    hits = torch.where((vals < thr)[:, None], hits, -1.0)
     if hits.shape[0] < cap:     # tiny DBs: fewer rows than the cap
         hits = torch.cat([hits, hits.new_full((cap - hits.shape[0], 5), -1.0)])
-    head = torch.zeros((1, 5), dtype=f64, device=dev)
+    head = torch.zeros((1, 5), dtype=f64, device=order.device)
     head[0, 0] = inr.sum()
     return torch.cat([head, hits])
+
+
+def range_search_impl(keys_q, q_keys, searchable_n, max_dist_sq,
+                      q_levels: Tuple[int, ...], cap: int):
+    """layerRangeSearch analog (db._range_search): every searchable key of
+    the f32 search-layout store keys_q (L, D, NA) within max_dist_sq of any
+    query (q_level, anchor) key, ascending (distance, flat index), at most
+    `cap` rows. `max_dist_sq` is a host number, or a 0-d float32 tensor on
+    the device that `range_radius` clamped. Returns one (cap + 1, 5) f64
+    tensor (a single copy to the host; f64 holds the f32 distances and the
+    count exactly): row 0 col 0 is the total in-range count, rows 1.. are
+    (gidx, level, seq_src, seq_tgt, dist_sq), dist_sq -1 when unused.
+
+    The selection is db._topk_min_cover's exact min-k over the flat
+    (Q*A*NA) list, each (q, anchor) row tiled on its own (its end padded
+    with MAX_DIST_SQ, no tile across two rows) so that the tiles in order
+    follow the flat index: the minimum of each 128-column tile, the
+    min(cap, tiles) tiles of the smallest (minimum, tile index), their
+    columns sorted by (distance, index). The cover proof (db.py:211-220)
+    makes that the first `cap` of one stable sort of the whole list
+    (`range_search_sorted_plain`); a pad column is never in range, so a
+    `cap` above the tile count, which takes every tile, is that sort too."""
+    vals, inr, thr, lv = _range_distances(keys_q, q_keys, searchable_n,
+                                          max_dist_sq, q_levels)
+    A = q_keys.shape[1]
+    R, NA = vals.shape
+    Bt = -(-NA // TILE)
+    W = Bt * TILE
+    if W > NA:
+        vals = torch.nn.functional.pad(vals, (0, W - NA), value=MAX_DIST_SQ)
+    vp = vals.reshape(-1)
+    tiles = stable_argsort(vp.reshape(R * Bt, TILE).amin(-1))[:cap]
+    p = (tiles[:, None] * TILE
+         + torch.arange(TILE, device=vp.device)).reshape(-1)
+    v = vp[p]
+    o1 = stable_argsort(p)
+    p, v = p[o1], v[o1]
+    o2 = stable_argsort(v)[:cap]
+    p, v = p[o2], v[o2]
+    # a pad column (>= NA) holds MAX_DIST_SQ: out of range, any index does
+    order = torch.div(p, W, rounding_mode="floor") * NA \
+        + (p % W).clamp(max=NA - 1)
+    return _range_pack(order, v, thr, inr, lv, A, cap)
+
+
+def range_search_sorted_plain(keys_q, q_keys, searchable_n, max_dist_sq,
+                              q_levels: Tuple[int, ...], cap: int):
+    """`range_search_impl` by one stable sort of all Q*A*NA distances: the
+    reference the tile-min cover is held to."""
+    vals, inr, thr, lv = _range_distances(keys_q, q_keys, searchable_n,
+                                          max_dist_sq, q_levels)
+    flat = vals.reshape(-1)
+    order = stable_argsort(flat)[:cap]
+    return _range_pack(order, flat[order], thr, inr, lv, q_keys.shape[1],
+                       cap)
 
 
 def update_window(state, ts_store, curr_ts, min_elapse: float,
@@ -1023,8 +1097,6 @@ class ContourDB:
         # the unfused API, and the tensors they read their inputs from and
         # write outputs to; `eager()` turns them off for a block
         self._graphs = GraphSet(self.device)
-        self._static_bufs: dict = {}
-        self._use_graphs = self.device.type == "cuda"
 
     @staticmethod
     def _checked_device(device) -> torch.device:
@@ -1101,16 +1173,8 @@ class ContourDB:
             self._grow(max(2 * self.capacity, self.n + need))
 
     def _upload(self, x):
-        """Host data (numpy or a CPU tensor) as a tensor on the DB's device.
-        To a CUDA device it goes through pinned memory, non_blocking: no
-        host sync, and the pinned block is not reused before its copy ran.
-        A tensor already on the device passes through."""
-        t = torch.as_tensor(x)
-        if t.device == self.device:
-            return t
-        if self.device.type == "cuda" and t.device.type == "cpu":
-            return t.pin_memory().to(self.device, non_blocking=True)
-        return t.to(self.device)
+        """`upload` to the DB's device."""
+        return upload(x, self.device)
 
     def _scalar(self, x):
         """A host number or a tensor as a float32 tensor on the device."""
@@ -1176,33 +1240,22 @@ class ContourDB:
     def graphed(self) -> bool:
         """Whether the entry points run as CUDA graph replays: on a CUDA
         device, `dynamic_thres` or not, outside `eager()`."""
-        return self._use_graphs
+        return self._graphs.enabled
 
-    @contextlib.contextmanager
     def eager(self):
-        """Inside the block every entry point runs its eager body, as on
+        """A block in which every entry point runs its eager body, as on
         the CPU: the card's comparisons of a replay with the body it
         captured."""
-        prev, self._use_graphs = self._use_graphs, False
-        try:
-            yield self
-        finally:
-            self._use_graphs = prev
+        return self._graphs.eager()
 
     def _tag(self) -> tuple:
-        """The addresses of the tensors the graphs read and write."""
-        return tuple(t.data_ptr() for t in (*self.store, self.keys_q,
-                                            self.ts_store, self.state,
-                                            self.recs_store))
+        """The tensors the graphs read and write (`graphs.tensor_tag`)."""
+        return tensor_tag(*self.store, self.keys_q, self.ts_store,
+                          self.state, self.recs_store)
 
     def _static(self, key, shape, dtype):
-        """A tensor kept for the DB's lifetime: a graph's input or output
-        buffer (the graph reads and writes it at its capture address)."""
-        t = self._static_bufs.get(key)
-        if t is None:
-            t = torch.zeros(shape, dtype=dtype, device=self.device)
-            self._static_bufs[key] = t
-        return t
+        """A graph's input or output buffer, kept for the DB's lifetime."""
+        return self._graphs.static(key, shape, dtype)
 
     def _static_descs(self, B: int) -> ScanDesc:
         """A B-stacked ScanDesc of static buffers: the build graph's output
@@ -1244,11 +1297,7 @@ class ContourDB:
         kernel one replay makes, and the bytes the graph pool holds: the
         device's one pool, shared by the graphs of every DB of the process
         (`pool` says so)."""
-        g = self._graphs
-        return {"capture_s": {str(k): v for k, v in g.capture_s.items()},
-                "launches": {str(k): g.launches(k) for k in g.graphs},
-                "pool_bytes": g.pool_bytes(),
-                "pool": "the device's, shared by every DB of the process"}
+        return self._graphs.stats()
 
     # -- the fused stream ---------------------------------------------------
 
@@ -1300,6 +1349,15 @@ class ContourDB:
         the K records come back through one BlockHandle over the record
         ring's rows. `step_chain_dyn_async` with k = K."""
         return self.step_chain_dyn_async(points_k, seqs, ts_k)
+
+    def step_chain_scan_async(self, points_k, seqs, ts_k) -> BlockHandle:
+        """The JAX package's lax.scan lowering of `step_chain_async`, kept
+        there for a lowering A/B. The port has one lowering of a chain, so
+        this is `step_chain_async` with JAX's check that the K timestamps
+        name the K seqs."""
+        if len(ts_k) != len(seqs):
+            raise ValueError(f"{len(ts_k)} timestamps for {len(seqs)} seqs")
+        return self.step_chain_async(points_k, seqs, ts_k)
 
     @staticmethod
     def stage_chain_k(k: int, *, device="cuda"):
@@ -1566,16 +1624,41 @@ class ContourDB:
         in-range key and may exceed len(hits) when `cap` truncates. Radii
         are capped at MAX_DIST_SQ, the sentinel of unsearchable rows.
         Membership is exact: under keys_bf16 the f32 layout is derived from
-        store.keys, not read from the rounded search copy."""
+        store.keys, not read from the rounded search copy.
+
+        On a CUDA device one replay of the range graph of (cap, keys
+        dtype, capacity): the query keys and the clamped radius are copied
+        into static buffers, the graph writes the static (cap + 1, 5)
+        result, and its copy to the host is the call's one host sync (JAX
+        fetches its packed buffer the same way)."""
         if self.store is None:
             return [], 0
-        kq = self.keys_q if self.keys_q.dtype == torch.float32 else \
-            keys_to_q_layout(self.store.keys)
-        packed = range_search_impl(
-            kq, query.keys, self.state[1], float(max_dist_sq),
-            tuple(self.cfg.db.q_levels), int(cap)).cpu().numpy()
-        hits = [(int(r[0]), int(r[1]), int(r[2]), int(r[3]), float(r[4]))
-                for r in packed[1:] if r[4] >= 0.0]
+        ql, cap, thr = (tuple(self.cfg.db.q_levels), int(cap),
+                        range_radius(max_dist_sq))
+
+        def search(q_keys, radius):
+            kq = self.keys_q if self.keys_q.dtype == torch.float32 else \
+                keys_to_q_layout(self.store.keys)
+            return range_search_impl(kq, q_keys, self.state[1], radius, ql,
+                                     cap)
+
+        if not self.graphed:
+            out = search(query.keys, thr)
+        else:
+            shape = tuple(query.keys.shape)
+            q_in = self._static(("range_q", shape), shape, torch.float32)
+            q_in.copy_(self._upload(query.keys))
+            r_in = self._static(("range_r",), (), torch.float32)
+            r_in.fill_(thr)
+            out = self._static(("range", cap), (cap + 1, 5), torch.float64)
+            self._graphs.run(("range_search", cap, self.keys_q.dtype,
+                              self.capacity),
+                             lambda: out.copy_(search(q_in, r_in)),
+                             self._tag())
+        packed = out.cpu().numpy()
+        rows = packed[1:][packed[1:, 4] >= 0.0].tolist()
+        hits = [(int(g), int(lev), int(s), int(t), d)
+                for g, lev, s, t, d in rows]
         return hits, int(packed[0, 0])
 
     # -- block mode and map serving -----------------------------------------

@@ -30,6 +30,7 @@ allocator's cache is emptied); the next capture then opens a new pool.
 
 from __future__ import annotations
 
+import contextlib
 import threading
 import time
 import weakref
@@ -151,17 +152,35 @@ def device_pool(device) -> DevicePool:
         return pool
 
 
-class GraphSet:
-    """A DB's graphs, keyed by what they run, each with the tag it was
-    captured under: the addresses of the DB tensors it reads (None for a
-    graph that reads only its static buffers, such as a build). A run
-    whose tag differs from its graph's drops that graph and captures it
-    again. The pool and the streams are the device's (`device_pool`)."""
+def tensor_tag(*xs) -> tuple:
+    """What a graph bakes in of the tensors it reads or writes: each one's
+    address, shape, strides and dtype. A graph whose tag equals a call's
+    reads and writes exactly the memory that call's eager body would."""
+    return tuple((x.data_ptr(), tuple(x.shape), x.stride(), x.dtype)
+                 for x in xs)
 
-    def __init__(self, device: torch.device) -> None:
+
+class GraphSet:
+    """A holder's graphs (a DB's, a mesh's), keyed by what they run, each
+    with the tag it was captured under (`tensor_tag` of the holder's
+    tensors it reads, and any number the capture bakes in; None for a
+    graph that reads only its static buffers, such as a build); the static
+    tensors they read their inputs from and write their outputs to
+    (`static`); and the switch between replays and the eager bodies
+    (`enabled`, `eager()`). A run whose tag differs from its graph's drops
+    that graph and captures it again. The pool and the streams are the
+    device's (`device_pool`). `reason` says why a set is not graphed: the
+    device type off a card, or the holder's own ("gloo")."""
+
+    def __init__(self, device: torch.device,
+                 reason: Optional[str] = None) -> None:
         self.device = device
+        self.reason = reason or (None if device.type == "cuda"
+                                 else device.type)
+        self.enabled = self.reason is None
         self.graphs: dict = {}
         self.capture_s: dict = {}
+        self.bufs: dict = {}
         self._tags: dict = {}
         self._pool: Optional[DevicePool] = None
 
@@ -171,16 +190,39 @@ class GraphSet:
             self._pool = device_pool(self.device)
         return self._pool
 
+    def static(self, key, shape, dtype) -> torch.Tensor:
+        """The static tensor under `key`, kept for the set's lifetime: a
+        graph's input or output buffer (the graph reads and writes it at
+        its capture address)."""
+        t = self.bufs.get(key)
+        if t is None:
+            t = self.bufs[key] = torch.zeros(shape, dtype=dtype,
+                                             device=self.device)
+        return t
+
+    @contextlib.contextmanager
+    def eager(self):
+        """Inside the block the holder runs its eager bodies (the card's
+        comparisons of a replay with the body it captured)."""
+        prev, self.enabled = self.enabled, False
+        try:
+            yield self
+        finally:
+            self.enabled = prev
+
     def drop(self) -> None:
-        """Drop this set's graphs (another DB's stay)."""
+        """Drop this set's graphs (another holder's stay)."""
         self.graphs.clear()
         self.capture_s.clear()
         self._tags.clear()
 
-    def run(self, key: Hashable, body: Callable[[], None], tag=None) -> None:
+    def run(self, key: Hashable, body: Callable[[], None], tag=None,
+            owner: Optional[torch.Tensor] = None) -> None:
         """body() as one replay of its graph. The first call of a key (or
         the first under a new tag) runs body eagerly and captures it; a
-        failed capture raises."""
+        failed capture raises. A graph captured with an `owner` (a tensor
+        it reads) is dropped when the owner is freed: it lives as long as
+        what it reads."""
         graph = self.graphs.get(key)
         if graph is not None and self._tags[key] == tag:
             self.pool.replay(graph)
@@ -190,11 +232,36 @@ class GraphSet:
         self.graphs[key] = graph
         self._tags[key] = tag
         self.capture_s[key] = graph.capture_s
+        if owner is not None:
+            weakref.finalize(owner, self._forget, key, weakref.ref(graph))
+
+    def _forget(self, key: Hashable, graph: "weakref.ref[Graph]") -> None:
+        if key in self.graphs and self.graphs[key] is graph():
+            del self.graphs[key], self._tags[key], self.capture_s[key]
 
     def launches(self, key: Hashable) -> dict:
         """The kernel launches one replay of the graph under `key` makes."""
         return dict(self.graphs[key].launches)
 
     def pool_bytes(self) -> int:
-        """Bytes the device's shared pool holds (every DB's graphs)."""
+        """Bytes the device's shared pool holds (every holder's graphs)."""
         return self.pool.pool_bytes()
+
+    def stats(self, name: Callable[[Hashable], str] = str) -> dict:
+        """Whether the set is graphed (and if not, why), the capture
+        seconds of each graph and the launches of each kernel one replay
+        makes, under `name` of its key (#2.. for a name met again), and
+        the bytes of the device's shared pool."""
+        names, seen = {}, {}
+        for k in self.graphs:
+            n = name(k)
+            seen[n] = seen.get(n, 0) + 1
+            names[k] = n if seen[n] == 1 else f"{n}#{seen[n]}"
+        return {"graphed": self.enabled, "reason": self.reason,
+                "capture_s": {names[k]: v
+                              for k, v in self.capture_s.items()},
+                "launches": {names[k]: self.launches(k)
+                             for k in self.graphs},
+                "pool_bytes": self.pool_bytes(),
+                "pool": "the device's, shared by every DB and mesh of the "
+                        "process"}

@@ -34,9 +34,22 @@ an f32 search-layout copy of its rows), not the single-device DB's bf16
 `keys_q`: the single-device reference of every sharded result is the f32
 path (`ContourManagerConfig(keys_bf16=False)`).
 
-The collectives are `dist.all_gather` on the group's tensors: NCCL takes
-them on the card; a gloo group moves a CUDA tensor through the host
-(`_gloo_all_gather_via_host`), so several ranks can share one card.
+The collectives gather into one preallocated tensor
+(`dist.all_gather_into_tensor`) on an NCCL group; a gloo group moves a
+CUDA tensor through the host (`_gloo_all_gather_via_host`), so several
+ranks can share one card.
+
+On an NCCL mesh (a CUDA device) every entry point is one CUDA graph replay
+a call, the counterpart of JAX's jitted sharded programs: search, query,
+serving (the data-parallel build, the descriptor all-gather and the
+query) and the block step, each captured with its collectives at its first
+call on every rank in the same order (`Mesh.graphs`, a `graphs.GraphSet`
+as a DB has; a graph lives as long as the shard keys it reads, and its
+graphs share the device's one pool with every DB of the process). Host
+data goes up through pinned memory, and the block step writes at rows read
+from state[0] on the device, so no call syncs the host. A gloo mesh stays
+eager: its collectives run on the host and cannot be captured, which
+`Mesh.graph_stats()` reports.
 """
 
 from __future__ import annotations
@@ -44,7 +57,7 @@ from __future__ import annotations
 import os
 import pickle
 import tempfile
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import NamedTuple, Optional
 
 import torch
@@ -62,8 +75,10 @@ from contour_context_tpu_torch.db import (
     replay_window,
     search,
     search_batch,
+    upload,
     within_bound,
 )
+from contour_context_tpu_torch.graphs import GraphSet, tensor_tag
 from contour_context_tpu_torch.ops.candidate import stable_argsort
 from contour_context_tpu_torch.ops.descriptor import build_descriptors
 from contour_context_tpu_torch.types import ScanDesc, device_const
@@ -78,12 +93,87 @@ TAIL_LEAVES = ("tab12", "nei_valid", "nei_level", "nei_seq", "nei_bit",
 @dataclass(frozen=True)
 class Mesh:
     """One rank's view of its process group (JAX: a 1-D device mesh over
-    the "data" axis)."""
+    the "data" axis), and the graphs of its sharded entry points (graphed
+    on an NCCL group on a card; `graphs.reason` is "gloo" or the device
+    type where not). Each graph lives as long as the shard keys it reads."""
     group: Optional[dist.ProcessGroup]   # None: the default group
     rank: int
     world: int
     device: torch.device
     backend: str
+    graphs: GraphSet = field(compare=False, repr=False)
+
+    @property
+    def graphed(self) -> bool:
+        """Whether the entry points run as CUDA graph replays: on an NCCL
+        group, outside `eager()`."""
+        return self.graphs.enabled
+
+    def eager(self):
+        """A block in which the entry points run their eager bodies."""
+        return self.graphs.eager()
+
+    def graph_stats(self) -> dict:
+        """`GraphSet.stats` of the mesh's live graphs, each under its entry
+        point's name."""
+        return self.graphs.stats(name=lambda k: k[0][0])
+
+    def drop_graphs(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)     # no replay in flight
+        self.graphs.drop()
+
+
+def _tree(f, x, key):
+    """f(key + path, leaf) over x, a tensor or a tuple of them (a ScanDesc
+    keeps its type)."""
+    if isinstance(x, torch.Tensor):
+        return f(key, x)
+    items = [_tree(f, v, key + (i,)) for i, v in enumerate(x)]
+    return type(x)(*items) if hasattr(x, "_fields") else tuple(items)
+
+
+def _run(mesh: Mesh, key, fn, inputs: tuple, owner, tag) -> tuple:
+    """fn(*inputs), a tuple of tensors; each input a tensor or a ScanDesc.
+    Graphed: one replay of the graph under `key` and the inputs' shapes
+    and dtypes, captured at its first call and again when `tag` (the
+    `tensor_tag` of every tensor it reads or writes in place, and the
+    numbers its capture bakes in) changed, and dropped when `owner` (the
+    shard's keys, which it reads) is freed. Its inputs are copied into
+    static tensors and its outputs cloned from static ones (no host sync:
+    inputs on the device). A capture that fails raises."""
+    g = mesh.graphs
+    if not g.enabled:
+        return fn(*inputs)
+    key = (key,) + tuple(_tree(lambda k, x: (tuple(x.shape), x.dtype), x,
+                               ()) for x in inputs)
+    ins = [_tree(lambda k, x: g.static(k, x.shape, x.dtype).copy_(x), x,
+                 (key, "in", i)) for i, x in enumerate(inputs)]
+
+    def body():
+        for j, r in enumerate(fn(*ins)):
+            g.static((key, "out", j), r.shape, r.dtype).copy_(r)
+
+    g.run(key, body, tag, owner)
+    outs, j = [], 0
+    while (key, "out", j) in g.bufs:
+        outs.append(g.bufs[(key, "out", j)].clone())
+        j += 1
+    return tuple(outs)
+
+
+def _shard_tag(shard: "ShardedStore") -> tuple:
+    return tensor_tag(*shard.store, shard.keys_q) + (shard.base, shard.rows)
+
+
+def _limits(x, device: torch.device):
+    """Searchable limits, an int, a sequence or a tensor, as an int32
+    tensor of at least one dimension on `device` (a host int is filled in
+    on the device, with no copy)."""
+    if isinstance(x, int):
+        return torch.full((1,), x, dtype=torch.int32, device=device)
+    t = upload(torch.as_tensor(x), device).to(torch.int32)
+    return t.reshape(-1) if t.dim() == 0 else t
 
 
 def make_mesh(group=None, device=None) -> Mesh:
@@ -104,8 +194,16 @@ def make_mesh(group=None, device=None) -> Mesh:
         if device.index is None:
             device = torch.device("cuda", torch.cuda.current_device())
         torch.cuda.set_device(device)
-    return Mesh(group, rank, dist.get_world_size(group), device,
-                str(dist.get_backend(group)))
+    world, backend = dist.get_world_size(group), str(dist.get_backend(group))
+    graphs = GraphSet(device, "gloo" if backend == "gloo" else None)
+    if graphs.enabled:
+        # the group's communicator is made at its first collective, which
+        # no capture may hold
+        dist.all_gather_into_tensor(torch.empty((world,), device=device),
+                                    torch.zeros((1,), device=device),
+                                    group=group)
+        torch.cuda.synchronize(device)
+    return Mesh(group, rank, world, device, backend, graphs)
 
 
 def pad_rows_to_mesh(x, mesh: Mesh):
@@ -151,11 +249,15 @@ def shard_store(store: ScanDesc, mesh: Mesh) -> ShardedStore:
 # ---------------------------------------------------------------------------
 
 def _all_gather(x, mesh: Mesh):
-    """(world, *x.shape): every rank's x, in rank order."""
+    """(world, *x.shape): every rank's x, in rank order. On NCCL one
+    collective into one tensor (capturable in a CUDA graph)."""
     if mesh.backend == "gloo" and x.is_cuda:
         return _gloo_all_gather_via_host(x, mesh)
     out = x.new_empty((mesh.world,) + tuple(x.shape))
-    dist.all_gather(list(out.unbind(0)), x.contiguous(), group=mesh.group)
+    if mesh.backend == "nccl":
+        dist.all_gather_into_tensor(out, x.contiguous(), group=mesh.group)
+    else:
+        dist.all_gather(list(out.unbind(0)), x.contiguous(), group=mesh.group)
     return out
 
 
@@ -238,11 +340,13 @@ def sharded_search(keys_local, q_keys, searchable_n, q_levels, nnk: int,
     (`ShardedStore.keys_q`), q_keys (L, A, D), searchable_n the global
     limit (an int or a 0-d tensor) -> (gidx, seq_src, dist, valid), each
     (Q, A, k) with k = min(nnk, N_loc*A), the same on every rank: the
-    single-device `db.search` result wherever k is the same."""
-    sb = torch.as_tensor(searchable_n, dtype=torch.int32,
-                         device=keys_local.device)
-    hits = _sharded_hits(keys_local, q_keys[None], sb.reshape(1), q_levels,
-                         min(nnk, keys_local.shape[2]), mesh, single=True)
+    single-device `db.search` result wherever k is the same. On an NCCL
+    mesh one replay."""
+    q_levels, k = tuple(q_levels), min(nnk, keys_local.shape[2])
+    hits = _run(mesh, ("search", q_levels, k), lambda q, sb: _sharded_hits(
+        keys_local, q[None], sb, q_levels, k, mesh, single=True),
+        (q_keys, _limits(searchable_n, mesh.device)), keys_local,
+        tensor_tag(keys_local))
     return tuple(h[0] for h in hits)
 
 
@@ -250,9 +354,13 @@ def sharded_search_batch(keys_local, q_keys_b, searchable_b, q_levels,
                          nnk: int, mesh: Mesh):
     """`sharded_search` of B queries in one batched tile-min launch a rank:
     q_keys_b (B, L, A, D), searchable_b (B,) int32 on the rank's device ->
-    each (B, Q, A, k)."""
-    return _sharded_hits(keys_local, q_keys_b, searchable_b, q_levels,
-                         min(nnk, keys_local.shape[2]), mesh, single=False)
+    each (B, Q, A, k). On an NCCL mesh one replay."""
+    q_levels, k = tuple(q_levels), min(nnk, keys_local.shape[2])
+    return _run(mesh, ("search_batch", q_levels, k), lambda q, sb:
+                _sharded_hits(keys_local, q, sb, q_levels, k, mesh,
+                              single=False),
+                (q_keys_b, _limits(searchable_b, mesh.device)), keys_local,
+                tensor_tag(keys_local))
 
 
 # ---------------------------------------------------------------------------
@@ -316,9 +424,12 @@ def sharded_query_step(shard: ShardedStore, query: ScanDesc, state,
     `query` one ScanDesc and `state` the (2,) int32 window state, both
     replicated on the rank's device -> the (18,) f32 record, the same on
     every rank and equal to `db.query_step` over the unsharded store with
-    f32 keys_q. The single-query tile-min runs on each rank's shard."""
-    descs = ScanDesc(*[x[None] for x in query])
-    return _query(shard, descs, state[1:2], cfg, mesh, single=True)[0]
+    f32 keys_q. The single-query tile-min runs on each rank's shard. On an
+    NCCL mesh one replay."""
+    return _run(mesh, ("query_step", cfg), lambda d, st: (_query(
+        shard, d, st[1:2], cfg, mesh, single=True)[0],),
+        (ScanDesc(*[x[None] for x in query]), state), shard.keys_q,
+        _shard_tag(shard))[0]
 
 
 def sharded_query_step_batch(shard: ShardedStore, descs: ScanDesc,
@@ -327,13 +438,29 @@ def sharded_query_step_batch(shard: ShardedStore, descs: ScanDesc,
     against the rows below searchable_b[b] ((B,) int32 on the rank's
     device) -> (B, 18) records, the same on every rank and equal to
     `db.query_step_batch` over the unsharded store with f32 keys_q. One
-    batched tile-min launch a rank."""
-    return _query(shard, descs, searchable_b, cfg, mesh, single=False)
+    batched tile-min launch a rank; on an NCCL mesh one replay."""
+    return _run(mesh, ("query_batch", cfg), lambda d, sb: (_query(
+        shard, d, sb, cfg, mesh, single=False),),
+        (descs, _limits(searchable_b, mesh.device)), shard.keys_q,
+        _shard_tag(shard))[0]
 
 
 # ---------------------------------------------------------------------------
 # the data-parallel build, serving, the block step
 # ---------------------------------------------------------------------------
+
+def _my_clouds(points_batch, mesh: Mesh):
+    """Rank r's contiguous B/world clouds of `points_batch`, on its device
+    (host data through pinned memory). A B that the world size does not
+    divide raises."""
+    B = points_batch.shape[0]
+    if B % mesh.world:
+        raise ValueError(f"dp_build_descriptors: a batch of {B} over "
+                         f"{mesh.world} ranks")
+    b = B // mesh.world
+    return upload(points_batch[mesh.rank * b:(mesh.rank + 1) * b],
+                   mesh.device)
+
 
 def dp_build_descriptors(points_batch, cm: ContourManagerConfig,
                          gmm: GMMOptConfig, mesh: Mesh) -> ScanDesc:
@@ -342,13 +469,15 @@ def dp_build_descriptors(points_batch, cm: ContourManagerConfig,
     every rank; b = B / world) built on the rank's device by
     `build_descriptors`. A B that the world size does not divide raises.
     `all_gather_desc` assembles the whole batch."""
-    B = points_batch.shape[0]
-    if B % mesh.world:
-        raise ValueError(f"dp_build_descriptors: a batch of {B} over "
-                         f"{mesh.world} ranks")
-    b = B // mesh.world
-    mine = torch.as_tensor(points_batch[mesh.rank * b:(mesh.rank + 1) * b])
-    return build_descriptors(mine.to(mesh.device), cm, gmm)
+    return build_descriptors(_my_clouds(points_batch, mesh), cm, gmm)
+
+
+def _localize(shard: ShardedStore, state, pts, cfg: PipelineConfig,
+              mesh: Mesh):
+    descs = all_gather_desc(build_descriptors(pts, cfg.cm, cfg.gmm), mesh)
+    B = descs.keys.shape[0]
+    return _query(shard, descs, state[1].expand(B).contiguous(), cfg, mesh,
+                  single=False)
 
 
 def sharded_localize_block(shard: ShardedStore, state, points_b,
@@ -356,13 +485,60 @@ def sharded_localize_block(shard: ShardedStore, state, points_b,
     """Map serving on a row-sharded store (db._localize_block): B clouds
     (the same on every rank) -> (B, 18) records at the map's searchable
     prefix state[1], nothing appended. The build is data-parallel, the
-    descriptors are gathered, then `sharded_query_step_batch`."""
-    descs = all_gather_desc(dp_build_descriptors(points_b, cfg.cm, cfg.gmm,
-                                                 mesh), mesh)
-    B = descs.keys.shape[0]
-    return sharded_query_step_batch(shard, descs,
-                                    state[1].expand(B).contiguous(), cfg,
-                                    mesh)
+    descriptors are gathered, then the batched sharded query. On an NCCL
+    mesh the three are one replay, the rank's clouds uploaded through
+    pinned memory: no host sync."""
+    return _run(mesh, ("localize", cfg), lambda p, st: (_localize(
+        shard, st, p, cfg, mesh),), (_my_clouds(points_b, mesh), state),
+        shard.keys_q, _shard_tag(shard))[0]
+
+
+def _block_rows(state, base: int, n_loc: int, B: int):
+    """Where a block of B rows appended at state[0] lands, read on the
+    device: the (B,) global rows, and for this rank's shard of n_loc rows
+    from `base` the (B,) local rows `dst` (clamped into the shard), the
+    block row `src` that lands at each and whether one does (`has`). A
+    block row the rank does not own is written to a clamped row with that
+    row's own content (the block row landing there, else its old value),
+    so the rank changes only the rows it owns and every write to one row
+    writes the same bytes."""
+    rows = state[:1].long() + torch.arange(B, device=state.device)
+    local = rows - base
+    dst = local.clamp(0, n_loc - 1)
+    src = dst - local[:1]
+    has = (src >= 0) & (src < B)
+    return rows, dst, src.clamp(0, B - 1), has
+
+
+def _owned_write(buf, dim: int, dst, new, has):
+    """buf's slices `dst` along `dim` set to `new` where `has`, to their
+    own content elsewhere."""
+    shape = [1] * buf.dim()
+    shape[dim] = -1
+    keep = buf.index_select(dim, dst)
+    buf.index_copy_(dim, dst, torch.where(has.reshape(shape), new, keep))
+
+
+def _process_block(shard: ShardedStore, ts_store, state, recs_store,
+                   descs: ScanDesc, ts_b, cfg: PipelineConfig, mesh: Mesh):
+    B = ts_b.shape[0]
+    n_loc = shard.store.keys.shape[0]
+    rows, dst, src, has = _block_rows(state, shard.base, n_loc, B)
+    for buf, x in zip(shard.store, descs):
+        _owned_write(buf, 0, dst, x.index_select(0, src).to(buf.dtype), has)
+    A = descs.keys.shape[2]
+    cols = (dst[:, None] * A + torch.arange(A, device=dst.device)).reshape(-1)
+    _owned_write(shard.keys_q, 2, cols, keys_to_q_layout(
+        descs.keys.index_select(0, src)).to(shard.keys_q.dtype),
+        has.repeat_interleave(A))
+    ts_store.index_copy_(0, rows, ts_b)
+    state[0] += B
+    tb = cfg.db.tb
+    searchable_b = replay_window(state, ts_store, ts_b, tb.min_elapse,
+                                 tb.max_elapse)
+    recs = _query(shard, descs, searchable_b, cfg, mesh, single=False)
+    recs_store.index_copy_(0, rows, recs)
+    return recs
 
 
 def sharded_process_block(shard: ShardedStore, ts_store, state, recs_store,
@@ -370,33 +546,23 @@ def sharded_process_block(shard: ShardedStore, ts_store, state, recs_store,
                           mesh: Mesh):
     """The block step on a row-sharded store (db._process_block, as
     `ContourDB.process_block_async` runs it): append the B-stacked `descs`
-    at rows n.. (`n` the host mirror of state[0]; each rank writes the rows
-    it owns into its shard and its f32 keys_q), write the timestamps `ts_b`
-    ((B,) f32) into the replicated `ts_store`, replay each query's
+    at rows state[0].. (each rank writes the rows it owns into its shard
+    and its f32 keys_q, at rows read on the device), write the timestamps
+    `ts_b` ((B,) f32) into the replicated `ts_store`, replay each query's
     searchable prefix from the window pushes, answer the B queries with
-    `sharded_query_step_batch`, and write the records into the replicated
-    `recs_store` at rows n... Updates every tensor in place; returns the
-    (B, 18) records."""
+    the batched sharded query, and write the records into the replicated
+    `recs_store` at the same rows. `n` is the host's mirror of state[0],
+    which only bounds the block. Updates every tensor in place; returns
+    the (B, 18) records. On an NCCL mesh one replay: one graph serves
+    every n."""
     B = ts_b.shape[0]
     if n + B > shard.rows:
         raise ValueError(f"sharded_process_block: rows {n}..{n + B} past "
                          f"the store's {shard.rows}")
-    n_loc = shard.store.keys.shape[0]
-    lo, hi = max(n, shard.base), min(n + B, shard.base + n_loc)
-    if lo < hi:
-        for buf, x in zip(shard.store, descs):
-            buf[lo - shard.base:hi - shard.base] = x[lo - n:hi - n]
-        A = descs.keys.shape[2]
-        shard.keys_q[:, :, (lo - shard.base) * A:(hi - shard.base) * A] = \
-            keys_to_q_layout(descs.keys[lo - n:hi - n])
-    ts_store[n:n + B] = ts_b
-    state[0] += B
-    tb = cfg.db.tb
-    searchable_b = replay_window(state, ts_store, ts_b, tb.min_elapse,
-                                 tb.max_elapse)
-    recs = sharded_query_step_batch(shard, descs, searchable_b, cfg, mesh)
-    recs_store[n:n + B] = recs
-    return recs
+    return _run(mesh, ("block", cfg), lambda d, t: (_process_block(
+        shard, ts_store, state, recs_store, d, t, cfg, mesh),),
+        (descs, upload(ts_b, mesh.device)), shard.keys_q,
+        _shard_tag(shard) + tensor_tag(ts_store, state, recs_store))[0]
 
 
 # ---------------------------------------------------------------------------

@@ -174,3 +174,29 @@ def test_run_chained_queues_one_block_a_chain(buffers, tmp_path):
     assert (tmp_path / "chained.txt").read_text() == \
         (tmp_path / "run.txt").read_text()
     assert torch.equal(p.db.recs_store[:12], ref.db.recs_store[:12])
+
+
+def test_step_chain_scan_matches_jax(buffers):
+    """`step_chain_scan_async` (JAX's lax.scan lowering; the port's one
+    chain) on the stream's first 5 scans against JAX's, and its check that
+    the K timestamps name the K seqs."""
+    import jax.numpy as jnp
+
+    from contour_context_tpu.db import ContourDB as JDB
+
+    clouds = buffers[0]
+    jdb = JDB(JCFG, capacity=8)
+    hj = jdb.step_chain_scan_async(jnp.asarray(clouds[:5]), list(range(5)),
+                                   jnp.asarray(TS[:5]))
+    db = tdb.ContourDB(CFG, capacity=8, device="cpu")
+    h = db.step_chain_scan_async(torch.from_numpy(clouds[:5]),
+                                 list(range(5)), TS[:5])
+    assert isinstance(h, tdb.BlockHandle) and (h.row0, db.n) == (0, 5)
+    a, b = np.asarray(hj.recs), h.recs.numpy()
+    np.testing.assert_array_equal(b[:, EXACT], a[:, EXACT])
+    np.testing.assert_allclose(b[:, 2], a[:, 2], rtol=1e-4, atol=1e-4)
+    assert db.searchable_n == jdb.searchable_n
+    with pytest.raises(ValueError, match="timestamps"):
+        db.step_chain_scan_async(torch.from_numpy(clouds[5:7]), [5, 6],
+                                 TS[5:8])
+    assert db.n == 5

@@ -76,6 +76,13 @@ This file imports no jax, so it runs where only torch is installed:
   record equal to `step_async`'s for the same scan and window state; two
   DBs with graphs of 8 holding one pool, and one DB's `drop_graphs`
   leaving the other's replays right.
+- the last entry points as replays: `range_search` (bf16 and f32 keys_q,
+  an 8-scan DB and its rows tiled 64 times, five radius / cap cases, a cap
+  above the tile count among them) one replay of its cap's graph with one
+  host sync, equal to the eager body and to a CPU copy; at world 1 over
+  NCCL sharded serving, the query step and two block steps through one
+  graph as replays with no host sync (sync debug mode "error"), bit-equal
+  to their eager bodies and to the single-device f32 path.
 """
 
 import numpy as np
@@ -758,9 +765,13 @@ def nccl_mesh(cuda, tmp_path):
 
     dist.init_process_group("nccl", init_method=f"file://{tmp_path}/init",
                             rank=0, world_size=1)
+    mesh = None
     try:
-        yield par.make_mesh(device=cuda)
+        mesh = par.make_mesh(device=cuda)
+        yield mesh
     finally:
+        if mesh is not None:
+            mesh.drop_graphs()      # before the communicator goes
         dist.destroy_process_group()
 
 
@@ -944,7 +955,7 @@ def _stream_db(cfg, clouds, graphed, n, q16=False, capacity=8):
     from contour_context_tpu_torch.utils.io import quantize_points_q16
 
     db = tdb.ContourDB(cfg, capacity=capacity, device="cuda")
-    db._use_graphs = graphed
+    db._graphs.enabled = graphed
     for i in range(n):
         pts = clouds[i % len(clouds)]
         if q16:
@@ -1013,7 +1024,7 @@ def test_graphed_stream_and_chain_make_no_host_sync_on_card(cuda):
                                                   ts))
     assert h.row0 == 21 and h.recs.shape == (16, 18)
     e = tdb.ContourDB(cfg, capacity=64, device="cuda")
-    e._use_graphs = False
+    e._graphs.enabled = False
     for i in range(37):
         e.step_async(buf[i - 21] if i >= 21 else clouds[i % 12], i, 6.0 * i)
     _assert_same_db(db, e, 37)
@@ -1032,7 +1043,7 @@ def test_graphed_block_and_serving_equal_eager_on_card(cuda):
     dbs = {}
     for graphed in (True, False):
         db = tdb.ContourDB(cfg, capacity=32, device="cuda")
-        db._use_graphs = graphed
+        db._graphs.enabled = graphed
         db.block_chain_pts_async(torch.from_numpy(pts[:8])[None],
                                  list(range(8)),
                                  [[6.0 * i for i in range(8)]])
@@ -1203,7 +1214,7 @@ def test_unfused_pipeline_replays_equal_eager_on_card(cuda, tmp_path,
     def pipeline(graphed):
         p = LoopClosurePipeline(cfg, ContLCDEvaluator(
             f_pose, f_laser, cfg.correlation_thres), 32, device="cuda")
-        p.db._use_graphs = graphed
+        p.db._graphs.enabled = graphed
         return p
 
     outs = {}
@@ -1318,3 +1329,146 @@ def test_two_dbs_share_one_pool_on_card(cuda):
     b.drop_graphs()
     assert not len(pool.live) and b.graph_stats()["pool_bytes"] == 0
     assert torch.cuda.memory_reserved() <= reserved - pool_b
+
+
+# ---------------------------------------------------------------------------
+# the last eager entry points as replays: range_search, the sharded paths
+# ---------------------------------------------------------------------------
+
+def _tiled_db(m, reps: int, device):
+    """A DB on `device` whose store is m's n rows tiled `reps` times (every
+    key tied `reps` ways, the ties across tiles of the search), the window
+    over all of it."""
+    n = m.n
+    db = tdb.ContourDB(m.cfg, capacity=n * reps, device=device)
+    db.store = type(m.store)(*[
+        x[:n].repeat((reps,) + (1,) * (x.dim() - 1)).to(device)
+        for x in m.store])
+    db.keys_q = tdb.keys_to_q_layout(db.store.keys,
+                                     db._kq_dtype()).contiguous()
+    db.ts_store = torch.zeros((n * reps,), device=device)
+    db.recs_store = torch.zeros((n * reps, tdb.RECORD_WIDTH), device=device)
+    db.state = torch.tensor([n * reps, n * reps], dtype=torch.int32,
+                            device=device)
+    db.n = n * reps
+    return db
+
+
+def _cpu_db(db):
+    c = tdb.ContourDB(db.cfg, capacity=db.capacity, device="cpu")
+    c.store = type(db.store)(*[x.cpu() for x in db.store])
+    c.keys_q, c.state, c.n = db.keys_q.cpu(), db.state.cpu(), db.n
+    return c
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("keys_bf16", [True, False])
+def test_range_search_graphed_equals_eager_and_cpu_on_card(cuda, keys_bf16):
+    """`range_search` on an 8-scan card DB and on its rows tiled 64 times:
+    each call one replay of the range graph of its cap (the first captures),
+    with one host sync (the fetch), the hits and count equal to the eager
+    body's and to a CPU copy's (ints exactly, distances to rtol 1e-6)."""
+    from contour_context_tpu_torch.profile_step import host_syncs
+
+    cfg = PipelineConfig(cm=ContourManagerConfig(max_points=16384,
+                                                 keys_bf16=keys_bf16))
+    clouds = _revisit_clouds()[1]
+    m = tdb.ContourDB(cfg, capacity=16, device="cuda")
+    for i in range(8):
+        m.step_async(clouds[i], i, 6.0 * i)
+    q = td.build_descriptor(torch.from_numpy(clouds[8]).to("cuda"), cfg.cm,
+                            cfg.gmm)
+    q_c = type(q)(*[x.cpu() for x in q])
+    cases = ((3.0, 256), (60.0, 7), (1e12, 4096), (1e-9, 8), (60.0, 9000))
+    for db in (m, _tiled_db(m, 64, "cuda")):
+        c = _cpu_db(db)
+        for radius, cap in cases:
+            got = db.range_search(q, radius, cap)
+            calls = []
+            syncs = host_syncs(lambda: calls.append(
+                db.range_search(q, radius, cap)))
+            assert syncs == 1 and calls[0] == got, (radius, cap, syncs)
+            with db.eager():
+                assert db.range_search(q, radius, cap) == got
+            hits_c, n_c = c.range_search(q_c, radius, cap)
+            assert got[1] == n_c and [h[:4] for h in got[0]] == \
+                [h[:4] for h in hits_c], (radius, cap)
+            np.testing.assert_allclose([h[4] for h in got[0]],
+                                       [h[4] for h in hits_c], rtol=1e-6,
+                                       atol=0)
+            if radius == 1e12 and db is not m:      # 64 ties a key
+                assert n_c > cap
+        assert sorted(k[1] for k in db._graphs.graphs
+                      if k[0] == "range_search") == sorted(
+                          cap for _, cap in cases)
+        db.drop_graphs()
+
+
+@pytest.mark.cuda
+def test_sharded_graphed_paths_equal_eager_and_single_on_card(nccl_mesh):
+    """World 1 over NCCL: serving, the query step and two block steps (one
+    block graph for both: rows 8..11, then 12..15) as one replay a call
+    with no host sync after the captures (sync debug mode "error"), bit for
+    bit the eager calls; serving and the query step bit for bit the
+    single-device f32 path, the blocks its records (ints exactly, floats in
+    the record bands), window state and store."""
+    from contour_context_tpu_torch import parallel as par
+
+    mesh = nccl_mesh
+    assert mesh.graphed and mesh.graph_stats()["reason"] is None
+    cfg, clouds, db = _f32_map(mesh.device)
+    shard = par.shard_store(db.store, mesh)
+    serve = clouds[8:12]
+    got = par.sharded_localize_block(shard, db.state, serve, cfg, mesh)
+    again = _no_syncs(lambda: par.sharded_localize_block(
+        shard, db.state, serve, cfg, mesh))
+    with mesh.eager():
+        eager = par.sharded_localize_block(shard, db.state, serve, cfg, mesh)
+    want = db.localize_block_async(serve, chunk=4).recs
+    for x in (again, eager, want):
+        assert torch.equal(got, x)
+    desc = td.build_descriptor(torch.from_numpy(clouds[10]).to("cuda"),
+                               cfg.cm, cfg.gmm)
+    rec = par.sharded_query_step(shard, desc, db.state, cfg, mesh)
+    assert torch.equal(_no_syncs(lambda: par.sharded_query_step(
+        shard, desc, db.state, cfg, mesh)), rec)
+    assert torch.equal(rec, tdb.query_step(db.store, db.keys_q, desc,
+                                           db.state, cfg))
+    descs = td.build_descriptors(torch.from_numpy(serve).to("cuda"), cfg.cm,
+                                 cfg.gmm)
+    ts = [torch.tensor([6.0 * i for i in range(k, k + 4)], device="cuda")
+          for k in (8, 12)]
+    single = tdb.ContourDB(cfg, capacity=16, device="cuda")
+    for i in range(8):
+        single.step_async(clouds[i], i, 6.0 * i)
+    recs_1 = torch.cat([single.process_block_async(
+        descs, list(range(k, k + 4)), t).recs for k, t in zip((8, 12), ts)])
+    out = {}
+    for graphed in (True, False):
+        sh = par.shard_store(db.store, mesh)
+        ts_store, st, rs = (db.ts_store.clone(), db.state.clone(),
+                            db.recs_store.clone())
+
+        def block(i):
+            return par.sharded_process_block(sh, ts_store, st, rs, descs,
+                                             ts[i], 8 + 4 * i, cfg, mesh)
+
+        if graphed:
+            recs = torch.cat([block(0), _no_syncs(lambda: block(1))])
+        else:
+            with mesh.eager():
+                recs = torch.cat([block(0), block(1)])
+        out[graphed] = (recs, sh, ts_store, st, rs)
+    (g, sh_g, ts_g, st_g, rs_g), (e, sh_e, ts_e, st_e, rs_e) = \
+        out[True], out[False]
+    assert torch.equal(g, e) and torch.equal(rs_g, rs_e)
+    assert torch.equal(st_g, st_e) and torch.equal(st_g, single.state)
+    assert torch.equal(ts_g, ts_e) and torch.equal(ts_g, single.ts_store)
+    for a, b, c in zip(sh_g.store, sh_e.store, single.store):
+        assert torch.equal(a, b) and torch.equal(a[:16], c[:16])
+    assert torch.equal(sh_g.keys_q, sh_e.keys_q)
+    _assert_records(g.cpu().numpy(), recs_1.cpu().numpy())
+    stats = mesh.graph_stats()
+    assert sorted(stats["capture_s"]) == [
+        "block", "localize", "query_step"], stats["capture_s"]
+    assert stats["pool_bytes"] > 0

@@ -32,6 +32,16 @@ of them at 0.5 m, one revisit query of scan 1.
   `vmap(build_descriptor)` in the descriptor bands
   (tests/test_torch_descriptor.py's `assert_desc_close`), and a batch the
   world size does not divide raises.
+- The block step writes at rows read from state[0] on the device: at
+  world 2 the block wholly below and wholly above the shard boundary (the
+  rank owning none of its rows leaves its shard as it was), besides
+  across it, every result the single-device block's bit for bit.
+- Every entry point's graphed code path (static inputs and outputs, one
+  graph a call) through a stand-in for the graph pool (a capture runs the
+  body, a replay runs it again) at world 1 and 2: two blocks in turn
+  through one block graph, the query step, the batched query, serving and
+  the search equal to the eager calls and the single-device results; a
+  gloo mesh reports itself eager (`graphed` false, reason "gloo").
 Every rank's results equal rank 0's.
 """
 
@@ -51,6 +61,7 @@ from contour_context_tpu.utils.io import pad_points
 from contour_context_tpu_torch import config as tconfig
 from contour_context_tpu_torch import db as tdb
 from contour_context_tpu_torch import parallel as par
+from contour_context_tpu_torch.graphs import GraphSet
 from contour_context_tpu_torch.ops import descriptor as td
 from contour_context_tpu_torch.types import ScanDesc, scan_desc_from_numpy
 
@@ -79,6 +90,13 @@ SEARCH_WORLDS = (2, 4)
 # block store capacity a world: a shard boundary inside rows 10..13 at
 # world 2 (11 rows a shard) and 3 (6 rows a shard)
 BLOCK_CAP = {1: 16, 2: 22, 3: 16}
+# the block of 4 at rows 10..13 wholly below and wholly above world 2's
+# shard boundary (14 and 10 rows a shard)
+BLOCK_AT = {"below": 28, "above": 20}
+# two blocks of 4 in turn through the graphed code path (a stand-in pool
+# on the CPU): rows 10..13 across world 2's boundary, 14..17 above it
+GRAPHED_CAP = 24
+GRAPHED_WORLDS = (1, 2)
 
 
 def _port_desc(x):
@@ -143,15 +161,23 @@ def refs(built):
         n = 2 * w + 2
         data["search"][w] = (descs.keys[:n], n - 3, q.keys)
     ts_b = 6.0 * N + torch.arange(B, dtype=torch.float32)
-    for w, cap in BLOCK_CAP.items():
+    def block(cap, k=1):
         m = _db(cap, descs)
-        data["block"][w] = dict(store=ScanDesc(*[x.clone() for x in m.store]),
-                                ts_store=m.ts_store.clone(),
-                                state=m.state.clone(),
-                                recs_store=m.recs_store.clone(), ts_b=ts_b,
-                                n=N)
-        recs = m.process_block_async(qb, list(range(N, N + B)), ts_b).recs
-        out[("block", w)] = (recs, m)
+        before = dict(store=ScanDesc(*[x.clone() for x in m.store]),
+                      ts_store=m.ts_store.clone(), state=m.state.clone(),
+                      recs_store=m.recs_store.clone(), ts_b=ts_b, n=N)
+        recs = [m.process_block_async(
+            qb, list(range(N + i * B, N + (i + 1) * B)), ts_b + i * B).recs
+            for i in range(k)]
+        return before, (torch.cat(recs), m)
+
+    for w, cap in BLOCK_CAP.items():
+        data["block"][w], out[("block", w)] = block(cap)
+    data["block_at"] = {}
+    for where, cap in BLOCK_AT.items():
+        data["block_at"][where], out[("block_at", where)] = block(cap)
+    data["graphed"], out["graphed"] = block(GRAPHED_CAP, 2)
+    data["graphed_worlds"] = GRAPHED_WORLDS
     return db, out, data
 
 
@@ -182,7 +208,8 @@ def _equal(a, b, what):
 def _mesh(rank, world):
     """A rank's Mesh without a process group: pad_rows_to_mesh and
     shard_store communicate nothing."""
-    return par.Mesh(None, rank, world, torch.device("cpu"), "gloo")
+    cpu = torch.device("cpu")
+    return par.Mesh(None, rank, world, cpu, "gloo", GraphSet(cpu, "gloo"))
 
 
 @pytest.mark.parametrize("world", [1, 2, 3, 4])
@@ -210,14 +237,19 @@ def test_pad_rows_and_shard_store(built, world, rows):
         assert torch.equal(torch.cat([b[i] for b in blocks]), p)
 
 
+def _replicated(x):
+    """A rank's results without its own shards (every "block_shard")."""
+    if isinstance(x, dict):
+        return {k: _replicated(v) for k, v in x.items()
+                if not k.startswith("block_shard")}
+    return x
+
+
 def test_every_rank_has_the_same_results(ranks_out):
     for w, per_rank in ranks_out.items():
         for r in range(1, w):
-            got = {k: v for k, v in per_rank[r].items()
-                   if not k.startswith("block_shard")}
-            want = {k: v for k, v in per_rank[0].items()
-                    if not k.startswith("block_shard")}
-            _equal(got, want, f"world {w} rank {r}")
+            _equal(_replicated(per_rank[r]), _replicated(per_rank[0]),
+                   f"world {w} rank {r}")
 
 
 @pytest.mark.parametrize("world", SEARCH_WORLDS)
@@ -308,3 +340,77 @@ def test_dp_build_matches_jax_vmap(built, ranks_out, world):
     assert ranks_out[world][0]["dp_uneven_raised"]
     assert_desc_close(type(jd)(*[np.asarray(x)[N:N + N_LOC] for x in jd]),
                       ranks_out[world][0]["dp_build"])
+
+
+def _assert_block_equal(got, recs, m, what):
+    """A rank's sharded block results (records, window state, timestamps,
+    record ring, every rank's shard) bit for bit the single-device DB's."""
+    assert torch.equal(got[0]["block"], recs), what
+    assert torch.equal(got[0]["block_state"], m.state), what
+    assert torch.equal(got[0]["block_ts_store"], m.ts_store), what
+    assert torch.equal(got[0]["block_recs_store"], m.recs_store), what
+    shards = [r["block_shard"] for r in got]
+    for i, leaf in enumerate(m.store):
+        whole = torch.cat([s.store[i] for s in shards])
+        assert torch.equal(whole[:m.capacity], leaf), (what, i)
+    kq = torch.cat([s.keys_q for s in shards], dim=2)
+    assert torch.equal(kq[:, :, :m.keys_q.shape[2]], m.keys_q), what
+
+
+@pytest.mark.parametrize("where", sorted(BLOCK_AT))
+def test_sharded_block_below_and_above_a_shard_boundary(refs, ranks_out,
+                                                        where):
+    """World 2's block wholly in shard 0 or wholly in shard 1: the rank
+    that owns none of its rows writes none (its shard is unchanged) and
+    every result is the single-device block's."""
+    recs, m = refs[1][("block_at", where)]
+    got = [r["block_at"][where] for r in ranks_out[2]]
+    _assert_block_equal(got, recs, m, where)
+    before = refs[2]["block_at"][where]["store"]
+    n_loc = got[0]["block_shard"].store.keys.shape[0]
+    idle = 1 if where == "below" else 0
+    assert (N + B <= n_loc) == (where == "below") and \
+        (N >= n_loc) == (where == "above")
+    base = idle * n_loc
+    for i, leaf in enumerate(got[idle]["block_shard"].store):
+        assert torch.equal(leaf[:max(0, m.capacity - base)],
+                           before[i][base:base + n_loc]), i
+
+
+@pytest.mark.parametrize("world", GRAPHED_WORLDS)
+def test_sharded_graphed_paths_equal_eager_and_single(refs, ranks_out,
+                                                      world):
+    """The graphed code path of every sharded entry point on the CPU,
+    through a stand-in pool (a capture runs the body, a replay runs it
+    again): two blocks in turn through one block graph (one graph serves
+    every n: rows 10..13, then 14..17), the single-device DB's two blocks
+    bit for bit; the query step, the batched query, serving and the
+    search equal to the eager calls and the single-device results."""
+    recs, m = refs[1]["graphed"]
+    g = [r["graphed"] for r in ranks_out[world]]
+    _assert_block_equal([x["blocks"] for x in g], recs, m, "graphed")
+    _assert_block_equal([x["blocks_eager"] for x in g], recs, m, "eager")
+    for what in ("query", "query_batch", "localize"):
+        assert torch.equal(g[0][what], refs[1][what]), what
+    for a, b in zip(g[0]["search"], g[0]["search_eager"]):
+        assert torch.equal(a, b)
+    assert g[0]["graph_keys"] == ["block", "localize", "query_batch",
+                                  "query_step", "search"]
+    assert g[0]["captures"] == 5 and g[0]["stats"]["graphed"]
+    assert ranks_out[world][0]["stats"] == {"graphed": False,
+                                            "reason": "gloo"}
+
+
+def test_sharded_graph_captured_again_on_a_recut_shard(ranks_out):
+    """World 1: serving on a shard, then on views of its first half (a
+    shard of another row count at the same addresses). The views' tag
+    holds their shapes and row count, so the graph is captured again (a
+    capture for the new full shard, one for the cut) rather than replayed
+    with the full shard's sizes: each graphed result equals the eager call
+    on its own shard, and the cut's differs from the full shard's."""
+    g = ranks_out[1][0]["graphed"]
+    assert g["recut_same_address"] and g["recut_captures"] == 2
+    for name in ("full", "cut"):
+        assert torch.equal(g[f"recut_{name}"], g[f"recut_{name}_eager"]), \
+            name
+    assert not torch.equal(g["recut_cut"], g["recut_full"])

@@ -12,21 +12,24 @@ the block's append and window pushes, and `dynamic_thres` on the device.
   tensor raise (`.item`, `.cpu`, `.numpy`, `.tolist`, `bool()`, `int()`,
   `float()`): neither syncs the host.
 - The graphed code paths of `ContourDB` run on the CPU through a stand-in
-  for the device's graph pool (`FakeGraph`: a capture runs the body once,
-  a replay runs it again on the static buffers), so every static buffer,
-  copy and body the card's graphs use runs here: the unfused stream's
-  records against the eager path's bit for bit and against JAX's
-  `_query_step` on the same descriptors (found, gidx and counters exactly,
-  corr and T in the record bands), with store, keys_q, timestamps and
-  window state exact; the block step under `dynamic_thres` against the
+  for the device's graph pool (`torch_graph_stub`: a capture runs the
+  body once, a replay runs it again on the static buffers), so every
+  static buffer, copy and body the card's graphs use runs here: the
+  unfused stream's records against the eager path's bit for bit and
+  against JAX's `_query_step` on the same descriptors (found, gidx and
+  counters exactly, corr and T in the record bands), with store, keys_q,
+  timestamps and window state exact; the block step under `dynamic_thres` against the
   append + `replay_window` + `query_step_batch` it replaces; a
   QueryHandle keeps its record after a later `query_async`.
 - The graph registry: two DBs on one device share one pool; a DB's
   `drop_graphs` leaves the other's graphs in place; the pool's handle is
-  renewed only after its last graph is gone.
+  renewed only after its last graph is gone. A graph is captured again
+  when a tensor it reads changes shape at the same address, and goes when
+  the tensor it was captured for (its owner) is freed.
 """
 
 import contextlib
+import gc
 
 import jax
 import jax.numpy as jnp
@@ -35,6 +38,7 @@ import pytest
 import torch
 
 from synth import make_world, render_scan
+import torch_graph_stub
 
 from contour_context_tpu import config as jconfig
 from contour_context_tpu_torch import config as tconfig
@@ -225,37 +229,17 @@ def test_dynamic_pass_scan_with_bars_out_of_order(bars):
 # the graphed code paths on the CPU, through a stand-in for the pool
 # ---------------------------------------------------------------------------
 
-class FakeGraph:
-    """A capture runs the body once (the warm-up's work, which the real
-    capture leaves as the call's own); a replay runs it again."""
-
-    def __init__(self, body):
-        self.body = body
-        self.launches = {}
-        self.capture_s = 0.0
-        body()
-
-    def replay(self):
-        self.body()
-
-
 @pytest.fixture
-def fake_pool(monkeypatch):
-    handles = iter(range(1000))
-    monkeypatch.setattr(graphs, "_POOLS", {})        # a registry of its own
-    monkeypatch.setattr(graphs.DevicePool, "_new_pool",
-                        lambda self: (next(handles),))
-    monkeypatch.setattr(graphs.DevicePool, "_capture",
-                        lambda self, body: FakeGraph(body))
-    monkeypatch.setattr(graphs.DevicePool, "replay",
-                        lambda self, graph: graph.replay())
+def fake_pool():
+    with torch_graph_stub.fake_pool():
+        yield
 
 
 def _graphed_db(cfg, capacity=8):
     """A CPU DB that takes its graphed code paths (through the pool the
     `fake_pool` fixture stands in)."""
     db = tdb.ContourDB(cfg, capacity=capacity, device="cpu")
-    db._use_graphs = True
+    db._graphs.enabled = True
     return db
 
 
@@ -395,7 +379,7 @@ def test_block_append_body_matches_append_and_replay_window(fake_pool,
         ref._append(d, ts_t)
         sb = tdb.replay_window(ref.state, ref.ts_store, ts_t, tb.min_elapse,
                                tb.max_elapse)
-        assert torch.equal(db._static_bufs[("sb", B)], sb)
+        assert torch.equal(db._graphs.bufs[("sb", B)], sb)
         ref.recs_store[k:k + B] = tdb.query_step_batch(
             ref.store, ref.keys_q, d, sb, DYN)
     assert ("block_append", B) in db._graphs.graphs
@@ -436,3 +420,32 @@ def test_registry_shares_one_pool_and_drops_per_db(fake_pool, descs):
     a.push_and_balance(DT * 5)
     assert pool.handle != handle and len(pool.live) == 1
     a.drop_graphs()
+
+
+def test_graph_tag_and_owner(fake_pool):
+    """A view of the owner at its address with another shape has another
+    tag (a capture bakes the shape in), so the set captures again; a
+    graph goes with its owner, static buffers and the holder's other
+    graphs stay."""
+    g = graphs.GraphSet(torch.device("cpu"))
+    assert g.reason == "cpu" and not g.enabled
+    owner, runs = torch.zeros(8), []
+
+    def body(x):       # holds no tensor, as a real graph holds no body
+        shape = tuple(x.shape)
+        return lambda: runs.append(shape)
+
+    g.run("a", body(owner), graphs.tensor_tag(owner), owner)
+    g.run("a", body(owner), graphs.tensor_tag(owner), owner)
+    first = g.graphs["a"]
+    assert runs == [(8,), (8,)]
+    view = owner[:5]
+    assert view.data_ptr() == owner.data_ptr()
+    g.run("a", body(view), graphs.tensor_tag(view), owner)
+    assert runs[-1] == (5,) and g.graphs["a"] is not first
+    g.run("b", lambda: None)
+    g.static("buf", (2,), torch.int32)
+    del owner, view, first
+    gc.collect()
+    assert list(g.graphs) == ["b"] and list(g.capture_s) == ["b"]
+    assert list(g.bufs) == ["buf"]
