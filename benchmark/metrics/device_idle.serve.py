@@ -1,0 +1,8 @@
+"""Share of the traced requests' service time in which no device operation
+ran (%)."""
+
+from harness import readers
+
+
+def read(run):
+    return readers.device_idle(run, "serve")
