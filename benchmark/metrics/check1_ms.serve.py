@@ -1,0 +1,9 @@
+"""Device time of the hint cap and the check-1 prefilter a traced request: the
+device's busy time between the program's `check1` mark and its next mark
+(ms)."""
+
+from harness import stages
+
+
+def read(run):
+    return stages.stage_ms(run, "serve", "check1")

@@ -1,0 +1,8 @@
+"""Device time of the key search a traced scan: the device's busy time between
+the program's `search` mark and its next mark (ms)."""
+
+from harness import stages
+
+
+def read(run):
+    return stages.stage_ms(run, "stream", "search")

@@ -74,6 +74,7 @@ from contour_context_tpu_torch.ops.cascade import (
     run_cascade,
 )
 from contour_context_tpu_torch.graphs import GraphSet, tensor_tag
+from contour_context_tpu_torch.tracing import mark, span
 from contour_context_tpu_torch.ops.descriptor import (
     build_descriptor,
     build_descriptors,
@@ -110,12 +111,13 @@ def upload(x, device: torch.device):
     CUDA device it goes through pinned memory, non_blocking: no host sync,
     and the pinned block is not reused before its copy ran. A tensor
     already on the device passes through."""
-    t = torch.as_tensor(x)
-    if t.device == device:
-        return t
-    if device.type == "cuda" and t.device.type == "cpu":
-        return t.pin_memory().to(device, non_blocking=True)
-    return t.to(device)
+    with span("upload"):
+        t = torch.as_tensor(x)
+        if t.device == device:
+            return t
+        if device.type == "cuda" and t.device.type == "cpu":
+            return t.pin_memory().to(device, non_blocking=True)
+        return t.to(device)
 
 
 def keys_to_q_layout(keys, dtype=None):
@@ -445,6 +447,7 @@ def cascade_rows(store: ScanDesc, descs: ScanDesc, hits, cfg: PipelineConfig,
     if depth == "search":
         return _probe(dist, gidx, valid)
     dev = gidx.device
+    mark("check1", dev)
     i32, f32 = torch.int32, torch.float32
     q_levels = tuple(cfg.db.q_levels)
     B, Q, A, K = gidx.shape
@@ -491,6 +494,7 @@ def stages_from_hits(store: ScanDesc, descs: ScanDesc, hits,
     rows = cascade_rows(store, descs, hits, cfg, depth)
     if depth in ("search", "hints", "check1"):
         return rows
+    mark("cascade", rows.gidx.device)
     res = cascade_chunked(store, descs, *rows[:6], cfg.thres_lb,
                           cfg.db.cont_sim, cfg.db.cascade_chunk, cfg.db.p_pot)
     if depth == "cascade":
@@ -506,6 +510,7 @@ def stages_from_hits(store: ScanDesc, descs: ScanDesc, hits,
             res.i_indiv_sim, res.i_orie_sim, cfg.thres_lb, cfg.thres_ub)
         res = res._replace(pass2=pass2_d, pass3=pass3_d)
 
+    mark("merge", rows.gidx.device)
     st = merge_proposals(
         res.pass3, rows.gidx, res.T_delta, res.pair_valid, res.pair_level,
         res.pair_seq_src, res.pair_seq_tgt, res.pair_area_perc,
@@ -559,6 +564,7 @@ def refine_from_hits(store: ScanDesc, descs: ScanDesc, hits,
     if depth is not None and depth != "init":
         return qs
     st = qs.st
+    mark("init", st.cand_gidx.device)
     post = cfg.thres_lb.sim_post
     tidy = tidy_candidates(st, post.area_perc, post.neg_est_dist,
                            cfg.cm.n_row, cfg.cm.n_col, cfg.cm.reso_row,
@@ -612,6 +618,7 @@ def query_from_hits(store: ScanDesc, descs: ScanDesc, hits,
     qs = r.qs
     res, st = qs.res, qs.st
     B = r.topi.shape[0]
+    mark("lm", r.topi.device)
     corr_f, T_f = optimize_correlation(r.src, per_query(r.tgt), r.T0, r.sel,
                                        scale=cfg.gmm.cov_dilate_scale,
                                        iters=cfg.gmm.gn_iters)
@@ -642,6 +649,7 @@ def query_step(store: ScanDesc, keys_q, query: ScanDesc, state,
     search at the window `state` (the single-query tile-min), then
     `query_from_hits` at B = 1. Returns the packed (18,) f32 record, or
     with `depth` one of DEPTHS that stage gate's 0-d float32 probe."""
+    mark("search", state.device)
     return query_from_hits(store, *_as_batch(
         query, _search_query(keys_q, query, state, cfg)), cfg, depth)[0]
 
@@ -657,6 +665,7 @@ def query_step_batch(store: ScanDesc, keys_q, descs: ScanDesc, searchable_b,
     the CPU and within the record bands on a CUDA device (its reductions
     may split differently at another row count). With `depth`, the (B,)
     float32 probes of that stage gate (`query_from_hits`)."""
+    mark("search", searchable_b.device)
     hits = search_batch(keys_q, descs.keys, searchable_b,
                         tuple(cfg.db.q_levels), cfg.db.nnk)
     return query_from_hits(store, descs, hits, cfg, depth)
@@ -879,14 +888,19 @@ def drain_handles(handles) -> list:
     live = [h for h in handles if h is not None and h._host is None]
     ring = [h for h in live if h.row is not None]
     rest = [h for h in live if h.row is None]
-    if ring:
-        rings = _fetch_rings(ring)
-        for h in ring:
-            h._finish(rings[id(h._db)][h.row])
-    if rest:
-        mats = torch.stack([h.rec for h in rest]).cpu().numpy()
-        for h, vec in zip(rest, mats):
-            h._finish(vec)
+    with span("record"):
+        if ring:
+            with span("fetch"):
+                rings = _fetch_rings(ring)
+            with span("unpack"):
+                for h in ring:
+                    h._finish(rings[id(h._db)][h.row])
+        if rest:
+            with span("fetch"):
+                mats = torch.stack([h.rec for h in rest]).cpu().numpy()
+            with span("unpack"):
+                for h, vec in zip(rest, mats):
+                    h._finish(vec)
     return [None if h is None else h.get() for h in handles]
 
 
@@ -898,15 +912,19 @@ def drain_block_handles(handles) -> None:
     ring = [h for h in live if h.row0 is not None]
     rest = [h for h in live if h.row0 is None]
     if ring:
-        rings = _fetch_rings(ring)
-        for h in ring:
-            h._finish(rings[id(h._db)][h.row0:h.row0 + h.recs.shape[0]])
+        with span("fetch"):
+            rings = _fetch_rings(ring)
+        with span("unpack"):
+            for h in ring:
+                h._finish(rings[id(h._db)][h.row0:h.row0 + h.recs.shape[0]])
     if rest:
-        mat = torch.cat([h.recs for h in rest]).cpu().numpy()
-        at = 0
-        for h in rest:
-            h._finish(mat[at:at + h.recs.shape[0]])
-            at += h.recs.shape[0]
+        with span("fetch"):
+            mat = torch.cat([h.recs for h in rest]).cpu().numpy()
+        with span("unpack"):
+            at = 0
+            for h in rest:
+                h._finish(mat[at:at + h.recs.shape[0]])
+                at += h.recs.shape[0]
 
 
 _NP_OF = {torch.bool: np.bool_, torch.int8: np.int8, torch.int16: np.int16,
@@ -1308,9 +1326,11 @@ class ContourDB:
         captures."""
         desc = build_descriptor(pts, self.cfg.cm, self.cfg.gmm)
         rec = query_step(self.store, self.keys_q, desc, self.state, self.cfg)
+        mark("tail", self.device)
         self.recs_store.index_copy_(0, self._rows(1), rec[None])
         self._append_rows(ScanDesc(*[x[None] for x in desc]), ts_t.reshape(1))
         self._push(ts_t)
+        mark("end", self.device)
 
     def step_async(self, points, seq: int, ts) -> QueryHandle:
         """One scan: build -> query (window state before this scan) ->
@@ -1324,19 +1344,22 @@ class ContourDB:
         runs, with no host sync. The first step (and the first after a
         grow) runs the body eagerly and captures it. With `dynamic_thres`
         as well."""
-        self._ensure_capacity(1)
-        pts = self._upload(points)
-        ts_t = self._ts_tensor(ts)
-        if self.graphed:
-            pts_in = self._static(("pts", pts.dtype, tuple(pts.shape)),
-                                  pts.shape, pts.dtype)
-            pts_in.copy_(pts)
-            ts_in = self._static_ts(ts_t)
-            self._graphs.run(("step", pts.dtype, tuple(pts.shape)),
-                             lambda: self._step_body(pts_in, ts_in),
-                             self._tag())
-        else:
-            self._step_body(pts, ts_t)
+        with span("step"):
+            self._ensure_capacity(1)
+            pts = self._upload(points)
+            ts_t = self._ts_tensor(ts)
+            if self.graphed:
+                with span("stage_in"):
+                    pts_in = self._static(("pts", pts.dtype,
+                                           tuple(pts.shape)),
+                                          pts.shape, pts.dtype)
+                    pts_in.copy_(pts)
+                    ts_in = self._static_ts(ts_t)
+                self._graphs.run(("step", pts.dtype, tuple(pts.shape)),
+                                 lambda: self._step_body(pts_in, ts_in),
+                                 self._tag())
+            else:
+                self._step_body(pts, ts_t)
         row = self.n
         self.n += 1
         self.seq_of_gidx.append(int(seq))
@@ -1673,15 +1696,19 @@ class ContourDB:
             return query_step_batch(self.store, self.keys_q, descs,
                                     searchable_b, self.cfg)
         B = searchable_b.shape[0]
-        d_in = self._static_descs_of(descs)
-        sb_in = self._static(("sb", B), (B,), torch.int32)
-        if sb_in.data_ptr() != searchable_b.data_ptr():
-            sb_in.copy_(searchable_b)
+        with span("stage_in"):
+            d_in = self._static_descs_of(descs)
+            sb_in = self._static(("sb", B), (B,), torch.int32)
+            if sb_in.data_ptr() != searchable_b.data_ptr():
+                sb_in.copy_(searchable_b)
         out = self._static(("recs", B), (B, RECORD_WIDTH), torch.float32)
 
         def body():
-            out.copy_(query_step_batch(self.store, self.keys_q, d_in, sb_in,
-                                       self.cfg))
+            recs = query_step_batch(self.store, self.keys_q, d_in, sb_in,
+                                    self.cfg)
+            mark("tail", self.device)
+            out.copy_(recs)
+            mark("end", self.device)
 
         self._graphs.run(("query", B), body, self._tag())
         return out
@@ -1697,14 +1724,16 @@ class ContourDB:
             return build_descriptors(pts, self.cfg.cm, self.cfg.gmm)
         B = pts.shape[0]
         key = ("build", pts.dtype, tuple(pts.shape))
-        pts_in = self._static(("pts",) + key[1:], pts.shape, pts.dtype)
-        pts_in.copy_(pts)
+        with span("stage_in"):
+            pts_in = self._static(("pts",) + key[1:], pts.shape, pts.dtype)
+            pts_in.copy_(pts)
         d_in = self._static_descs(B)
 
         def body():
             for dst, src in zip(d_in, build_descriptors(pts_in, self.cfg.cm,
                                                         self.cfg.gmm)):
                 dst.copy_(src)
+            mark("end", self.device)
 
         self._graphs.run(key, body)
         return d_in
@@ -1737,9 +1766,10 @@ class ContourDB:
         if not self.graphed:
             searchable_b = self._block_append(descs, ts_t)
         else:
-            descs = self._static_descs_of(descs)
-            ts_in = self._static(("ts", B), (B,), torch.float32)
-            ts_in.copy_(ts_t)
+            with span("stage_in"):
+                descs = self._static_descs_of(descs)
+                ts_in = self._static(("ts", B), (B,), torch.float32)
+                ts_in.copy_(ts_t)
             searchable_b = self._static(("sb", B), (B,), torch.int32)
             self._graphs.run(("block_append", B), lambda: searchable_b.copy_(
                 self._block_append(descs, ts_in)), self._tag())
@@ -1821,10 +1851,13 @@ class ContourDB:
         recs = []
         for i in range(0, B + pad, chunk):
             descs = self._build_batch(pts[i:i + chunk])
-            recs.append(self._query_batch(
-                descs, self.state[1].expand(chunk).contiguous()).clone())
-        return BlockHandle(torch.cat(recs)[:B], self,
-                           counters="serving_counters")
+            out = self._query_batch(
+                descs, self.state[1].expand(chunk).contiguous())
+            with span("stage_out"):
+                recs.append(out.clone())
+        with span("stage_out"):
+            recs = torch.cat(recs)[:B]
+        return BlockHandle(recs, self, counters="serving_counters")
 
     # -- checkpoints and merge ----------------------------------------------
 

@@ -39,6 +39,7 @@ from typing import Callable, Hashable, Optional
 import torch
 
 from contour_context_tpu_torch.ops import kernels
+from contour_context_tpu_torch.tracing import span
 
 
 class Graph:
@@ -225,10 +226,12 @@ class GraphSet:
         what it reads."""
         graph = self.graphs.get(key)
         if graph is not None and self._tags[key] == tag:
-            self.pool.replay(graph)
+            with span("replay"):
+                self.pool.replay(graph)
             return
         self.graphs.pop(key, None)
-        graph = self.pool.capture(body)
+        with span("capture"):
+            graph = self.pool.capture(body)
         self.graphs[key] = graph
         self._tags[key] = tag
         self.capture_s[key] = graph.capture_s

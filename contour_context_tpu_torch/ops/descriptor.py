@@ -32,6 +32,7 @@ from contour_context_tpu_torch.ops.candidate import select_topk_stable
 from contour_context_tpu_torch.ops.gmm import l2_pairwise
 from contour_context_tpu_torch.ops.kernels import (cc_labels, ring_key_divs,
                                                    ring_key_divs_batch)
+from contour_context_tpu_torch.tracing import mark
 from contour_context_tpu_torch.types import ScanDesc, device_const
 
 VAL_ABS_INF = 1e3
@@ -492,6 +493,7 @@ def build_descriptors(points_b, cfg: ContourManagerConfig,
     sub-batches are concatenated. Sub-batching bounds the (batch, L, K, S)
     membership temporaries of `component_tables` (~1.1 GB of float64 at 16
     scans) whatever B is."""
+    mark("desc", points_b.device)
     B = points_b.shape[0]
     batch = max(1, batch)
     if B <= batch:

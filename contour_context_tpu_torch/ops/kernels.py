@@ -37,7 +37,9 @@ Each wrapper takes its plain twin for CPU tensors only; a CUDA tensor launches
 the kernel or raises. The kernels are compiled at first use with nvcc into one
 shared library with a plain C interface (loaded with ctypes) under
 `build/torch_kernels/` at the repository root, named by a hash of the sources.
-Each wrapper counts its kernel launches in its `launches` attribute.
+Each wrapper counts its kernel launches in its `launches` attribute. The
+library also holds the stage marks of csrc/stage_mark.cu (`tracing.mark`),
+which compute nothing and are not counted.
 """
 
 from __future__ import annotations
@@ -66,7 +68,7 @@ INV_SQRT_2PI = 1.0 / math.sqrt(2.0 * math.pi)
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _SOURCES = ("ring_key.cu", "search_tilemin.cu", "cc_labels.cu",
-            "merge_hints.cu", "dyn_thres.cu")
+            "merge_hints.cu", "dyn_thres.cu", "stage_mark.cu")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 _lib = None
 
@@ -129,6 +131,8 @@ def build() -> ctypes.CDLL:
     lib.cc_dyn_pass_scan.argtypes = [vp] * 8 + [ci] * 12 + [vp]
     lib.cc_dyn_post_scan.restype = ci
     lib.cc_dyn_post_scan.argtypes = [vp] * 5 + [ci, ci] + [cf] * 6 + [vp]
+    lib.cc_stage_mark.restype = ci
+    lib.cc_stage_mark.argtypes = [ci, vp]
     _lib = lib
     return lib
 

@@ -27,11 +27,6 @@ class TicToc:
     def toc(self) -> float:
         return time.perf_counter() - self._t0
 
-    def toctic(self) -> float:
-        dt = self.toc()
-        self.tic()
-        return dt
-
 
 @dataclass
 class _OneLog:
@@ -111,9 +106,3 @@ class SequentialTimeProfiler:
     def print_file(self, fpath: str, sort_by_cost: bool = False) -> None:
         with open(fpath, "a") as f:
             f.write(self.report(sort_by_cost) + "\n")
-
-    def mean_per_loop(self, name: str) -> float:
-        lg = self.logs.get(name)
-        if lg is None or self.cnt_loops == 0:
-            return 0.0
-        return lg.samps / self.cnt_loops
