@@ -23,12 +23,14 @@ exit code is not 0):
    debug mode "error", so a host sync fails the phase); the capture time,
    ms/scan and the graph pool's bytes, beside the same scans through the
    eager body the graph captured (ms/scan; store, window and records bit
-   for bit equal); the launch counts must show each of the four kernels of
-   the step (ring, tile-min, CC labels, merge) ran once per scan, replays
-   counted; at least half of the revisits must close on the right place,
-   and two found revisit queries must match the same queries on a CPU copy
-   of the store, with the LM's inputs equal on both devices and the float32
-   LM held against a float64 one on the same inputs; 0 host syncs a scan;
+   for bit equal); the launch counts must show each of the five kernels of
+   the step (ring, tile-min, CC labels, merge, LM) ran once per scan,
+   replays counted; at least half of the revisits must close on the right
+   place, and two found revisit queries must match the same queries on a
+   CPU copy of the store, with the LM's inputs equal on both devices; the
+   LM of every found revisit query on the same inputs as float32 on the
+   card and on the CPU, within LM_BAND cells of each other, each beside a
+   float64 LM; 0 host syncs a scan;
 3d. (after 4) the CC-label kernel bit-equal to its plain version on masks
    made to stress it (a spiral, a comb, a checkerboard, full, empty,
    staircases, a random field, a U joined in its last rows, a serpentine,
@@ -40,6 +42,10 @@ exit code is not 0):
    warm and cold, bound and share, call and plain ms, and its split by
    phase (clock64 stamps of the kernel's measurement entry); what the
    always-run cascade chunk costs 8 queries of the stream;
+4b. (after 4's stream, before its reference check) the LM kernel
+   bit-equal to its plain twin at its edge cases and at a revisit query's
+   (10 rows) and 16 revisit queries' (160 rows) inputs on the stream's DB,
+   with its times beside its twin's and the torch chain's it replaced;
 5. the CLI's default (unfused) path on 24 scans written in the KITTI
    two-file format, every stage a replay of one of the DB's graphs (the
    per-scan build, query_async, add_scan, push_and_balance): the CLI's
@@ -207,14 +213,10 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def lm_witness(cfg, r_g, r_c, row: int) -> None:
-    """The second witness for the 2e-3-cell pose band between the card and
-    the CPU: the LM's inputs (db.refine_inputs) on the card and on the CPU
-    agree (indices and masks exactly, floats to 1e-5); then the LM runs on
-    the same (CPU-built) inputs as float32 on the card, float32 on the CPU
-    and float64 on the CPU. The float32 runs must stray from float64 by the
-    same order, which puts the band on float32 conditioning."""
-    from contour_context_tpu_torch.ops.gmm import GmmScan, optimize_correlation
+def lm_inputs_agree(r_g, r_c, row: int) -> None:
+    """The LM's inputs (db.refine_inputs) of one query on the card and on
+    the CPU agree: indices and masks exactly, floats to 1e-5."""
+    from contour_context_tpu_torch.ops.gmm import GmmScan
 
     for name in ("cand_gidx", "topi", "valid", "sel"):
         assert torch.equal(getattr(r_g, name).cpu(), getattr(r_c, name)), name
@@ -223,32 +225,74 @@ def lm_witness(cfg, r_g, r_c, row: int) -> None:
                           (r_g.T0,) + tuple(r_g.src) + tuple(r_g.tgt),
                           (r_c.T0,) + tuple(r_c.src) + tuple(r_c.tgt)):
         torch.testing.assert_close(x.cpu(), y, rtol=1e-5, atol=1e-5, msg=name)
+    log(f"LM witness: scan {row}: the LM's inputs agree on card and CPU")
 
-    def lm(dtype, device):
-        def cast(x):
-            return x.to(device, dtype)
-        src = GmmScan(*[cast(x) for x in r_c.src])
-        tgt = GmmScan(*[cast(x) for x in r_c.tgt])
-        corr, T = optimize_correlation(src, tgt, cast(r_c.T0),
-                                       r_c.sel.to(device),
-                                       scale=cfg.gmm.cov_dilate_scale,
-                                       iters=cfg.gmm.gn_iters)
-        return corr.cpu().double()[r_c.valid], T.cpu().double()[r_c.valid]
 
-    c_g, T_g = lm(torch.float32, torch.device("cuda", 0))
-    c_c, T_c = lm(torch.float32, torch.device("cpu"))
-    c_64, T_64 = lm(torch.float64, torch.device("cpu"))
-    assert len(T_64) > 0, f"scan {row}: no candidate reached the LM"
+# the LM's pose band (cells) between float32 runs on the card and on the
+# CPU on the same inputs. Over the 352 candidates of this stream's 132
+# found revisit queries an H100 read up to 2.74e-3, with the LM kernel and
+# with the torch chain it replaced alike, and each float32 run strays as
+# far from a float64 one (up to 2.61e-3 on the CPU, 2.74e-3 on the card):
+# float32 conditioning of the LM at a flat optimum, not its order of sums
+LM_BAND = 4e-3
 
-    def dev(a, b):
-        return float((a - b).abs().max())
 
-    log(f"LM witness: scan {row}, {len(T_64)} candidates, inputs agree on "
-        f"card and CPU; max |dT| cells: card f32 vs CPU f32 "
-        f"{dev(T_g, T_c):.3g}, CPU f32 vs f64 {dev(T_c, T_64):.3g}, card "
-        f"f32 vs f64 {dev(T_g, T_64):.3g}; max |dcorr|: card vs CPU "
-        f"{dev(c_g, c_c):.3g}, CPU f32 vs f64 {dev(c_c, c_64):.3g}")
-    assert dev(T_g, T_c) < 2e-3 and dev(c_g, c_c) < 1e-4
+def lm_witness(cfg, db, clouds, rows, ts_c) -> None:
+    """The witness for the LM's pose band between the card and the CPU:
+    the LM inputs of each found revisit query in `rows` (ascending; built
+    on the card at the window state replayed from the timestamps ts_c) run
+    as float32 on the card (the kernel), float32 on the CPU (the plain
+    twin) and float64 on the CPU. Card and CPU agree within LM_BAND cells
+    and 1e-4 in correlation on every candidate; logs the largest
+    deviations, all candidates' and the records' rows'."""
+    from contour_context_tpu_torch import db as tdb
+    from contour_context_tpu_torch.ops import descriptor as td
+    from contour_context_tpu_torch.ops.gmm import GmmScan, optimize_correlation
+
+    dev = db.keys_q.device
+    tb, g = cfg.db.tb, cfg.gmm
+    state = torch.zeros(2, dtype=torch.int32)
+    j = n_cand = 0
+    worst = {k: (0.0, -1) for k in ("card-CPU", "CPU-f64", "card-f64",
+                                   "record card-CPU", "corr")}
+    for row in rows:
+        while j < row:
+            state[0] = j + 1
+            tdb.update_window(state, ts_c, ts_c[j], tb.min_elapse,
+                              tb.max_elapse)
+            j += 1
+        desc = td.build_descriptor(torch.from_numpy(clouds[row]).to(dev),
+                                   cfg.cm, g)
+        r = tdb.refine_inputs(db.store, db.keys_q, desc, state.to(dev), cfg)
+        valid = r.valid.cpu()
+
+        def lm(dtype, device):
+            def cast(x):
+                return x.to(device, dtype)
+            corr, T = optimize_correlation(
+                GmmScan(*[cast(x) for x in r.src]),
+                GmmScan(*[cast(x) for x in r.tgt]), cast(r.T0),
+                r.sel.to(device), scale=g.cov_dilate_scale, iters=g.gn_iters)
+            return corr.cpu().double()[valid], T.cpu().double()[valid]
+
+        c_g, T_g = lm(torch.float32, dev)
+        c_c, T_c = lm(torch.float32, torch.device("cpu"))
+        c_64, T_64 = lm(torch.float64, torch.device("cpu"))
+        n_cand += len(T_g)
+        best = int(c_g.argmax())
+        for key, x in (("card-CPU", (T_g - T_c).abs().max()),
+                       ("CPU-f64", (T_c - T_64).abs().max()),
+                       ("card-f64", (T_g - T_64).abs().max()),
+                       ("record card-CPU", (T_g[best] - T_c[best]).abs().max()),
+                       ("corr", (c_g - c_c).abs().max())):
+            if float(x) > worst[key][0]:
+                worst[key] = (float(x), row)
+    log(f"LM witness over {len(rows)} found revisit queries, {n_cand} "
+        f"candidates, each on the same inputs on card and CPU; largest "
+        f"deviation (scan): " + ", ".join(
+            f"{k} {v:.3g} ({r})" for k, (v, r) in worst.items())
+        + f"; band {LM_BAND} cells")
+    assert worst["card-CPU"][0] < LM_BAND and worst["corr"][0] < 1e-4, worst
 
 
 EXACT = [0, 1] + list(range(6, 18))      # found, gidx, counters of a record
@@ -359,7 +403,7 @@ def one_a_scan(n: int, dyn: bool = False) -> dict:
             "search_tilemin": n, "search_tilemin_batch": 0,
             "cc_labels": n, "merge_hints": n,
             "dyn_pass_scan": n if dyn else 0,
-            "dyn_post_scan": n if dyn else 0}
+            "dyn_post_scan": n if dyn else 0, "gmm_lm": n}
 
 
 def one_a_block(n: int, dyn: bool = False) -> dict:
@@ -370,7 +414,7 @@ def one_a_block(n: int, dyn: bool = False) -> dict:
             "search_tilemin": 0, "search_tilemin_batch": n,
             "cc_labels": n, "merge_hints": n,
             "dyn_pass_scan": n if dyn else 0,
-            "dyn_post_scan": n if dyn else 0}
+            "dyn_post_scan": n if dyn else 0, "gmm_lm": n}
 
 
 def add_counts(*counts) -> dict:
@@ -433,7 +477,8 @@ def phase_5(cfg, clouds, rev0: int, smi: str) -> dict:
         launches = launch_counts(kernels)
         # no query against the empty DB of the first scan
         assert launches == dict(one_a_scan(n_cli), search_tilemin=n_cli - 1,
-                                merge_hints=n_cli - 1), launches
+                                merge_hints=n_cli - 1,
+                                gmm_lm=n_cli - 1), launches
         want = open(f_out).read()
         assert len(want.splitlines()) == n_cli
 
@@ -939,7 +984,7 @@ def phase_10(cfg, clouds, ring, db, rev0: int, smi: str, served) -> dict:
         by_path["cli"] = launch_counts(kernels)
         # the unfused path: no query against the empty DB of the first scan
         assert by_path["cli"] == dict(one_a_scan(24), search_tilemin=23,
-                                      merge_hints=23), \
+                                      merge_hints=23, gmm_lm=23), \
             by_path["cli"]
         files = os.listdir(mid)
         dumps = [f for f in files if f.startswith("contours-")]
@@ -1748,6 +1793,8 @@ def main() -> None:
     launches = launch_counts(kernels)
     n_scans = len(clouds)
     assert launches == one_a_scan(n_scans), launches
+    log(f"stream launches {launches}: gmm_lm once a step, as every kernel "
+        f"of the step")
     graph_stream = db.graph_stats()
     ms_scan = ev0.elapsed_time(ev1) / (n_scans - WARMUP)
     ms_scan_map = ev0.elapsed_time(ev_map) / (2 * LANE_SCANS - WARMUP)
@@ -1806,6 +1853,34 @@ def main() -> None:
     log(f"counters: {db.counters}")
     assert right >= LANE_SCANS // 2, (right, elsewhere)
 
+    # ---- 4b. the LM kernel: its twin at the edges, then the stream's and
+    # the serving chunk's shapes on the stream's DB, each with its times
+    one_rev = torch.from_numpy(clouds[rev0 + 10]).to(dev)[None]
+    revs16 = torch.from_numpy(np.stack(clouds[rev0 + 16:rev0 + 32])).to(dev)
+    for name in kt.LM_EDGE_CASES:
+        kt.hold_lm(*kt.lm_edge_case(name, dev)[:4], name, 2.0,
+                   kt.LM_EDGE_CASES[name][4])
+    log(f"gmm_lm at the edges {list(kt.LM_EDGE_CASES)}: bit-equal to the "
+        f"plain twin")
+    g = cfg.gmm
+    lm_row = kt.measure_lm(*kt.lm_case(db, one_rev, cfg),
+                           "a revisit query on the stream's DB", 200,
+                           g.cov_dilate_scale, g.gn_iters)
+    lm_row["block"] = kt.measure_lm(*kt.lm_case(db, revs16, cfg),
+                                    "16 revisit queries on the stream's DB",
+                                    200, g.cov_dilate_scale, g.gn_iters)
+    for r in (lm_row, lm_row["block"]):
+        log(f"gmm_lm: {r['shape']}, {r['sel_pairs']} close pairs: device "
+            f"{r['device_us_warm']:.3f} us warm, {r['device_us_cold']:.3f} us "
+            f"cold (torch.profiler, mean of 200); bound {r['bound_us']:.4f} "
+            f"us by {r['bound_by']} ({r['bytes']} B, {r['flops']} flops, "
+            f"{r['exps']} expf, chain {r['chain_bound_us']:.4f} us), share "
+            f"{r['share_of_bound']:.4f} cold; call {r['ms']:.4f} ms (host + "
+            f"launch), plain twin {r['plain_ms']:.4f} ms, the torch chain it "
+            f"replaced {r['replaces_ms']:.4f} ms; bit-equal to the plain "
+            f"twin ({smi})")
+    rows.append(lm_row)
+
     # reference check: revisit scans' descriptors built on the card and on
     # the CPU, and their queries replayed on the card and on a CPU copy of
     # the store at the window state the stream had then (replayed from the
@@ -1840,9 +1915,11 @@ def main() -> None:
                                        atol=2e-3)
         log(f"reference check: scan {row}: card and CPU descriptors agree; "
             f"card query == CPU query == stream record {rec_s.tolist()}")
-        lm_witness(cfg, tdb.refine_inputs(db.store, db.keys_q, desc_g,
+        lm_inputs_agree(tdb.refine_inputs(db.store, db.keys_q, desc_g,
                                           state.to(dev), cfg),
-                   tdb.refine_inputs(store_c, kq_c, desc_gc, state, cfg), row)
+                        tdb.refine_inputs(store_c, kq_c, desc_gc, state, cfg),
+                        row)
+    lm_witness(cfg, db, clouds, found_rows, ts_c)
 
     # host syncs of the step, counted by torch's sync debug mode
     def four_more():
@@ -1871,9 +1948,7 @@ def main() -> None:
         kt.hold_merge(*(torch.from_numpy(x).to(dev) for x in args), name)
     log(f"merge_hints on the rows made to stress its lanes {sorted(stress)}: "
         f"bit-equal to the plain version")
-    one_rev = torch.from_numpy(clouds[rev0 + 10]).to(dev)[None]
     block0 = torch.from_numpy(np.stack(clouds[:16])).to(dev)
-    revs16 = torch.from_numpy(np.stack(clouds[rev0 + 16:rev0 + 32])).to(dev)
     cc_row = kt.measure_cc(kt.masks_of(one_rev, cfg), "a revisit scan")
     cc_row["block"] = kt.measure_cc(kt.masks_of(block0, cfg),
                                     "the stream's first block of 16")

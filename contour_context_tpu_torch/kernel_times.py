@@ -1,7 +1,7 @@
 """Device times of the port's CUDA kernels beside their bounds.
 
     python -m contour_context_tpu_torch.kernel_times [--reps 200]
-        [--out FILE] [--compare ROOT ...] [--only cc_merge|dyn]
+        [--out FILE] [--compare ROOT ...] [--only cc_merge|dyn|lm]
 
 Run from the repository root on a machine with a CUDA card (it renders a
 scan with `tests/synth.py`). `chip_smoke.py` runs the same measurement in
@@ -77,6 +77,16 @@ lane 0 of each row's warp from the measurement-only entries
 `cc_dyn_pass_scan_phases` / `cc_dyn_post_scan_phases`); `--only dyn`
 stops there.
 
+The LM kernel (`measure_lm`, `lm_rows`; `--only lm` stops there): the
+inputs the query path hands `optimize_correlation` (`lm_case`) for one
+revisit query (10 rows) and for 16 (160 rows) on the smoke stream's DB,
+held bit-equal to the plain twin run on the card (`hold_lm`), timed beside
+the twin's call and the call of the torch chain it replaced
+(`lm_torch_chain`); its bound is the larger of its bytes, its operations
+(flops at the fp32 rate plus expf at the MUFU rate, over the close pairs
+that the function needs) and the chain of its iterations (`lm_bound`). A `--compare` checkout has no LM kernel: the
+chain's time stands for it.
+
 Then `scaling_rows`: both batched kernels across the sizes their paths
 give them (the ring at B = 1-64 and at 9-36 anchors, the tile-min at B =
 4-64 and on a capacity-65536 map), each beside its bytes, operations,
@@ -102,6 +112,7 @@ import torch
 
 from contour_context_tpu_torch.config import PipelineConfig
 from contour_context_tpu_torch.ops import descriptor as td
+from contour_context_tpu_torch.ops import gmm
 from contour_context_tpu_torch.ops import kernels
 from contour_context_tpu_torch.utils.io import pad_points
 
@@ -996,6 +1007,257 @@ def measure_merge(hint_of, T, votes, label: str, reps: int = 200,
                    "merge_hints_kernel", reps)))
 
 
+LM_REPLACES = "contour_context_tpu/ops/gmm.py:287"
+LM_SOURCE = "contour_context_tpu_torch/csrc/gmm_lm.cu"
+# floating-point operations of one pair in the LM kernel, as its source
+# writes them (the products, sums and differences, the clamp, the division
+# 1 / det and the add into the thread's sum; expf and rsqrtf apart): the
+# trial value's pass, and the gradient and Hessian pass (the value's terms
+# and 119 more for the nine products); and of one source ellipse's terms
+# at a pose (`pose_terms`, twice an iteration)
+LM_VALUE_FLOPS = 30
+LM_GRAD_FLOPS = 148
+LM_POSE_FLOPS = 35
+# dependent steps of one LM iteration as the source writes them, one a
+# clock: a pair's gradient terms from the per-source terms (S, det, 1 /
+# det, I, alpha, q, exp, v: 17; then Sigma alpha, a_t, q_tt, L_tt and the
+# product into the sum: 15), a thread's 8 pairs (8 adds at 4,096 pairs),
+# the two shuffle trees (5 + 4), the solve (the damped diagonal, a
+# cofactor, the determinant and the division: 9), cos and sin of the new
+# angle (1), the trial pose's per-source terms (5), a pair's trial value
+# (17), the thread's adds (8), the trees (9) and the accept test (2)
+LM_CHAIN_STEPS = 100
+
+
+def _solve3_torch(A, b):
+    """The adjugate solve as the port ran it before the LM kernel: adj(A) b
+    as a torch sum over the last axis (gmm._solve3 now sums it left to
+    right, as the kernel does)."""
+    def a(i, j):
+        return A[..., i, j]
+
+    c00 = a(1, 1) * a(2, 2) - a(1, 2) * a(2, 1)
+    c01 = a(1, 2) * a(2, 0) - a(1, 0) * a(2, 2)
+    c02 = a(1, 0) * a(2, 1) - a(1, 1) * a(2, 0)
+    c10 = a(0, 2) * a(2, 1) - a(0, 1) * a(2, 2)
+    c11 = a(0, 0) * a(2, 2) - a(0, 2) * a(2, 0)
+    c12 = a(0, 1) * a(2, 0) - a(0, 0) * a(2, 1)
+    c20 = a(0, 1) * a(1, 2) - a(0, 2) * a(1, 1)
+    c21 = a(0, 2) * a(1, 0) - a(0, 0) * a(1, 2)
+    c22 = a(0, 0) * a(1, 1) - a(0, 1) * a(1, 0)
+    det = a(0, 0) * c00 + a(0, 1) * c01 + a(0, 2) * c02
+    adj = torch.stack([torch.stack([c00, c10, c20], -1),
+                       torch.stack([c01, c11, c21], -1),
+                       torch.stack([c02, c12, c22], -1)], -2)
+    x = (adj * b[..., None, :]).sum(dim=-1)
+    return x / torch.where(det.abs() > 1e-30, det, 1e-30)[..., None]
+
+
+def lm_torch_chain(src, tgt, T_init, sel, scale: float = 2.0,
+                   iters: int = 10):
+    """The port's LM as it ran before the kernel, the chain of torch ops
+    the kernel replaced (~3,550 device ops a call at any shape): each
+    iteration's value, gradient and Hessian as torch sums over the pair
+    grid (gmm.gmm_value_grad_hess, gmm.gmm_value), then the solve with its
+    torch sum (`_solve3_torch`). The yardstick that gmm_lm's time is read
+    against, and what its twin's reordered sums are held to."""
+    eye = torch.eye(3, dtype=T_init.dtype, device=T_init.device)
+    p = T_init
+    f = gmm.gmm_value(p, src, tgt, sel, scale)
+    lam = torch.full_like(f, 1e-3)
+    for _ in range(iters):
+        _, g, Hm = gmm.gmm_value_grad_hess(p, src, tgt, sel, scale)
+        A = Hm + lam[..., None, None] * eye
+        p_new = p + _solve3_torch(A + 1e-9 * eye, -g)
+        f_new = gmm.gmm_value(p_new, src, tgt, sel, scale)
+        ok = (f_new < f) & torch.isfinite(p_new).all(dim=-1)
+        p = torch.where(ok[..., None], p_new, p)
+        f = torch.where(ok, f_new, f)
+        lam = torch.where(ok, lam * 0.33, lam * 10.0)
+    return -f / gmm._corr_norm(src, tgt), p
+
+
+def lm_case(db, points_b, cfg: PipelineConfig):
+    """The LM's inputs (src, tgt, T0, sel) of the clouds (B, P, 4) queried
+    as a batch against `db`'s map at its searchable prefix: what the query
+    path hands `optimize_correlation` (eagerly: search, the query tail up
+    to the F best candidates a query)."""
+    from contour_context_tpu_torch import db as tdb
+
+    descs = td.build_descriptors(points_b, cfg.cm, cfg.gmm)
+    B = points_b.shape[0]
+    hits = tdb.search_batch(db.keys_q, descs.keys,
+                            db.state[1].expand(B).contiguous(),
+                            tuple(cfg.db.q_levels), cfg.db.nnk)
+    r = tdb.refine_from_hits(db.store, descs, hits, cfg)
+    return r.src, tdb.per_query(r.tgt), r.T0, r.sel
+
+
+def lm_random_case(dev, lead, lead_t, G: int = 4, K: int = 32,
+                   seed: int = 0):
+    """Random LM inputs (src, tgt, T0, sel) on `dev`: targets of leading
+    shape lead_t (broadcasting against the rows' `lead`), each G levels x K
+    ellipses (positive-definite covariances, 80% weighted); each row's
+    source its target seen from a pose near the identity with 0.1-cell
+    noise, T0 near that pose, sel the init correlation's close pairs."""
+    rng = np.random.default_rng(seed)
+    t_sh = tuple(lead_t) + (G, K)
+    th = rng.uniform(0, np.pi, t_sh)
+    l0 = rng.uniform(1.0, 4.0, t_sh)
+    l1 = l0 + rng.uniform(0.0, 20.0, t_sh)
+    c, s = np.cos(th), np.sin(th)
+    covs = np.stack([np.stack([c * c * l1 + s * s * l0, c * s * (l1 - l0)],
+                              -1),
+                     np.stack([c * s * (l1 - l0), s * s * l1 + c * c * l0],
+                              -1)], -2)
+    tgt = dict(mus=rng.uniform(10.0, 140.0, t_sh + (2,)), covs=covs,
+               ws=np.where(rng.random(t_sh) < 0.8,
+                           rng.uniform(5.0, 400.0, t_sh), 0.0),
+               majax=np.sqrt(l1),
+               auto_corr=rng.uniform(1e3, 1e4, tuple(lead_t)))
+    lead = tuple(lead)
+    pose = np.stack([rng.uniform(-2, 2, lead), rng.uniform(-2, 2, lead),
+                     rng.uniform(-0.05, 0.05, lead)], -1)
+    ca, sa = np.cos(pose[..., 2]), np.sin(pose[..., 2])
+    Rm = np.stack([np.stack([ca, -sa], -1), np.stack([sa, ca], -1)], -2)
+    Rm = Rm[..., None, None, :, :]                        # (*lead, 1, 1, 2, 2)
+    d = np.broadcast_to(tgt["mus"], lead + (G, K, 2)) \
+        - pose[..., None, None, :2]
+    src = {k: np.broadcast_to(v, lead + v.shape[len(lead_t):])
+           for k, v in tgt.items()}
+    src["mus"] = np.einsum("...ba,...b->...a", Rm, d) \
+        + rng.normal(0, 0.1, d.shape)
+    src["covs"] = np.swapaxes(Rm, -1, -2) @ src["covs"] @ Rm
+    src["auto_corr"] = rng.uniform(1e3, 1e4, lead)
+    T0 = pose + np.stack([rng.normal(0, 0.3, lead), rng.normal(0, 0.3, lead),
+                          rng.normal(0, 0.01, lead)], -1)
+
+    def t(x):
+        return torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(dev)
+
+    src, tgt = (gmm.GmmScan(**{k: t(v) for k, v in x.items()})
+                for x in (src, tgt))
+    T0 = t(T0)
+    return src, tgt, T0, gmm.init_correlation(src, tgt, T0)[1]
+
+
+# the LM kernel's edge cases (`lm_edge_case`): name -> (rows, targets, G,
+# K, iters)
+LM_EDGE_CASES = {
+    "host spec: 7 rows against one unbatched target": ((7,), (), 4, 32, 10),
+    "host spec: 5 rows against a (1,) target": ((5,), (1,), 4, 32, 10),
+    "odd K: G 2, K 12, iters 3": ((3, 4), (3, 1), 2, 12, 3),
+    "empty sel rows (the explore case)": ((2, 5), (2, 1), 4, 32, 10),
+    "a non-finite trial step": ((1, 3), (1, 1), 4, 32, 10),
+}
+
+
+def lm_edge_case(name: str, dev, seed: int = 0):
+    """The LM inputs (src, tgt, T0, sel, iters) of LM_EDGE_CASES[name]:
+    `lm_random_case` at its shapes; empty sel rows have no close pair at
+    all (rows 0, 2 and 4 of each query), and a non-finite trial step comes
+    from row 1's weights of 1e37 (their products overflow, so its
+    gradient, its step and its trial pose are NaN, and no step is taken)."""
+    lead, lead_t, G, K, iters = LM_EDGE_CASES[name]
+    src, tgt, T0, sel = lm_random_case(dev, lead, lead_t, G, K, seed)
+    if name.startswith("empty sel"):
+        sel[:, 0::2] = False
+    if name.startswith("a non-finite"):
+        ws = src.ws.clone()
+        ws[:, 1] = torch.where(ws[:, 1] > 0, 1e37, 0.0)
+        src = src._replace(ws=ws)
+    return src, tgt, T0, sel, iters
+
+
+def hold_lm(src, tgt, T0, sel, what: str, scale: float = 2.0,
+            iters: int = 10) -> float:
+    """One `optimize_correlation` call on the card (one gmm_lm launch)
+    against its plain twin run on the card on the same inputs: raises
+    unless the correlations and poses are bit-equal (NaN, of any payload,
+    where the twin has NaN), returns the largest absolute difference (0.0
+    then)."""
+    n = kernels.gmm_lm.launches
+    out_k = gmm.optimize_correlation(src, tgt, T0, sel, scale, iters)
+    assert kernels.gmm_lm.launches == n + 1, "no gmm_lm launch"
+    out_p = gmm.optimize_correlation_plain(src, tgt, T0, sel, scale, iters)
+    err = max(float((a - b).abs().nan_to_num(0.0).max()) if a.numel() else
+              0.0 for a, b in zip(out_k, out_p))
+    for name, a, b in zip(("corr", "T"), out_k, out_p):
+        nan = torch.isnan(b)
+        assert torch.equal(torch.isnan(a), nan) and torch.equal(
+            a.view(torch.int32)[~nan], b.view(torch.int32)[~nan]), \
+            f"LM {name} differs from the plain twin ({what}): max abs err {err}"
+    return err
+
+
+def lm_bound(src, tgt, T0, sel, iters: int, clk_hz: float):
+    """(bound us, bound_by, bytes, flops, exps, chain us) of one LM call:
+    each input read once (the two GMMs' means, covariances and weights, the
+    masks, the poses, the auto-correlations), corr and T written once; the
+    operations of `iters` gradient passes and iters + 1 value passes over
+    the close pairs (`sel`: a pair outside it adds an exact 0, so the
+    function needs none of its work) at the fp32 rate, plus their expf at
+    the MUFU rate; the chain of `iters` dependent iterations,
+    LM_CHAIN_STEPS dependent steps each at the card's maximum SM clock."""
+    R = T0.numel() // 3
+    G, K = src.ws.shape[-2:]
+    n_t = tgt.ws.numel() // (G * K)
+    P = G * K * K
+    n_sel = int(sel.sum())
+    n_bytes = 4 * (R + n_t) * (G * K * 7 + 1) + R * P + 4 * R * 3 \
+        + 4 * R * 4
+    flops = n_sel * (LM_VALUE_FLOPS * (iters + 1) + LM_GRAD_FLOPS * iters) \
+        + R * G * K * LM_POSE_FLOPS * (2 * iters + 1)
+    exps = n_sel * (2 * iters + 1)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    t_ops = flops / FP32_FLOPS + exps / (MUFU_PER_CLK_SM * sms * clk_hz)
+    chain_us = 1e6 * iters * LM_CHAIN_STEPS / clk_hz
+    b_us, b_by = _bound(n_bytes, t_ops)
+    if chain_us > b_us:
+        b_us, b_by = chain_us, "chain"
+    return b_us, b_by, n_bytes, flops, exps, chain_us
+
+
+def measure_lm(src, tgt, T0, sel, label: str, reps: int = 200,
+               scale: float = 2.0, iters: int = 10) -> dict:
+    """The LM kernel's row on its inputs: held bit-equal to its twin, then
+    timed (device us warm and cold, call ms), beside the twin's call ms
+    (`plain_ms`) and the call ms of the torch chain it replaced
+    (`replaces_ms`, `lm_torch_chain`); its bound `lm_bound`."""
+    err = hold_lm(src, tgt, T0, sel, label, scale, iters)
+    b_us, b_by, n_bytes, flops, exps, chain_us = lm_bound(
+        src, tgt, T0, sel, iters, max_sm_clock_hz())
+    row = dict(
+        name="gmm_lm", route="cuda", source=LM_SOURCE, replaces=LM_REPLACES,
+        shape=f"rows {tuple(T0.shape[:-1])}, sel {tuple(sel.shape)} "
+        f"({label})", sel_pairs=int(sel.sum()), max_abs_err=err,
+        bound_us=b_us, bound_by=b_by, bytes=n_bytes, flops=flops, exps=exps,
+        chain_bound_us=chain_us, library_ms=None,
+        **_measure(lambda: gmm.optimize_correlation(src, tgt, T0, sel, scale,
+                                                    iters),
+                   lambda: gmm.optimize_correlation_plain(
+                       src, tgt, T0, sel, scale, iters),
+                   "gmm_lm_kernel", reps))
+    row["replaces_ms"] = call_ms(lambda: lm_torch_chain(src, tgt, T0, sel,
+                                                        scale, iters))
+    return _shares(row)
+
+
+def lm_rows(dev, cfg: PipelineConfig, reps: int = 200) -> list:
+    """The LM kernel on the smoke stream's DB (`stream_case`) at the
+    stream's shape (one revisit query: F = 10 rows) and the serving shape
+    (16 revisit queries: 160 rows), each held and timed (`measure_lm`)."""
+    db, clouds = stream_case(dev, cfg)
+    rev0 = 2 * LANE_SCANS
+    one = torch.from_numpy(clouds[rev0 + 10]).to(dev)[None]
+    revs16 = torch.from_numpy(np.stack(clouds[rev0 + 16:rev0 + 32])).to(dev)
+    g = cfg.gmm
+    return [measure_lm(*lm_case(db, pts, cfg), label, reps,
+                       g.cov_dilate_scale, g.gn_iters)
+            for label, pts in (("a revisit query, B 1", one),
+                               ("16 revisit queries, B 16", revs16))]
+
+
 LANE_SCANS = 132          # the smoke stream's lane length
 
 
@@ -1662,12 +1924,12 @@ def main(argv: Optional[Sequence[str]] = None) -> list:
                     help="time the scaling, CC, merge and dynamic scan rows "
                     "of the checkouts at ROOT ... too, in turns (each ROOT, "
                     "this, this, each ROOT again)")
-    ap.add_argument("--only", choices=["cc_merge", "dyn"],
+    ap.add_argument("--only", choices=["cc_merge", "dyn", "lm"],
                     help="cc_merge: only the CC and merge rows (with their "
                     "phase split), in turns with --compare; dyn: only the "
                     "two dynamic scans' rows (phase 9's inputs and the "
                     "worst-case rows, with their phase split and rounds), "
-                    "the same way")
+                    "the same way; lm: only the LM kernel's rows")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available")
@@ -1680,6 +1942,15 @@ def main(argv: Optional[Sequence[str]] = None) -> list:
         other.build()
     order = others + [kernels, kernels] + others[::-1] if others \
         else [kernels]
+    if args.only == "lm":
+        lm = lm_rows(dev, cfg, args.reps)
+        for r in lm:
+            print(json.dumps(r), flush=True)
+        print(f"card: {smi}", flush=True)
+        if args.out:
+            with open(args.out, "w") as f:
+                json.dump({"card": smi, "lm": lm}, f, indent=1)
+        return lm
     if args.only == "dyn":
         dyn = dyn_rows(dev, cfg, order, args.reps)
         for r in dyn:
@@ -1708,7 +1979,8 @@ def main(argv: Optional[Sequence[str]] = None) -> list:
     for r in rows:
         print(json.dumps(r), flush=True)
     dyn = dyn_rows(dev, cfg, order, args.reps)
-    for r in dyn:
+    lm = lm_rows(dev, cfg, args.reps)
+    for r in dyn + lm:
         print(json.dumps(r), flush=True)
     scaling = []
     for turn, kmod in enumerate(order):
@@ -1722,7 +1994,7 @@ def main(argv: Optional[Sequence[str]] = None) -> list:
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"card": smi, "rows": rows, "scaling": scaling,
-                       "cc_merge": cc_merge, "dyn": dyn,
+                       "cc_merge": cc_merge, "dyn": dyn, "lm": lm,
                        "launch_floor_us": floor}, f, indent=1)
     return rows
 

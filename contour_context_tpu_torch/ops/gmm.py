@@ -3,16 +3,20 @@
 Port of `contour_context_tpu/ops/gmm.py` (correlation.h:49-238). Every
 function here carries explicit leading axes where the JAX code vmaps: the
 candidates of a query, or the queries of a batch and their candidates. The refiner uses the analytic value/gradient/Hessian, so nothing here
-needs autograd.
+needs autograd. On a CUDA device the LM refinement is one launch of the
+kernel of csrc/gmm_lm.cu (`optimize_correlation`); its plain twin
+`optimize_correlation_plain` sums over the pair grid in the kernel's order.
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
 
 from contour_context_tpu_torch.config import GMMOptConfig
+from contour_context_tpu_torch.ops import kernels
 from contour_context_tpu_torch.types import device_const
 
 
@@ -145,9 +149,11 @@ def gmm_value(T, src: GmmScan, tgt: GmmScan, sel, scale: float):
     return -_value_terms(T, src, tgt, sel, scale)["v"].sum(dim=_GRID)
 
 
-def gmm_value_grad_hess(T, src: GmmScan, tgt: GmmScan, sel, scale: float):
-    """Analytic (cost (...), gradient (..., 3), Hessian (..., 3, 3)) of
-    gmm_cost w.r.t. (x, y, theta); term by term the derivation of
+def _grad_hess_terms(T, src: GmmScan, tgt: GmmScan, sel, scale: float):
+    """The per-pair terms of gmm_cost's gradient and Hessian under T (...,
+    3) on the (..., G, K, K) grid: the pair values v and the nine products
+    v * z whose sums are (minus) the gradient (x, y, theta) and the Hessian
+    entries xx, xy, xt, yy, yt, tt; term by term the derivation of
     gmm.py:99-218."""
     t = _value_terms(T, src, tgt, sel, scale)
     g2 = scale
@@ -189,18 +195,29 @@ def gmm_value_grad_hess(T, src: GmmScan, tgt: GmmScan, sel, scale: float):
            - (al0 * al0 * S00tt + 2 * al0 * al1 * S01tt
               + al1 * al1 * S11tt))
     Ltt = -0.5 * trtt - 0.5 * qtt
+    return v, [v * z for z in (
+        Lx, Ly, Lt, Lx * Lx + Lxx, Lx * Ly + Lxy, Lx * Lt + Lxt,
+        Ly * Ly + Lyy, Ly * Lt + Lyt, Lt * Lt + Ltt)]
 
-    def red(z):
-        return (v * z).sum(dim=_GRID)
 
-    f = -v.sum(dim=_GRID)
-    grad = -torch.stack([red(Lx), red(Ly), red(Lt)], dim=-1)
-    hxx, hxy, hxt = red(Lx * Lx + Lxx), red(Lx * Ly + Lxy), red(Lx * Lt + Lxt)
-    hyy, hyt, htt = red(Ly * Ly + Lyy), red(Ly * Lt + Lyt), red(Lt * Lt + Ltt)
+def _grad_hess(sums):
+    """(gradient (..., 3), Hessian (..., 3, 3)) from the nine sums of
+    `_grad_hess_terms`' products, (..., 9)."""
+    gx, gy, gt, hxx, hxy, hxt, hyy, hyt, htt = sums.unbind(-1)
+    grad = -torch.stack([gx, gy, gt], dim=-1)
     hess = -torch.stack([torch.stack([hxx, hxy, hxt], -1),
                          torch.stack([hxy, hyy, hyt], -1),
                          torch.stack([hxt, hyt, htt], -1)], -2)
-    return f, grad, hess
+    return grad, hess
+
+
+def gmm_value_grad_hess(T, src: GmmScan, tgt: GmmScan, sel, scale: float):
+    """Analytic (cost (...), gradient (..., 3), Hessian (..., 3, 3)) of
+    gmm_cost w.r.t. (x, y, theta), each a torch sum over the pair grid."""
+    v, terms = _grad_hess_terms(T, src, tgt, sel, scale)
+    grad, hess = _grad_hess(torch.stack([z.sum(dim=_GRID) for z in terms],
+                                        dim=-1))
+    return -v.sum(dim=_GRID), grad, hess
 
 
 def init_correlation(src: GmmScan, tgt: GmmScan, T_init, scale: float = 2.0):
@@ -213,7 +230,8 @@ def init_correlation(src: GmmScan, tgt: GmmScan, T_init, scale: float = 2.0):
 
 def _solve3(A, b):
     """Batched closed-form 3x3 solve by the adjugate (gmm.py:246-262):
-    A (..., 3, 3), b (..., 3)."""
+    A (..., 3, 3), b (..., 3); each entry of adj(A) b summed left to
+    right, as csrc/gmm_lm.cu sums it."""
     def a(i, j):
         return A[..., i, j]
 
@@ -227,29 +245,117 @@ def _solve3(A, b):
     c21 = a(0, 2) * a(1, 0) - a(0, 0) * a(1, 2)
     c22 = a(0, 0) * a(1, 1) - a(0, 1) * a(1, 0)
     det = a(0, 0) * c00 + a(0, 1) * c01 + a(0, 2) * c02
-    adj = torch.stack([torch.stack([c00, c10, c20], -1),
-                       torch.stack([c01, c11, c21], -1),
-                       torch.stack([c02, c12, c22], -1)], -2)
-    x = (adj * b[..., None, :]).sum(dim=-1)
+    b0, b1, b2 = b.unbind(-1)
+    x = torch.stack([c00 * b0 + c10 * b1 + c20 * b2,
+                     c01 * b0 + c11 * b1 + c21 * b2,
+                     c02 * b0 + c12 * b1 + c22 * b2], dim=-1)
     return x / torch.where(det.abs() > 1e-30, det, 1e-30)[..., None]
 
 
-def optimize_correlation(src: GmmScan, tgt: GmmScan, T_init, sel,
-                         scale: float = 2.0, iters: int = 10):
+# csrc/gmm_lm.cu's CTA (kThreads there; a CPU test reads it out of the
+# source): thread t of a row's CTA sums the row's pairs t, t + LM_THREADS,
+# ... of the flattened (G, K, K) grid from 0 in that order, then the warps
+# add their 32 sums in a shuffle tree and the 16 warps' sums in another
+LM_THREADS = 512
+_WARP = 32
+
+
+def _halve(x):
+    """Sum the last axis (a power of two long) by halving: entry i adds
+    entry i + n/2, and again, down to one; the shuffle tree's order."""
+    n = x.shape[-1]
+    while n > 1:
+        n //= 2
+        x = x[..., :n] + x[..., n:2 * n]
+    return x[..., 0]
+
+
+def _kernel_sum(z):
+    """(..., G, K, K) -> (...): the sum over the pair grid in the LM
+    kernel's order, each add rounded on its own: each thread's strided
+    sum from 0 (the grid padded with zeros to whole rounds of LM_THREADS,
+    which leave a sum unchanged), then the tree in each warp, then the
+    tree over the warps."""
+    lead = z.shape[:-3]
+    P = z.shape[-3] * z.shape[-2] * z.shape[-1]
+    rounds = -(-P // LM_THREADS)
+    z = torch.nn.functional.pad(z.reshape(lead + (P,)),
+                                (0, rounds * LM_THREADS - P))
+    z = z.reshape(lead + (rounds, LM_THREADS))
+    acc = torch.zeros(lead + (LM_THREADS,), dtype=z.dtype, device=z.device)
+    for i in range(rounds):
+        acc = acc + z[..., i, :]
+    acc = _halve(acc.reshape(lead + (LM_THREADS // _WARP, _WARP)))
+    return _halve(acc)
+
+
+def optimize_correlation_plain(src: GmmScan, tgt: GmmScan, T_init, sel,
+                               scale: float = 2.0, iters: int = 10):
     """Batched LM refinement of (x, y, theta), `iters` fixed iterations
     (gmm.py:237-291), every row of T_init (..., 3) on its own. Returns
-    (corr (...), T_opt (..., 3))."""
+    (corr (...), T_opt (..., 3)). The plain twin of the LM kernel
+    (csrc/gmm_lm.cu): its sums over the pair grid run in the kernel's order
+    (`_kernel_sum`), so on the card the kernel equals it bit for bit."""
     eye = torch.eye(3, dtype=T_init.dtype, device=T_init.device)
     p = T_init
-    f = gmm_value(p, src, tgt, sel, scale)
+    f = -_kernel_sum(_value_terms(p, src, tgt, sel, scale)["v"])
     lam = torch.full_like(f, 1e-3)
     for _ in range(iters):
-        _, g, Hm = gmm_value_grad_hess(p, src, tgt, sel, scale)
+        _, terms = _grad_hess_terms(p, src, tgt, sel, scale)
+        g, Hm = _grad_hess(_kernel_sum(torch.stack(terms, dim=-4)))
         A = Hm + lam[..., None, None] * eye
         p_new = p + _solve3(A + 1e-9 * eye, -g)
-        f_new = gmm_value(p_new, src, tgt, sel, scale)
+        f_new = -_kernel_sum(_value_terms(p_new, src, tgt, sel, scale)["v"])
         ok = (f_new < f) & torch.isfinite(p_new).all(dim=-1)
         p = torch.where(ok[..., None], p_new, p)
         f = torch.where(ok, f_new, f)
         lam = torch.where(ok, lam * 0.33, lam * 10.0)
     return -f / _corr_norm(src, tgt), p
+
+
+def lm_rows(src: GmmScan, tgt: GmmScan, T_init, sel):
+    """The LM kernel's rows: T_init's leading indices, R in all. Returns
+    (src [mus, covs, ws, auto_corr] (R, ...), tgt the same (n, ...), T_init
+    (R, 3), sel (R, G, K, K)), target i serving rows i R/n .. (i+1) R/n - 1:
+    the query path's targets broadcast so, (B, 1) against (B, F) rows and
+    one against (n,). Raises ValueError for targets of any other shape."""
+    lead = tuple(T_init.shape[:-1])
+    R = math.prod(lead)
+    lead_t = tuple(tgt.ws.shape[:-2])
+    lt = (1,) * (len(lead) - len(lead_t)) + lead_t
+    i = len(lt)                 # the targets' axes before their trailing 1s
+    while i > 0 and lt[i - 1] == 1:
+        i -= 1
+    # checked by hand: torch.broadcast_shapes imports sympy at its first
+    # call (1-3 s)
+    if len(lt) != len(lead) or lt[:i] != lead[:i]:
+        raise ValueError(f"optimize_correlation: targets {lead_t} do not "
+                         f"map onto rows {lead} (target i serving rows "
+                         f"i R/n .. (i+1) R/n - 1)")
+    n = math.prod(lt)
+
+    def flat(scan, rows):
+        return [x.reshape((rows,) + x.shape[x.dim() - t:]) for x, t in
+                ((scan.mus, 3), (scan.covs, 4), (scan.ws, 2),
+                 (scan.auto_corr, 0))]
+
+    G, K = src.ws.shape[-2:]
+    src = src._replace(auto_corr=torch.broadcast_to(src.auto_corr, lead))
+    return (flat(src, R), flat(tgt, n), T_init.reshape(R, 3),
+            sel.reshape(R, G, K, K))
+
+
+def optimize_correlation(src: GmmScan, tgt: GmmScan, T_init, sel,
+                         scale: float = 2.0, iters: int = 10):
+    """Kernel wrapper of `optimize_correlation_plain` (same signature and
+    outputs, bit-identical on the card): CPU tensors take the plain twin;
+    CUDA tensors run every iteration of every row in one launch of the LM
+    kernel (`kernels.gmm_lm`, on the rows of `lm_rows`)."""
+    if T_init.device.type == "cpu":
+        return optimize_correlation_plain(src, tgt, T_init, sel, scale, iters)
+    if T_init.device.type != "cuda":
+        raise ValueError(f"optimize_correlation: unsupported device "
+                         f"{T_init.device}")
+    lead = tuple(T_init.shape[:-1])
+    corr, T = kernels.gmm_lm(*lm_rows(src, tgt, T_init, sel), scale, iters)
+    return corr.reshape(lead), T.reshape(lead + (3,))

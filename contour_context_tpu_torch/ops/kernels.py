@@ -1,7 +1,7 @@
 """The port's hand-written CUDA kernels, their plain torch twins, and the build.
 
 Four kernel entries replace the JAX package's two Pallas kernels
-(`contour_context_tpu/ops/pallas_kernels.py`), and four more take the JAX
+(`contour_context_tpu/ops/pallas_kernels.py`), and five more take the JAX
 package's device-side while-loops and scans off the host:
 
 - `ring_key_divs` (csrc/ring_key.cu): the ring-key Gaussian contraction of
@@ -32,6 +32,12 @@ package's device-side while-loops and scans off the host:
   `ops/candidate.py`; the plain versions step along the last axis in
   torch.where ops), a warp a row that skips from one rise of the bars to
   the next.
+- `gmm_lm` (csrc/gmm_lm.cu): every Levenberg-Marquardt iteration of the
+  GMM refinement for every (query, candidate) row in one launch, a CTA a
+  row (the lax.scan of the JAX `ops/gmm.optimize_correlation`; its plain
+  twin `gmm.optimize_correlation_plain` is the torch chain of ~3,550 small
+  ops a call, its sums in the kernel's order; `gmm.optimize_correlation`
+  is its wrapper).
 
 Each wrapper takes its plain twin for CPU tensors only; a CUDA tensor launches
 the kernel or raises. The kernels are compiled at first use with nvcc into one
@@ -68,7 +74,7 @@ INV_SQRT_2PI = 1.0 / math.sqrt(2.0 * math.pi)
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _SOURCES = ("ring_key.cu", "search_tilemin.cu", "cc_labels.cu",
-            "merge_hints.cu", "dyn_thres.cu", "stage_mark.cu")
+            "merge_hints.cu", "dyn_thres.cu", "gmm_lm.cu", "stage_mark.cu")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 _lib = None
 
@@ -131,6 +137,8 @@ def build() -> ctypes.CDLL:
     lib.cc_dyn_pass_scan.argtypes = [vp] * 8 + [ci] * 12 + [vp]
     lib.cc_dyn_post_scan.restype = ci
     lib.cc_dyn_post_scan.argtypes = [vp] * 5 + [ci, ci] + [cf] * 6 + [vp]
+    lib.cc_gmm_lm.restype = ci
+    lib.cc_gmm_lm.argtypes = [vp] * 12 + [ci] * 5 + [cf] * 4 + [vp]
     lib.cc_stage_mark.restype = ci
     lib.cc_stage_mark.argtypes = [ci, vp]
     _lib = lib
@@ -829,12 +837,65 @@ dyn_post_scan.launches = 0
 
 
 # ---------------------------------------------------------------------------
+# the GMM refinement's Levenberg-Marquardt iterations
+# ---------------------------------------------------------------------------
+
+def gmm_lm(src, tgt, T_init, sel, scale: float, iters: int):
+    """One launch of csrc/gmm_lm.cu: `iters` LM iterations of each of R
+    rows (the body of `gmm.optimize_correlation_plain`, which is its plain
+    twin; `gmm.optimize_correlation` shapes its inputs). src = [mus (R, G,
+    K, 2), covs (R, G, K, 2, 2), ws (R, G, K), auto_corr (R,)] f32, the
+    rows' source GMMs; tgt the same with n rows, n dividing R: target i
+    serves rows i R/n to (i+1) R/n - 1; T_init (R, 3) f32, sel (R, G, K, K)
+    bool -> corr (R,), T (R, 3) f32. CUDA tensors only."""
+    dev = T_init.device
+    if dev.type != "cuda":
+        raise ValueError(f"gmm_lm: unsupported device {dev}")
+    R = T_init.shape[0]
+    G, K = src[2].shape[1:]
+    n = tgt[2].shape[0]
+    src = [x.contiguous() for x in src]
+    tgt = [x.contiguous() for x in tgt]
+    T_init, sel = T_init.contiguous(), sel.contiguous()
+    for name, scan, rows in (("src", src, R), ("tgt", tgt, n)):
+        for leaf, x, tail in zip(("mus", "covs", "ws", "auto_corr"), scan,
+                                 ((G, K, 2), (G, K, 2, 2), (G, K), ())):
+            _check(f"{name}.{leaf}", x, torch.float32, (rows,) + tail)
+            if x.device != dev:
+                raise ValueError(f"gmm_lm: {name}.{leaf} on {x.device}")
+    _check("T_init", T_init, torch.float32, (R, 3))
+    _check("sel", sel, torch.bool, (R, G, K, K))
+    if sel.device != dev:
+        raise ValueError(f"gmm_lm: sel on {sel.device}")
+    if n < 1 or R % n or iters < 0 or G * K * K >= 1 << 31:
+        raise ValueError(f"gmm_lm: unsupported R={R} targets={n} G={G} "
+                         f"K={K} iters={iters}")
+    corr = torch.empty((R,), dtype=torch.float32, device=dev)
+    T = torch.empty((R, 3), dtype=torch.float32, device=dev)
+    if R == 0:
+        return corr, T
+    lib = build()
+    # the scalar factors as torch's CUDA kernels take them: each product of
+    # Python numbers (-2 * scale, ...) in double, then rounded to float32
+    rc = lib.cc_gmm_lm(*[x.data_ptr() for x in src + tgt], sel.data_ptr(),
+                       T_init.data_ptr(), corr.data_ptr(), T.data_ptr(), R,
+                       R // n, G, K, int(iters), scale, -2 * scale,
+                       2 * scale, -4 * scale, _stream(dev))
+    _raise_on(rc, "gmm_lm")
+    add_launches({"gmm_lm": 1})
+    return corr, T
+
+
+gmm_lm.launches = 0
+
+
+# ---------------------------------------------------------------------------
 # launch counts
 # ---------------------------------------------------------------------------
 
 WRAPPERS = (ring_key_divs, ring_key_divs_batch, search_tilemin,
             search_tilemin_batch, cc_labels, merge_hints, dyn_pass_scan,
-            dyn_post_scan)
+            dyn_post_scan, gmm_lm)
 
 
 def launch_counts() -> dict:

@@ -23,7 +23,8 @@ The marks, where each is launched, and the stage it begins:
 - `init`: `db.refine_from_hits`, after `stages_from_hits`; the tidy
   screens, the GMM init correlation, the best F candidates.
 - `lm`: `db.query_from_hits`, before `optimize_correlation`; the LM
-  refinement and the record's packing.
+  refinement (on a CUDA device one `gmm_lm` kernel and the wrapper's
+  copies) and the record's packing.
 - `tail`: the step's and the serving query's graph bodies, after the
   record; the ring write, append and window update (step), the copy into
   the static record buffer (serving).

@@ -62,7 +62,12 @@ This file imports no jax, so it runs where only torch is installed:
   strips of many rows, one row and none) and on a scan's and a block's
   level masks; the merge kernel bit-equal to its plain version on the
   inputs of B = 1 and B = 16 queries, on random rows and on rows made to
-  stress its lanes; the stream as CUDA graph replays (f32 and
+  stress its lanes; the LM kernel bit-equal to its plain twin on the
+  inputs of B = 1 and B = 16 queries ((B, 10) rows), at the host spec
+  query's broadcast, an odd K, empty close-pair masks and a non-finite
+  trial step, near the torch chain it replaced (every row in bounds read
+  on an H100, each query's best row the same), and its graphed replay
+  bit-equal to the eager call; the stream as CUDA graph replays (f32 and
   q16 payloads, across two grows, each capturing again) bit-equal to the
   eager body it captured, each kernel counted once a step, replays
   included; 20 graphed steps and a chain of 16 with no host sync (sync
@@ -98,6 +103,7 @@ from contour_context_tpu_torch.utils.io import pad_points
 from contour_context_tpu_torch import db as tdb
 from contour_context_tpu_torch import kernel_times as kt
 from contour_context_tpu_torch.ops import descriptor as td
+from contour_context_tpu_torch.ops import gmm as tg
 from contour_context_tpu_torch.ops import kernels
 
 QL = (1, 2, 3)
@@ -949,6 +955,96 @@ def test_merge_hints_kernel_matches_plain_on_stress_rows(cuda, name):
     assert kernels.merge_hints.launches == 1
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 16])
+def test_gmm_lm_kernel_matches_plain_on_card(cuda, B):
+    """The LM kernel bit-equal to its plain twin (run on the card) on the
+    inputs the query path gives it: B revisit queries against a card DB of
+    the revisit world, (B, 10) rows against (B, 1) targets (the stream's
+    and the serving chunk's shapes); one launch a call. Against the torch
+    chain it replaced (the same float32 terms, summed in torch's order):
+    each query's best row, the one its record carries, is the same row and
+    within rtol 1e-5 (corr) and 2e-3 cells (pose); every row within rtol
+    2e-4 and 3e-3 cells. The LM carries a reordered sum's last bit into a
+    row that ends far from converged: on an H100 these inputs read at most
+    1.27e-4 relative and 1.51e-3 cells at B 1, 1.82e-5 and 8.0e-4 at B
+    16."""
+    cfg, clouds = _revisit_clouds()
+    db = tdb.ContourDB(cfg, capacity=16, device="cuda")
+    for i in range(8):
+        db.step_async(clouds[i], i, 6.0 * i)
+    pts = torch.from_numpy(np.concatenate([clouds[8:]] * 4)[:B]).to(cuda)
+    src, tgt, T0, sel = kt.lm_case(db, pts, cfg)
+    assert tuple(T0.shape) == (B, cfg.db.max_fine_opt, 3) and sel.any()
+    g = cfg.gmm
+    kernels.reset_launches()
+    assert kt.hold_lm(src, tgt, T0, sel, f"B {B}", g.cov_dilate_scale,
+                      g.gn_iters) == 0.0
+    assert kernels.gmm_lm.launches == 1
+    c_k, T_k = tg.optimize_correlation(src, tgt, T0, sel,
+                                       g.cov_dilate_scale, g.gn_iters)
+    c_t, T_t = kt.lm_torch_chain(src, tgt, T0, sel, g.cov_dilate_scale,
+                                 g.gn_iters)
+    best = c_k.argmax(dim=1, keepdim=True)
+    assert torch.equal(best, c_t.argmax(dim=1, keepdim=True))
+    torch.testing.assert_close(c_k.gather(1, best), c_t.gather(1, best),
+                               rtol=1e-5, atol=1e-7)
+    torch.testing.assert_close(T_k.gather(1, best[..., None].expand(B, 1, 3)),
+                               T_t.gather(1, best[..., None].expand(B, 1, 3)),
+                               rtol=0, atol=2e-3)
+    torch.testing.assert_close(c_k, c_t, rtol=2e-4, atol=1e-7)
+    torch.testing.assert_close(T_k, T_t, rtol=0, atol=3e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(kt.LM_EDGE_CASES))
+def test_gmm_lm_kernel_edge_cases_on_card(cuda, name):
+    """The LM kernel bit-equal to its plain twin at the edges: the host
+    spec query's rows against one target (unbatched and (1,)), an odd K
+    (12) with G 2 and 3 iterations, rows with no close pair, a row whose
+    trial step is non-finite (never taken); one launch each."""
+    src, tgt, T0, sel, iters = kt.lm_edge_case(name, cuda)
+    kernels.reset_launches()
+    assert kt.hold_lm(src, tgt, T0, sel, name, 2.0, iters) == 0.0
+    assert kernels.gmm_lm.launches == 1
+    c, T = tg.optimize_correlation(src, tgt, T0, sel, 2.0, iters)
+    if name.startswith("empty sel"):
+        assert (c[:, 0::2] == 0).all() and torch.equal(T[:, 0::2],
+                                                      T0[:, 0::2])
+    if name.startswith("a non-finite"):
+        assert torch.equal(T[:, 1], T0[:, 1]) and torch.isfinite(T).all()
+
+
+@pytest.mark.cuda
+def test_gmm_lm_graphed_replay_equals_eager_on_card(cuda):
+    """The LM captured in a CUDA graph (one kernel node and the wrapper's
+    copies) replays to the eager call's outputs bit for bit, on the serving
+    shape's inputs; each eager call counts one gmm_lm launch."""
+    cfg, clouds = _revisit_clouds()
+    db = tdb.ContourDB(cfg, capacity=16, device="cuda")
+    for i in range(8):
+        db.step_async(clouds[i], i, 6.0 * i)
+    pts = torch.from_numpy(np.concatenate([clouds[8:]] * 4)[:16]).to(cuda)
+    args = kt.lm_case(db, pts, cfg)
+    kernels.reset_launches()
+    want = tg.optimize_correlation(*args)
+    assert kernels.gmm_lm.launches == 1
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        tg.optimize_correlation(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = tg.optimize_correlation(*args)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    assert kernels.gmm_lm.launches == 3
+
+
 def _stream_db(cfg, clouds, graphed, n, q16=False, capacity=8):
     """n steps of the revisit world (6 s apart) into a card DB of
     `capacity` (it grows past it), graphed or through the eager body."""
@@ -991,7 +1087,7 @@ def test_graphed_stream_equals_eager_body_on_card(cuda, payload):
     g = _stream_db(cfg, clouds, True, 20, q16)
     counts = kernels.launch_counts()
     for name in ("ring_key_divs", "search_tilemin", "cc_labels",
-                 "merge_hints"):
+                 "merge_hints", "gmm_lm"):
         assert counts[name] == 20, counts
     assert counts["ring_key_divs_batch"] == counts["search_tilemin_batch"] \
         == 0
@@ -1017,7 +1113,7 @@ def test_graphed_stream_and_chain_make_no_host_sync_on_card(cuda):
     assert delta == {"ring_key_divs": 20, "ring_key_divs_batch": 0,
                      "search_tilemin": 20, "search_tilemin_batch": 0,
                      "cc_labels": 20, "merge_hints": 20, "dyn_pass_scan": 0,
-                     "dyn_post_scan": 0}, delta
+                     "dyn_post_scan": 0, "gmm_lm": 20}, delta
     buf = np.concatenate([clouds, clouds[:4]])
     ts = [6.0 * i for i in range(21, 37)]
     h = _no_syncs(lambda: db.step_chain_dyn_async(buf, list(range(21, 37)),
@@ -1056,7 +1152,7 @@ def test_graphed_block_and_serving_equal_eager_on_card(cuda):
     assert delta == {"ring_key_divs": 0, "ring_key_divs_batch": 1,
                      "search_tilemin": 0, "search_tilemin_batch": 1,
                      "cc_labels": 1, "merge_hints": 1, "dyn_pass_scan": 0,
-                     "dyn_post_scan": 0}, delta
+                     "dyn_post_scan": 0, "gmm_lm": 1}, delta
     step(e)
     _assert_same_db(g, e, 16)
     assert int((g.recs_store[8:16, 0] > 0.5).sum()) >= 2
@@ -1067,7 +1163,8 @@ def test_graphed_block_and_serving_equal_eager_on_card(cuda):
     delta = _launch_delta(lambda: _no_syncs(
         lambda: g.localize_block_async(pts[2:12], chunk=4)))
     assert delta["ring_key_divs_batch"] == delta["search_tilemin_batch"] \
-        == delta["cc_labels"] == delta["merge_hints"] == 3, delta
+        == delta["cc_labels"] == delta["merge_hints"] == delta["gmm_lm"] \
+        == 3, delta
     a, b = (recs[k].recs for k in (True, False))
     assert a.shape == (10, 18) and torch.equal(a.view(torch.int32),
                                                b.view(torch.int32))

@@ -152,3 +152,87 @@ def test_lm_float32_vs_float64(seed):
     (c32, T32), (c64, T64) = out
     np.testing.assert_allclose(c32, c64, rtol=1e-4, atol=1e-6)
     assert np.abs(T32 - T64).max() < 3e-3
+
+
+@pytest.mark.parametrize("case", ["overlapping, 8 rows", "odd K 12, (2, 5)"])
+def test_twin_holds_the_torch_chain(case):
+    """optimize_correlation's plain twin sums over the pair grid in the LM
+    kernel's order; on the same inputs it stays within float32 rounding of
+    the torch chain it replaced (the torch sums' order): correlations to
+    1e-5 relative, poses to the 2e-3-cell band."""
+    from contour_context_tpu_torch import kernel_times as kt
+
+    if case.startswith("overlapping"):
+        src_np, tgt_np, T = _overlapping(np.random.default_rng(5), 8)
+        src, tgt, T0 = _torch_scan(src_np), _torch_scan(tgt_np), \
+            torch.from_numpy(T)
+        sel = tg.init_correlation(src, tgt, T0, scale=SCALE)[1]
+    else:
+        src, tgt, T0, sel = kt.lm_random_case("cpu", (2, 5), (2, 1), 4, 12,
+                                              seed=2)
+    c_p, T_p = tg.optimize_correlation_plain(src, tgt, T0, sel, SCALE, 10)
+    c_t, T_t = kt.lm_torch_chain(src, tgt, T0, sel, SCALE, 10)
+    assert not torch.equal(T0, T_p)
+    torch.testing.assert_close(c_p, c_t, rtol=1e-5, atol=1e-7)
+    torch.testing.assert_close(T_p, T_t, rtol=0, atol=2e-3)
+
+
+def test_cpu_lm_never_calls_the_kernel_library(monkeypatch):
+    """A CPU tensor takes the plain twin: the kernel library is neither
+    built nor launched, and no launch is counted. The twin's CTA width is
+    the kernel source's kThreads."""
+    import re
+    from pathlib import Path
+
+    from contour_context_tpu_torch.ops import kernels
+
+    src_cu = (Path(tg.__file__).resolve().parent.parent / "csrc"
+              / "gmm_lm.cu").read_text()
+    assert int(re.search(r"constexpr int kThreads = (\d+);",
+                         src_cu).group(1)) == tg.LM_THREADS
+
+    def refuse(*args, **kw):
+        raise AssertionError("the kernel library was called")
+
+    n = kernels.gmm_lm.launches
+    monkeypatch.setattr(kernels, "build", refuse)
+    monkeypatch.setattr(kernels, "gmm_lm", refuse)
+    src_np, tgt_np, T = _overlapping(np.random.default_rng(7), 3)
+    src, tgt, T0 = _torch_scan(src_np), _torch_scan(tgt_np), \
+        torch.from_numpy(T)
+    sel = tg.init_correlation(src, tgt, T0, scale=SCALE)[1]
+    c, T1 = tg.optimize_correlation(src, tgt, T0, sel, SCALE, 10)
+    c_p, T_p = tg.optimize_correlation_plain(src, tgt, T0, sel, SCALE, 10)
+    assert torch.equal(c, c_p) and torch.equal(T1, T_p)
+    monkeypatch.undo()
+    assert kernels.gmm_lm.launches == n
+
+
+def test_lm_rows_give_each_row_its_target():
+    """The kernel's rows (`lm_rows`): target i serves rows i R/n to
+    (i+1) R/n - 1. Running the twin on those rows, each beside its own
+    target, gives the twin's answer on the broadcast inputs, for each edge
+    case's shapes ((n,) rows against one target or a (1,) target, (B, F)
+    against (B, 1)). Targets that map onto the rows any other way ((1, 4)
+    against (2, 4) rows) raise ValueError."""
+    from contour_context_tpu_torch import kernel_times as kt
+
+    for name, (lead, lead_t, G, K, _) in kt.LM_EDGE_CASES.items():
+        src, tgt, T0, sel = kt.lm_random_case("cpu", lead, lead_t, G, K, 3)
+        s_r, t_r, T_r, sel_r = tg.lm_rows(src, tgt, T0, sel)
+        R, n = T_r.shape[0], t_r[0].shape[0]
+        assert R == T0.numel() // 3 and R % n == 0, name
+        per_row = [x.repeat_interleave(R // n, 0) for x in t_r]
+        fields = ("mus", "covs", "ws", "auto_corr")
+        c_r, T1_r = tg.optimize_correlation_plain(
+            tg.GmmScan(majax=None, **dict(zip(fields, s_r))),
+            tg.GmmScan(majax=None, **dict(zip(fields, per_row))),
+            T_r, sel_r, SCALE, 3)
+        c, T1 = tg.optimize_correlation_plain(src, tgt, T0, sel, SCALE, 3)
+        torch.testing.assert_close(c_r, c.reshape(R), rtol=1e-6, atol=0,
+                                   msg=name)
+        torch.testing.assert_close(T1_r, T1.reshape(R, 3), rtol=0,
+                                   atol=1e-5, msg=name)
+    src, tgt, T0, sel = kt.lm_random_case("cpu", (2, 4), (1, 4), 4, 32, 3)
+    with pytest.raises(ValueError, match="do not map onto rows"):
+        tg.lm_rows(src, tgt, T0, sel)
