@@ -2323,7 +2323,7 @@ def main() -> None:
     torch.cuda.synchronize()
     serve_grown = torch.cuda.memory_reserved() - reserved0
     graph_serve = served.graph_stats()
-    served.serving_counters = tdb.ContourDB._zero_counters()
+    served.serving_counters = tdb.ContourDB._zero_serving_counters()
     kernels.reset_launches()
     torch.cuda.synchronize()
     ev0.record()

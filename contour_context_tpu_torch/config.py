@@ -67,7 +67,9 @@ class ContourManagerConfig:
     roi_radius: float = 10.0
     # capacity knobs (not in the reference; dense-table bounds)
     max_contours: int = MAX_CONTOURS_PER_LEVEL
-    max_points: int = 131072   # point-cloud pad size (KITTI HDL-64E: ~120-130k)
+    # point-cloud pad size: KITTI's HDL-64E gives ~120-130k points a scan;
+    # MulRan's Ouster OS1-64 gives 64 x 1,024 = 65,536
+    max_points: int = 131072
     pix_pool: int = 4096       # above-gate pixel pool for the ring keys
     use_pallas_ring: bool = False  # JAX lowering choice; the port always
                                    # runs its ring kernel (ops/kernels.py)

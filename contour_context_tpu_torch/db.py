@@ -102,8 +102,33 @@ from contour_context_tpu_torch.types import (
 )
 
 RECORD_WIDTH = 18
-# the chunk a graphed localize_block_async serves in when given none
+# the largest chunk a graphed localize_block_async serves in when given none
 SERVE_CHUNK = 16
+
+
+def serve_chunks(B: int, chunk: Optional[int] = None,
+                 graphed: bool = True) -> List[int]:
+    """The chunk sizes, in order, that `localize_block_async` serves a
+    request of B clouds in; a sum above B is the zero clouds it pads with.
+
+    Graphed and with no `chunk`: B // SERVE_CHUNK chunks of SERVE_CHUNK,
+    then one chunk for each set bit of B % SERVE_CHUNK, largest first
+    (a request of 21 is 16, 4, 1), so no request pads and one pair of
+    graphs a power of two serves every size. With a `chunk`: whole chunks
+    of it, the tail padded (eager, a request that fits one chunk is one
+    chunk of B). Eager with no `chunk`: one chunk of B."""
+    if B <= 0:
+        return []
+    if chunk is None:
+        if not graphed:
+            return [B]
+        tail = B % SERVE_CHUNK
+        return [SERVE_CHUNK] * (B // SERVE_CHUNK) + [
+            1 << k for k in reversed(range(SERVE_CHUNK.bit_length()))
+            if tail >> k & 1]
+    if not graphed and B <= chunk:
+        return [B]
+    return [chunk] * -(-B // chunk)
 
 
 def upload(x, device: torch.device):
@@ -1110,7 +1135,7 @@ class ContourDB:
         # check-cascade survivor counters (contour_db.h:356-359); map-serving
         # queries (localize_block_async) fill the separate set
         self.counters = self._zero_counters()
-        self.serving_counters = self._zero_counters()
+        self.serving_counters = self._zero_serving_counters()
         # the CUDA graphs of the step, the block step, the serving chunk and
         # the unfused API, and the tensors they read their inputs from and
         # write outputs to; `eager()` turns them off for a block
@@ -1134,6 +1159,13 @@ class ContourDB:
                     cand_aft_check3=0, overflow_hints=0, overflow_pass=0,
                     overflow_cand=0, overflow_pot=0, overflow_win=0,
                     overflow_pix=0, overflow_gmm=0)
+
+    @classmethod
+    def _zero_serving_counters(cls) -> dict:
+        """The record counters, and the build slots that serving replayed
+        (`localize_block_async`: one a cloud, and one a zero cloud it
+        padded with)."""
+        return dict(cls._zero_counters(), build_slots=0)
 
     def _kq_dtype(self):
         return torch.bfloat16 if self.cfg.cm.keys_bf16 else torch.float32
@@ -1822,39 +1854,42 @@ class ContourDB:
         """Batched localization against the frozen map: B clouds in
         ((B, max_points, 4) f32 or q16), B records out, nothing appended,
         every query at the map's searchable prefix. Use after building,
-        loading or merging a map. `chunk` bounds the batch of one key
-        search: a tail that does not divide is padded with zero clouds,
-        which come back found=False and are sliced off. Returns None on an
-        empty DB. The records count into `serving_counters`. On a CUDA
+        loading or merging a map. The request is served in the chunks of
+        `serve_chunks`: with no `chunk`, on a CUDA device, chunks of
+        SERVE_CHUNK and one of each power of two below it that B's
+        remainder holds, so the upload carries exactly the B clouds; a
+        `chunk` bounds the batch of one key search, and a tail that does
+        not divide it is padded with zero clouds, which come back
+        found=False and are sliced off. Returns None on an empty DB. The
+        records count into `serving_counters`, and the build slots
+        replayed (zero clouds included) into its `build_slots`. On a CUDA
         device each chunk is one replay of the build graph and one of the
-        query graph of `chunk` (SERVE_CHUNK when None), with no host sync;
-        every request is padded to whole chunks, so one pair of graphs a
-        chunk size serves every request size. `drop_graphs` gives their
-        memory back."""
+        query graph of its size, each captured the first time a request
+        needs it, with no host sync. `drop_graphs` gives their memory
+        back."""
         if self.store is None:
             return None
         pts = torch.as_tensor(points_b)
         B = pts.shape[0]
-        if B == 0:
+        sizes = serve_chunks(B, chunk, self.graphed)
+        if not sizes:
             return BlockHandle(
                 torch.zeros((0, RECORD_WIDTH), dtype=torch.float32,
                             device=self.device), self,
                 counters="serving_counters")
-        if self.graphed:
-            # one build and one query graph a chunk size, whatever B
-            chunk = chunk or SERVE_CHUNK
-        elif chunk is None or B <= chunk:
-            chunk = B
-        pad = (-B) % chunk
+        pad = sum(sizes) - B
         if pad:
             pts = torch.cat([pts, pts.new_zeros((pad,) + pts.shape[1:])])
-        recs = []
-        for i in range(0, B + pad, chunk):
-            descs = self._build_batch(pts[i:i + chunk])
-            out = self._query_batch(
-                descs, self.state[1].expand(chunk).contiguous())
-            with span("stage_out"):
-                recs.append(out.clone())
+        recs, at = [], 0
+        for c in sizes:
+            with span(f"chunk.{c}"):
+                descs = self._build_batch(pts[at:at + c])
+                out = self._query_batch(
+                    descs, self.state[1].expand(c).contiguous())
+                with span("stage_out"):
+                    recs.append(out.clone())
+            at += c
+        self.serving_counters["build_slots"] += at
         with span("stage_out"):
             recs = torch.cat(recs)[:B]
         return BlockHandle(recs, self, counters="serving_counters")

@@ -181,6 +181,7 @@ class GraphSet:
         self.enabled = self.reason is None
         self.graphs: dict = {}
         self.capture_s: dict = {}
+        self.captures: dict = {}
         self.bufs: dict = {}
         self._tags: dict = {}
         self._pool: Optional[DevicePool] = None
@@ -215,6 +216,7 @@ class GraphSet:
         """Drop this set's graphs (another holder's stay)."""
         self.graphs.clear()
         self.capture_s.clear()
+        self.captures.clear()
         self._tags.clear()
 
     def run(self, key: Hashable, body: Callable[[], None], tag=None,
@@ -235,6 +237,7 @@ class GraphSet:
         self.graphs[key] = graph
         self._tags[key] = tag
         self.capture_s[key] = graph.capture_s
+        self.captures[key] = self.captures.get(key, 0) + 1
         if owner is not None:
             weakref.finalize(owner, self._forget, key, weakref.ref(graph))
 
@@ -252,9 +255,11 @@ class GraphSet:
 
     def stats(self, name: Callable[[Hashable], str] = str) -> dict:
         """Whether the set is graphed (and if not, why), the capture
-        seconds of each graph and the launches of each kernel one replay
-        makes, under `name` of its key (#2.. for a name met again), and
-        the bytes of the device's shared pool."""
+        seconds of each graph, how often its key was captured since the
+        set's last `drop` (more than once where a tag changed), and the
+        launches of each kernel one replay makes, under `name` of its key
+        (#2.. for a name met again), and the bytes of the device's shared
+        pool."""
         names, seen = {}, {}
         for k in self.graphs:
             n = name(k)
@@ -263,6 +268,8 @@ class GraphSet:
         return {"graphed": self.enabled, "reason": self.reason,
                 "capture_s": {names[k]: v
                               for k, v in self.capture_s.items()},
+                "captures": {names[k]: self.captures[k]
+                             for k in self.graphs},
                 "launches": {names[k]: self.launches(k)
                              for k in self.graphs},
                 "pool_bytes": self.pool_bytes(),

@@ -56,6 +56,11 @@ CLI's `--trace-dir`, or the benchmark's names of the device's idle gaps):
   unpacking and the counters.
 - `stage_out`: `db.ContourDB.localize_block_async`; a chunk's records
   cloned out of the static buffer, and their concatenation.
+- `chunk.<size>`: `db.ContourDB.localize_block_async`; one chunk of a
+  request (`db.serve_chunks`), its upload, build and query replays and
+  `stage_out`; `<size>` is the chunk's build slots, zero clouds of a
+  padded tail included. The benchmark reads `slots_per_cloud.serve` from
+  it; `serving_counters["build_slots"]` counts the same slots untraced.
 """
 
 from __future__ import annotations
@@ -69,7 +74,7 @@ from contour_context_tpu_torch.ops import kernels
 STAGES = ("desc", "search", "check1", "cascade", "merge", "init", "lm",
           "tail", "end")
 SPANS = ("step", "upload", "stage_in", "capture", "replay", "record",
-         "fetch", "unpack", "stage_out")
+         "fetch", "unpack", "stage_out", "chunk")
 _STAGE_ID = {s: i for i, s in enumerate(STAGES)}
 _SPANS = frozenset(SPANS)
 _NULL = contextlib.nullcontext()
@@ -77,12 +82,15 @@ _recording = torch._C._autograd._profiler_enabled
 
 
 def span(name: str):
-    """The host span `cont2.<name>` (one of SPANS) while a profiler
-    records; the shared null context otherwise."""
+    """The host span `cont2.<name>` (one of SPANS, `chunk` as
+    `chunk.<size>`) while a profiler records; the shared null context
+    otherwise."""
     if not _recording():
         return _NULL
-    if name not in _SPANS:
-        raise ValueError(f"span {name!r}: not one of {SPANS}")
+    head, _, size = name.partition(".")
+    if not (size.isdigit() if head == "chunk" else name in _SPANS):
+        raise ValueError(f"span {name!r}: not one of {SPANS} (chunk as "
+                         f"chunk.<size>)")
     return torch.profiler.record_function("cont2." + name)
 
 

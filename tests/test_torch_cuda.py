@@ -1173,14 +1173,14 @@ def test_graphed_block_and_serving_equal_eager_on_card(cuda):
 @pytest.mark.cuda
 def test_graphed_serving_pads_to_its_chunk_and_drops_its_graphs_on_card(
         cuda):
-    """Graphed serving pads every request to whole chunks: requests of 3,
-    10 and 20 clouds at chunk 8 capture one build and one query graph, a
-    request with no chunk one more pair at SERVE_CHUNK, and every record
-    equals the eager body's on the same chunks (the request padded with
-    zero clouds to whole chunks). drop_graphs empties the DB's graphs; the
-    device's pool, shared by every DB, goes back to the card once no other
-    DB's graph lives; the next call captures again and its records are the
-    same."""
+    """Graphed serving with a chunk pads a request to whole chunks: requests
+    of 3, 10 and 20 clouds at chunk 8 capture one build and one query
+    graph; a request of 20 with no chunk is served at its size, in chunks
+    of 16 and 4, one more pair each; every record equals the eager body's
+    on the same chunks (a padded tail with zero clouds). drop_graphs
+    empties the DB's graphs; the device's pool, shared by every DB, goes
+    back to the card once no other DB's graph lives; the next call
+    captures again and its records are the same."""
     import gc
 
     from contour_context_tpu_torch import graphs
@@ -1198,11 +1198,15 @@ def test_graphed_serving_pads_to_its_chunk_and_drops_its_graphs_on_card(
 
     def same(B, chunk):
         a = db.localize_block_async(pts[:B], chunk=chunk).recs
-        c = chunk or tdb.SERVE_CHUNK
-        pad = np.zeros((-B % c,) + pts.shape[1:], pts.dtype)
-        with db.eager():
-            b = db.localize_block_async(np.concatenate([pts[:B], pad]),
-                                        c).recs[:B]
+        parts, at = [], 0
+        for c in tdb.serve_chunks(B, chunk):
+            x = pts[at:at + c]
+            x = np.concatenate([x, np.zeros((c - len(x),) + pts.shape[1:],
+                                            pts.dtype)])
+            with db.eager():
+                parts.append(db.localize_block_async(x, c).recs)
+            at += c
+        b = torch.cat(parts)[:B]
         assert a.shape == (B, 18)
         assert torch.equal(a.view(torch.int32), b.view(torch.int32)), B
 
@@ -1211,8 +1215,8 @@ def test_graphed_serving_pads_to_its_chunk_and_drops_its_graphs_on_card(
     assert sorted(k[0] for k in db._graphs.graphs) == ["build", "query"]
     same(20, None)
     assert sorted(k[-1] if k[0] == "query" else k[-1][0]
-                  for k in db._graphs.graphs) == [8, 8, tdb.SERVE_CHUNK,
-                                                  tdb.SERVE_CHUNK]
+                  for k in db._graphs.graphs) == [
+        4, 4, 8, 8, tdb.SERVE_CHUNK, tdb.SERVE_CHUNK]
     pool = db.graph_stats()["pool_bytes"]
     assert pool > 0
     torch.cuda.synchronize()
@@ -1225,6 +1229,62 @@ def test_graphed_serving_pads_to_its_chunk_and_drops_its_graphs_on_card(
     same(10, 8)
     assert len(db._graphs.graphs) == 2
 
+
+@pytest.mark.cuda
+def test_serving_sized_to_the_request_on_card(cuda):
+    """Requests of 1 and 5 clouds with no chunk replay graphs of their own
+    size (1; 4 and 1), each captured once over repeated requests, with no
+    host sync and one launch of each kernel a chunk; their records match
+    the same clouds' records inside one 16-cloud request: found, gidx and
+    every counter exactly, correlation and pose bit for bit or far inside
+    the benchmark's limits (1e-5, 0.05), the widest gap printed. A
+    16-cloud request captures the build and query graphs of 16 and no
+    other, and replays them after the small requests with the same
+    records."""
+    cfg, clouds = _revisit_clouds()
+    pts = np.concatenate([clouds, clouds[:8]])
+    P = pts.shape[1]
+    db = tdb.ContourDB(cfg, capacity=32, device="cuda")
+    with db.eager():
+        db.block_chain_pts_async(torch.from_numpy(clouds[:8])[None],
+                                 list(range(8)),
+                                 [[6.0 * i for i in range(8)]])
+    whole = db.localize_block_async(pts[:16]).recs.clone()
+    assert set(db._graphs.graphs) == {("build", torch.float32, (16, P, 4)),
+                                      ("query", 16)}
+    assert int((whole[:, 0] > 0.5).sum()) >= 8
+    exact = [0, 1] + list(range(6, tdb.RECORD_WIDTH))
+    gaps = [0.0, 0.0]
+    requests = ((8, 1), (9, 1), (11, 1), (8, 5), (3, 5), (0, 5))
+    for rep in range(2):
+        for lo, B in requests:
+            if rep:
+                recs = _no_syncs(
+                    lambda: db.localize_block_async(pts[lo:lo + B]).recs)
+            else:
+                recs = db.localize_block_async(pts[lo:lo + B]).recs
+            want = whole[lo:lo + B]
+            assert torch.equal(recs[:, exact], want[:, exact]), (lo, B)
+            d = (recs[:, 2:6] - want[:, 2:6]).abs()
+            gaps = [max(gaps[0], float(d[:, 0].max())),
+                    max(gaps[1], float(d[:, 1:].max()))]
+    print(f"serving at the request's size against a request of 16: "
+          f"widest corr gap {gaps[0]!r}, widest pose gap {gaps[1]!r}")
+    assert gaps[0] <= 1e-6 and gaps[1] <= 5e-3, gaps
+    delta = _launch_delta(lambda: db.localize_block_async(pts[3:8]))
+    for names in (("ring_key_divs", "ring_key_divs_batch"),
+                  ("search_tilemin", "search_tilemin_batch"),
+                  ("cc_labels",), ("merge_hints",), ("gmm_lm",)):
+        assert sum(delta[k] for k in names) == 2, (names, delta)
+    stats = db.graph_stats()
+    assert set(stats["captures"].values()) == {1}, stats["captures"]
+    assert sorted(k[-1] for k in db._graphs.graphs if k[0] == "query") \
+        == [1, 4, 16]
+    again = db.localize_block_async(pts[:16]).recs
+    assert torch.equal(again.view(torch.int32), whole.view(torch.int32))
+    assert set(db.graph_stats()["captures"].values()) == {1}
+    assert db.serving_counters["build_slots"] == 16 * 2 + 2 * (
+        3 * 1 + 3 * 5) + 5
 
 
 def _dyn(cfg):

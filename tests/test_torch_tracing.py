@@ -155,17 +155,24 @@ def test_stream_spans_nest_and_mark_each_stage_once_a_scan(clouds,
 def test_serving_spans_nest_and_mark_each_stage_once_a_chunk(clouds,
                                                              fake_pool):
     """A request of 3 clouds in chunks of 2 (one zero cloud of pad): a
-    chunk's upload, stage_in, two replays and stage_out, then the fetch
-    and unpack of the records; each chunk marks desc, end in its build
-    replay and search to end in its query replay."""
+    chunk's span holds its upload, stage_in, two replays and stage_out,
+    then come the records' concatenation, fetch and unpack; each chunk marks desc,
+    end in its build replay and search to end in its query replay."""
     db = _graphed_db()
     _stream(db, clouds, 0, N)
     db.localize_block_async(clouds[:3], chunk=2).get()     # the captures
     _, ev, _ = _profiled(
         lambda: db.localize_block_async(clouds[3:], chunk=2).get())
     assert _marks(ev) == SERVE_MARKS * 2
-    assert _names(ev) == {"upload", "stage_in", "replay", "stage_out",
-                          "fetch", "unpack"}
+    assert _names(ev) == {"chunk.2", "upload", "stage_in", "replay",
+                          "stage_out", "fetch", "unpack"}
+    for child in ("upload", "stage_in", "replay"):
+        _within(ev, child, "chunk.2")
+    chunks = [(s, e) for n, s, e in ev if n == "cont2.chunk.2"]
+    outs = [(s, e) for n, s, e in ev if n == "cont2.stage_out"]
+    assert len(chunks) == 2 and len(outs) == 3      # and the concatenation
+    assert [any(cs <= s and e <= ce for cs, ce in chunks)
+            for s, e in outs] == [True, True, False]
     assert sum(n == "cont2.replay" for n, _, _ in ev) == 4
     assert sum(n == "cont2.upload" for n, _, _ in ev) == 2
     (fs, fe), = [(s, e) for n, s, e in ev if n == "cont2.fetch"]
@@ -174,6 +181,28 @@ def test_serving_spans_nest_and_mark_each_stage_once_a_chunk(clouds,
                if n in ("cont2.upload", "cont2.stage_in", "cont2.replay",
                         "cont2.stage_out"))
     assert fe <= us
+
+
+def test_a_request_of_21_records_chunks_of_16_4_and_1(clouds, fake_pool):
+    """Served with no chunk, 21 clouds are one chunk span each of 16, 4
+    and 1, in order, each around its own upload and its build and query
+    graphs; nothing is padded, so the build slots are the 21 clouds."""
+    db = _graphed_db()
+    _stream(db, clouds, 0, 2)
+    request = torch.cat([clouds] * 4)[:21]
+    _, ev, _ = _profiled(lambda: db.localize_block_async(request).get())
+    chunks = [n for n, _, _ in ev if n.startswith("cont2.chunk.")]
+    assert chunks == ["cont2.chunk.16", "cont2.chunk.4", "cont2.chunk.1"]
+    for c in ("16", "4", "1"):
+        inner = [n for n, s, e in ev for cs, ce in
+                 [(s0, e0) for m, s0, e0 in ev if m == "cont2.chunk." + c]
+                 if cs <= s and e <= ce and n != "cont2.chunk." + c]
+        assert inner.count("cont2.upload") == 1, (c, inner)
+        assert inner.count("cont2.capture") == 2, (c, inner)
+    assert _marks(ev) == SERVE_MARKS * 3
+    assert db.serving_counters["build_slots"] == 21
+    assert sorted(k[-1] for k in db._graphs.graphs if k[0] == "query") \
+        == [1, 4, 16]
 
 
 def test_records_equal_with_the_profiler_on_and_off(clouds, fake_pool):
@@ -385,7 +414,8 @@ def test_span_ms_sums_an_items_spans(harness):
 
 NEW_METRICS = ([f"{s}_ms.{k}" for s in tracing.STAGES[:7]
                 for k in ("stream", "serve")]
-               + ["upload_ms.stream", "upload_ms.serve"])
+               + ["upload_ms.stream", "upload_ms.serve",
+                  "slots_per_cloud.serve"])
 
 
 @pytest.mark.parametrize("metric", NEW_METRICS)
@@ -403,3 +433,26 @@ def test_new_metric_reads_none_without_marks_or_spans(harness, metric):
     untraced = _run(harness, dev, host, [], kind)
     untraced.window.profile = None
     assert read(untraced) is None
+
+
+def test_slots_per_cloud_reads_the_chunk_spans(harness):
+    """Build slots a served cloud over the traced requests: two requests
+    of one cloud replayed at their size read 1.0, requests of 3 padded to
+    a chunk of 4 read 4/3, and a request with no chunk span reads None."""
+    from harness.spec import Spec
+    read = Spec(os.path.dirname(BENCH), BENCH).reader(
+        "slots_per_cloud.serve")
+
+    def run(host, windows, clouds, items):
+        r = _run(harness, [], host, windows, "serve")
+        r.window.clouds, r.window.items = clouds, items
+        return r
+
+    one = [("cont2.chunk.1", 1, 5), ("cont2.upload", 2, 3),
+           ("cont2.chunk.1", 101, 105)]
+    assert read(run(one, [(0, 100), (100, 200)], 40, 40)) == 1.0
+    padded = [("cont2.chunk.2", 1, 5), ("cont2.chunk.2", 6, 9),
+              ("cont2.chunk.4", 101, 105)]
+    assert read(run(padded, [(0, 100), (100, 200)], 30, 10)) == \
+        pytest.approx(8 / 6)
+    assert read(run(one[:2], [(0, 100), (100, 200)], 40, 40)) is None
