@@ -41,11 +41,17 @@ exit code is not 0):
    revisit queries' inputs on the stream's DB, each with its device time
    warm and cold, bound and share, call and plain ms, and its split by
    phase (clock64 stamps of the kernel's measurement entry); what the
-   always-run cascade chunk costs 8 queries of the stream;
+   cascade's columns past each query's own chunks cost 8 queries of the
+   stream;
 4b. (after 4's stream, before its reference check) the LM kernel
    bit-equal to its plain twin at its edge cases and at a revisit query's
    (10 rows) and 16 revisit queries' (160 rows) inputs on the stream's DB,
    with its times beside its twin's and the torch chain's it replaced;
+4c. (after 4b) the cascade kernel bit-equal to its plain twin on the rows
+   made to take each edge (p_pot 8, 128 and None) and at a revisit
+   query's (256 rows) and 16 revisit queries' (4,096 rows) hint rows on
+   the stream's DB, with its times, bound and device ops beside its
+   twin's;
 5. the CLI's default (unfused) path on 24 scans written in the KITTI
    two-file format, every stage a replay of one of the DB's graphs (the
    per-scan build, query_async, add_scan, push_and_balance): the CLI's
@@ -403,7 +409,7 @@ def one_a_scan(n: int, dyn: bool = False) -> dict:
             "search_tilemin": n, "search_tilemin_batch": 0,
             "cc_labels": n, "merge_hints": n,
             "dyn_pass_scan": n if dyn else 0,
-            "dyn_post_scan": n if dyn else 0, "gmm_lm": n}
+            "dyn_post_scan": n if dyn else 0, "gmm_lm": n, "cascade": n}
 
 
 def one_a_block(n: int, dyn: bool = False) -> dict:
@@ -414,7 +420,7 @@ def one_a_block(n: int, dyn: bool = False) -> dict:
             "search_tilemin": 0, "search_tilemin_batch": n,
             "cc_labels": n, "merge_hints": n,
             "dyn_pass_scan": n if dyn else 0,
-            "dyn_post_scan": n if dyn else 0, "gmm_lm": n}
+            "dyn_post_scan": n if dyn else 0, "gmm_lm": n, "cascade": n}
 
 
 def add_counts(*counts) -> dict:
@@ -477,8 +483,8 @@ def phase_5(cfg, clouds, rev0: int, smi: str) -> dict:
         launches = launch_counts(kernels)
         # no query against the empty DB of the first scan
         assert launches == dict(one_a_scan(n_cli), search_tilemin=n_cli - 1,
-                                merge_hints=n_cli - 1,
-                                gmm_lm=n_cli - 1), launches
+                                merge_hints=n_cli - 1, gmm_lm=n_cli - 1,
+                                cascade=n_cli - 1), launches
         want = open(f_out).read()
         assert len(want.splitlines()) == n_cli
 
@@ -984,7 +990,8 @@ def phase_10(cfg, clouds, ring, db, rev0: int, smi: str, served) -> dict:
         by_path["cli"] = launch_counts(kernels)
         # the unfused path: no query against the empty DB of the first scan
         assert by_path["cli"] == dict(one_a_scan(24), search_tilemin=23,
-                                      merge_hints=23, gmm_lm=23), \
+                                      merge_hints=23, gmm_lm=23,
+                                      cascade=23), \
             by_path["cli"]
         files = os.listdir(mid)
         dumps = [f for f in files if f.startswith("contours-")]
@@ -1793,8 +1800,8 @@ def main() -> None:
     launches = launch_counts(kernels)
     n_scans = len(clouds)
     assert launches == one_a_scan(n_scans), launches
-    log(f"stream launches {launches}: gmm_lm once a step, as every kernel "
-        f"of the step")
+    log(f"stream launches {launches}: gmm_lm and cascade once a step, as "
+        f"every kernel of the step")
     graph_stream = db.graph_stats()
     ms_scan = ev0.elapsed_time(ev1) / (n_scans - WARMUP)
     ms_scan_map = ev0.elapsed_time(ev_map) / (2 * LANE_SCANS - WARMUP)
@@ -1880,6 +1887,32 @@ def main() -> None:
             f"replaced {r['replaces_ms']:.4f} ms; bit-equal to the plain "
             f"twin ({smi})")
     rows.append(lm_row)
+
+    # ---- 4c. the cascade kernel: its twin at the edges, then the stream's
+    # and the serving chunk's shapes on the stream's DB, each with its times
+    c_store, c_query, c_tq, c_hints = kt.cascade_edge_case(dev)
+    for pot in (8, 128, None):
+        kt.hold_cascade(c_store, c_query, c_tq, c_hints, cfg,
+                        f"edges, p_pot {pot}", pot)
+    log(f"cascade at the edges {list(kt.CASCADE_KINDS)}, p_pot 8, 128 and "
+        f"None: bit-equal to the plain twin")
+    casc_row = kt.measure_cascade(db, one_rev, cfg,
+                                  "a revisit query on the stream's DB", 200)
+    casc_row["block"] = kt.measure_cascade(
+        db, revs16, cfg, "16 revisit queries on the stream's DB", 200)
+    for r in (casc_row, casc_row["block"]):
+        log(f"cascade: {r['shape']}, {r['rows_computed']} rows computed, "
+            f"{r['close_pairs']} close pairs: device "
+            f"{r['device_us_warm']:.3f} us warm, {r['device_us_cold']:.3f} us "
+            f"cold (torch.profiler, mean of 200); bound {r['bound_us']:.4f} "
+            f"us by {r['bound_by']} ({r['bytes']} B, {r['ops']:.0f} ops, "
+            f"chain {r['chain_bound_us']:.4f} us), share "
+            f"{r['share_of_bound']:.4f} cold; call {r['ms']:.4f} ms (host + "
+            f"launch), plain twin {r['plain_ms']:.4f} ms; a call "
+            f"{r['device_ops']} device ops and {r['busy_ms']:.4f} busy ms "
+            f"against the twin's {r['plain_device_ops']} and "
+            f"{r['plain_busy_ms']:.4f}; bit-equal to the plain twin ({smi})")
+    rows.append(casc_row)
 
     # reference check: revisit scans' descriptors built on the card and on
     # the CPU, and their queries replayed on the card and on a CPU copy of
@@ -1986,8 +2019,9 @@ def main() -> None:
                         zip(ps["phases"], ps["us_slowest_cta"]))
             + f" ({smi})")
     rows += [cc_row, merge_row]
-    # the always-run cascade chunk: the cascade of 8 queries across the
-    # stream with every chunk against only the chunks JAX's loop would run
+    # the cascade of 8 queries across the stream over every hint column (one
+    # kernel launch that zeroes the idle columns) against only the columns
+    # of the chunks JAX's loop would run
     casc = []
     for k in range(20, n_scans, n_scans // 8):
         (o_all, b_all), (o_own, b_own), n_run = kt.cascade_case(

@@ -68,9 +68,9 @@ from contour_context_tpu_torch.ops.candidate import (
     tidy_candidates,
 )
 from contour_context_tpu_torch.ops.cascade import (
-    P_MAX,
     CascadeResult,
     check_sim_batched,
+    empty_result,
     run_cascade,
 )
 from contour_context_tpu_torch.graphs import GraphSet, tensor_tag
@@ -90,6 +90,7 @@ from contour_context_tpu_torch.ops.gmm import (
 from contour_context_tpu_torch.ops.kernels import (
     MAX_DIST_SQ,
     TILE,
+    cascade as cascade_kernel,
     masked_key_distances,
     search_tilemin,
     search_tilemin_batch,
@@ -264,10 +265,25 @@ def check1(store: ScanDesc, query: ScanDesc, gidx, level, seq_src, seq_tgt,
 def gather_and_cascade(store: ScanDesc, query: ScanDesc, tgt_q, gidx, level,
                        seq_src, seq_tgt, hint_valid, thres_lb, cont_sim,
                        p_pot=None) -> CascadeResult:
-    """Per-hint gathers of the candidate tables + run_cascade
-    (db._gather_and_cascade_impl) over H flat hint rows: `query` is a
-    B-stacked ScanDesc and tgt_q (H,) names the query of each row. Indices
-    are clamped explicitly."""
+    """The cascade over H flat hint rows (db._gather_and_cascade_impl):
+    `query` is a B-stacked ScanDesc and tgt_q (H,) names the query of each
+    row. CPU tensors take the plain twin (`gather_and_cascade_plain`), CUDA
+    tensors one launch of the cascade kernel (`kernels.cascade`), which
+    does the gathers itself."""
+    if gidx.device.type == "cpu":
+        return gather_and_cascade_plain(store, query, tgt_q, gidx, level,
+                                        seq_src, seq_tgt, hint_valid,
+                                        thres_lb, cont_sim, p_pot)
+    return cascade_kernel(store, query, gidx, level, seq_src, seq_tgt,
+                          hint_valid, thres_lb, cont_sim, p_pot, tgt_q=tgt_q)
+
+
+def gather_and_cascade_plain(store: ScanDesc, query: ScanDesc, tgt_q, gidx,
+                             level, seq_src, seq_tgt, hint_valid, thres_lb,
+                             cont_sim, p_pot=None) -> CascadeResult:
+    """Per-hint gathers of the candidate tables + run_cascade, in torch on
+    any device: the cascade kernel's plain twin. Indices are clamped
+    explicitly."""
     H = gidx.shape[0]
     gi = torch.where(hint_valid, gidx, 0).long()
     lvl = torch.clamp(level, 0, store.nei_valid.shape[1] - 1).long()
@@ -292,15 +308,36 @@ def cascade_chunked(store, query, gidx, level, seq_src, seq_tgt, hv, n_valid,
                     thres_lb, cont_sim, chunk: int, p_pot=None
                     ) -> CascadeResult:
     """The cascade of B queries ((B, HC) hint arrays, n_valid (B,), `query`
-    B-stacked) in chunks of W hint columns (db._cascade_chunked): chunk i
-    runs columns [s0, s0 + W) of every query at once as B*W flat rows.
-    Every one of the ceil(HC / W) chunks runs, so the chunk count needs no
-    host sync (JAX's while_loop stops at the busiest query's ceil(n_valid /
-    W), a device scalar); then every query's columns past its own
-    ceil(n_valid / W) * W are zeroed, which is what JAX leaves there (its
-    zero init) and downstream reads as non-hints. Rows are independent, so
-    neither chunking nor batching changes a result. The last chunk's start
-    is clamped, so chunks may overlap and recompute rows identically."""
+    B-stacked) as db._cascade_chunked leaves it: each query's columns past
+    its own ceil(n_valid / W) * W (W = min(chunk, HC), or HC with no chunk)
+    are zeros, what JAX's chunk loop leaves there and downstream reads as
+    non-hints. CPU tensors take the plain twin (`cascade_chunked_plain`);
+    CUDA tensors one launch of the cascade kernel (`kernels.cascade`) over
+    the B * HC rows, which writes the idle columns' zeros without computing
+    them, so the launch needs no chunk count from the host."""
+    B, HC = gidx.shape
+    W = min(chunk, HC) if chunk > 0 else HC
+    if gidx.device.type == "cpu":
+        return cascade_chunked_plain(store, query, gidx, level, seq_src,
+                                     seq_tgt, hv, n_valid, thres_lb,
+                                     cont_sim, chunk, p_pot)
+    return cascade_kernel(store, query, gidx, level, seq_src, seq_tgt, hv,
+                          thres_lb, cont_sim, p_pot,
+                          n_valid=n_valid if W < HC else None, chunk=W)
+
+
+def cascade_chunked_plain(store, query, gidx, level, seq_src, seq_tgt, hv,
+                          n_valid, thres_lb, cont_sim, chunk: int, p_pot=None
+                          ) -> CascadeResult:
+    """`cascade_chunked` in torch on any device, in chunks of W hint
+    columns: chunk i runs columns [s0, s0 + W) of every query at once as
+    B*W flat rows (`gather_and_cascade_plain`). Every one of the ceil(HC /
+    W) chunks runs, so the chunk count needs no host sync (JAX's while_loop
+    stops at the busiest query's ceil(n_valid / W), a device scalar); then
+    every query's columns past its own chunks are zeroed. Rows are
+    independent, so neither chunking nor batching changes a result. The
+    last chunk's start is clamped, so chunks may overlap and recompute rows
+    identically."""
     B, HC = gidx.shape
     W = min(chunk, HC) if chunk > 0 else HC
     dev = gidx.device
@@ -309,25 +346,14 @@ def cascade_chunked(store, query, gidx, level, seq_src, seq_tgt, hv, n_valid,
         tgt_q = torch.arange(B, device=dev).repeat_interleave(w)
         flat = [x[:, s0:s0 + w].reshape(-1)
                 for x in (gidx, level, seq_src, seq_tgt, hv)]
-        r = gather_and_cascade(store, query, tgt_q, *flat, thres_lb, cont_sim,
-                               p_pot)
+        r = gather_and_cascade_plain(store, query, tgt_q, *flat, thres_lb,
+                                     cont_sim, p_pot)
         return CascadeResult(*[x.reshape((B, w) + x.shape[1:]) for x in r])
 
     if W >= HC:
         return run(0, HC)
     n_chunks = -(-HC // W)
-    b, i32, f32 = torch.bool, torch.int32, torch.float32
-    shapes = dict(pass1=((), b), pass2=((), b), pass3=((), b),
-                  ovlp_sum=((), i32), ovlp_max_one=((), i32),
-                  in_ang_rng=((), i32), i_indiv_sim=((), i32),
-                  i_orie_sim=((), i32), pair_valid=((P_MAX,), b),
-                  pair_level=((P_MAX,), i32), pair_seq_src=((P_MAX,), i32),
-                  pair_seq_tgt=((P_MAX,), i32),
-                  pair_area_perc=((P_MAX,), f32), T_delta=((3,), f32),
-                  pot_overflow=((), b), win_overflow=((), b))
-    out = CascadeResult(*[torch.zeros((B, HC) + shapes[f][0],
-                                      dtype=shapes[f][1], device=dev)
-                          for f in CascadeResult._fields])
+    out = empty_result((B, HC), dev, zeros=True)
     for i in range(n_chunks):
         s0 = min(i * W, HC - W)
         for dst, src in zip(out, run(s0, W)):

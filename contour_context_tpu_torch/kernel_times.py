@@ -1,7 +1,7 @@
 """Device times of the port's CUDA kernels beside their bounds.
 
     python -m contour_context_tpu_torch.kernel_times [--reps 200]
-        [--out FILE] [--compare ROOT ...] [--only cc_merge|dyn|lm]
+        [--out FILE] [--compare ROOT ...] [--only cc_merge|dyn|lm|cascade]
 
 Run from the repository root on a machine with a CUDA card (it renders a
 scan with `tests/synth.py`). `chip_smoke.py` runs the same measurement in
@@ -57,9 +57,9 @@ phase (`cc_phase_split`, `merge_phase_split`: clock64 stamps that thread
 0 of each CTA writes at the phase boundaries, from the measurement-only C
 entry `cc_<kernel>_phases` built from the same source; the main path
 never calls it; a checkout without it gets no split); `--only cc_merge`
-stops there. `cascade_case` counts what the cascade's always-run chunk
-costs a query (device ops and busy time of every chunk against the
-query's own chunks).
+stops there. `cascade_case` counts what the cascade's columns past each
+query's own chunks cost a call (device ops and busy time of every column
+against the own chunks' columns).
 
 The two `dynamic_thres` kernels (`measure_dyn_pass`, `measure_dyn_post`;
 `chip_smoke.py` phase 9): the inputs the query path hands them for a
@@ -86,6 +86,17 @@ the twin's call and the call of the torch chain it replaced
 (flops at the fp32 rate plus expf at the MUFU rate, over the close pairs
 that the function needs) and the chain of its iterations (`lm_bound`). A `--compare` checkout has no LM kernel: the
 chain's time stands for it.
+
+The cascade kernel (`measure_cascade`, `cascade_rows_of`; `--only
+cascade` stops there): held bit-equal to its plain twin run on the card
+at the rows made to take each edge (`cascade_edge_case`, p_pot 8, 128 and
+None), then on the hint rows of one revisit query (B 1, 256 rows) and of
+16 (B 16, 4,096 rows) on the smoke stream's DB (`cascade_inputs`), timed
+beside the twin's call, with the device ops and busy ms of a call against
+the twin's; its bound (`cascade_bound`) is the larger of its bytes (each
+computed row's hint values, two neighbour rows and two tab12 tables read
+once, every row's outputs written once), its operations and its chain of
+CASCADE_CHAIN_STEPS dependent steps.
 
 Then `scaling_rows`: both batched kernels across the sizes their paths
 give them (the ring at B = 1-64 and at 9-36 anchors, the tile-min at B =
@@ -114,6 +125,7 @@ from contour_context_tpu_torch.config import PipelineConfig
 from contour_context_tpu_torch.ops import descriptor as td
 from contour_context_tpu_torch.ops import gmm
 from contour_context_tpu_torch.ops import kernels
+from contour_context_tpu_torch.ops.cascade import P_POT
 from contour_context_tpu_torch.utils.io import pad_points
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -871,22 +883,33 @@ def merge_case(db, points_b, cfg: PipelineConfig):
                         cfg.db.max_pass_hints)
 
 
+def cascade_inputs(db, points_b, cfg: PipelineConfig):
+    """The clouds (B, P, 4) queried as a batch against `db`'s map up to the
+    cascade: (their B-stacked descriptors, `db.cascade_rows`: the query
+    path's own hint cap and check 1), the inputs `db.cascade_chunked`
+    takes."""
+    from contour_context_tpu_torch import db as tdb
+
+    descs = td.build_descriptors(points_b, cfg.cm, cfg.gmm)
+    B = points_b.shape[0]
+    hits = tdb.search_batch(db.keys_q, descs.keys,
+                            db.state[1].expand(B).contiguous(),
+                            tuple(cfg.db.q_levels), cfg.db.nnk)
+    return descs, tdb.cascade_rows(db.store, descs, hits, cfg)
+
+
 def cascade_case(db, points_b, cfg: PipelineConfig):
-    """What the always-run cascade chunk costs one query: the clouds (1,
-    P, 4) queried against `db`'s map up to the cascade (`db.cascade_rows`,
-    the query path's own hint cap and check 1), then the cascade of every
-    chunk (`db.cascade_chunked`) and the cascade of only the query's own
-    ceil(n_valid / W) chunks (what JAX's loop runs), each under
-    torch.profiler. Returns ((device ops, busy ms) of every chunk, (device
-    ops, busy ms) of its own chunks, n_valid)."""
+    """What the cascade costs a call: the clouds (B, P, 4) queried against
+    `db`'s map up to the cascade (`cascade_inputs`), then the cascade of
+    every hint column (`db.cascade_chunked`) and the cascade of only the
+    columns of the busiest query's own ceil(n_valid / W) chunks (what JAX's
+    loop runs), each under torch.profiler. Returns ((device ops, busy ms)
+    of every column, (device ops, busy ms) of the own chunks' columns,
+    n_valid of the busiest query)."""
     from contour_context_tpu_torch import db as tdb
     from contour_context_tpu_torch.profile_step import device_ops
 
-    descs = td.build_descriptors(points_b, cfg.cm, cfg.gmm)
-    hits = tdb.search_batch(db.keys_q, descs.keys,
-                            db.state[1].expand(1).contiguous(),
-                            tuple(cfg.db.q_levels), cfg.db.nnk)
-    rows = tdb.cascade_rows(db.store, descs, hits, cfg)
+    descs, rows = cascade_inputs(db, points_b, cfg)
     HC = rows.gidx.shape[1]
     W = cfg.db.cascade_chunk
     n_run = int(rows.n_run.max())
@@ -1254,6 +1277,353 @@ def lm_rows(dev, cfg: PipelineConfig, reps: int = 200) -> list:
     g = cfg.gmm
     return [measure_lm(*lm_case(db, pts, cfg), label, reps,
                        g.cov_dilate_scale, g.gn_iters)
+            for label, pts in (("a revisit query, B 1", one),
+                               ("16 revisit queries, B 16", revs16))]
+
+
+CASCADE_SOURCE = "contour_context_tpu_torch/csrc/cascade.cu"
+CASCADE_REPLACES = ("contour_context_tpu/ops/cascade.py:98 and db.py "
+                    "_gather_and_cascade_impl / _cascade_chunked")
+# dependent steps of one hint row of the cascade, one a clock, as the
+# function needs them: the pair test and its angle (9), a sort of the close
+# pairs by a rank tree (11 at M*M = 1600), the window ends' two binary
+# searches (2 x 9) and the longest window's max tree (9), the member's
+# gather and check 3 (12), the compacted order's count tree (6), the shaft
+# (span, compare, pick: 8), the orientation screen (acos and compares: 6),
+# two rounds of the Umeyama sums (2 x 7) and the fit (atan2, cos and sin,
+# the pose: 6)
+CASCADE_CHAIN_STEPS = 99
+# the edge rows of the cascade's tests (`cascade_edge_world`)
+CASCADE_KINDS = ("plain", "no close", "none valid", "pot overflow",
+                 "win overflow", "wrap", "ties", "hv false", "no shaft",
+                 "tgt shaft degenerate", "screen", "indiv", "negative slots",
+                 "odd indices")
+_NEI = ("nei_valid", "nei_level", "nei_seq", "nei_bit", "nei_theta")
+
+
+def _wrap_ang(a):
+    return (a + np.pi) % (2 * np.pi) - np.pi
+
+
+def _cascade_tables(rng, n, L12, J, rot, shift):
+    """n scans' tab12 (n, L12, J, 12) and the matching query side: the
+    check-1 channels depend on the level only, the means and vec1 are the
+    source's turned by `rot` and moved by `shift`."""
+    t = np.zeros((n, L12, J, 12), np.float32)
+    t[..., 0] = rng.uniform(20, 60, (n, L12, 1))
+    t[..., 1] = rng.uniform(1, 5, (n, L12, 1))
+    t[..., 2] = t[..., 1] + rng.uniform(1, 8, (n, L12, 1))
+    t[..., 3] = rng.uniform(1, 3, (n, L12, 1))
+    t[..., 4] = rng.uniform(1, 5, (n, L12, 1))
+    t[..., 5:7] = rng.uniform(-20, 20, (n, L12, J, 2))
+    phi = rng.uniform(-np.pi, np.pi, (n, L12, J))
+    t[..., 7], t[..., 8] = np.cos(phi), np.sin(phi)
+    t[..., 9] = rng.random((n, L12, J)) < 0.5
+    t[..., 10] = rng.uniform(0.01, 0.2, (n, L12, J))
+    t[..., 11] = 1.0
+    q = t.copy()
+    c, s = np.cos(rot), np.sin(rot)
+    x, y = t[..., 5].copy(), t[..., 6].copy()
+    q[..., 5], q[..., 6] = c * x - s * y + shift[0], s * x + c * y + shift[1]
+    q[..., 5:7] += rng.normal(0, 0.05, q[..., 5:7].shape)
+    vx, vy = t[..., 7].copy(), t[..., 8].copy()
+    q[..., 7], q[..., 8] = c * vx - s * vy, s * vx + c * vy
+    return t, q
+
+
+def _cascade_nei(rng, shape, J, rot):
+    """Neighbour tables of `shape` (n, L, A, M) and the query side's: each
+    target row a noisy permutation of its source row, its angles turned by
+    `rot`."""
+    sv = rng.random(shape) < 0.8
+    sl = rng.integers(1, 4, shape).astype(np.int8)
+    sq = rng.integers(0, J, shape).astype(np.int8)
+    sb = rng.integers(0, 256, shape).astype(np.int16)
+    st = rng.uniform(-np.pi, np.pi, shape).astype(np.float32)
+    perm = np.argsort(rng.random(shape), axis=-1)
+
+    def tk(x):
+        return np.take_along_axis(x, perm, axis=-1)
+
+    tb = np.clip(tk(sb) + rng.integers(-1, 2, shape), 0, 255)
+    tt = _wrap_ang(tk(st) + rot + rng.normal(0, 0.01, shape))
+    src = dict(nei_valid=sv, nei_level=sl, nei_seq=sq, nei_bit=sb,
+               nei_theta=st)
+    tgt = dict(nei_valid=tk(sv), nei_level=tk(sl), nei_seq=tk(sq),
+               nei_bit=tb.astype(np.int16), nei_theta=tt.astype(np.float32))
+    return src, tgt
+
+
+def _cascade_edge(rng, kind, src, tgt, stab, qtab, h, lev, ss, st):
+    """Rewrite hint h's neighbour rows (store row h at (lev, ss), query row
+    h at (lev, st)) and tables so that the cascade takes the `kind` path;
+    returns the row's (level, seq_src, seq_tgt, hint_valid)."""
+    M = src["nei_bit"].shape[-1]
+    s = {k: v[h, lev, ss] for k, v in src.items()}       # views
+    t = {k: v[h, lev, st] for k, v in tgt.items()}
+    hv = True
+    if kind == "no close":
+        s["nei_bit"][:] = np.arange(M) * 2
+        t["nei_bit"][:] = 120 + np.arange(M) * 3
+    elif kind == "none valid":
+        s["nei_valid"][:] = False
+    elif kind == "pot overflow":
+        s["nei_valid"][:] = t["nei_valid"][:] = True
+        s["nei_bit"][:] = 50
+        t["nei_bit"][:] = 49 + rng.integers(0, 3, M)
+    elif kind == "win overflow":
+        s["nei_valid"][:] = t["nei_valid"][:] = True
+        s["nei_bit"][:] = 70 + rng.integers(0, 2, M)
+        t["nei_bit"][:] = 70 + rng.integers(0, 2, M)
+        s["nei_theta"][:] = 0.0
+        t["nei_theta"][:] = 0.4 + rng.uniform(0, 0.1, M)
+    elif kind == "wrap":
+        t["nei_bit"][:] = s["nei_bit"]
+        t["nei_theta"][:] = _wrap_ang(s["nei_theta"] + np.pi
+                                      + rng.choice([-0.02, 0.02], M))
+    elif kind == "ties":
+        s["nei_theta"][:] = 0.25
+        t["nei_theta"][:] = 1.0
+        t["nei_bit"][:] = s["nei_bit"]
+    elif kind == "hv false":
+        hv = False
+    elif kind == "no shaft":
+        stab[h, ..., 5:7] = 3.0
+        qtab[h, ..., 5:7] = 1.0
+    elif kind == "tgt shaft degenerate":
+        qtab[h, ..., 5:7] = 2.0
+        stab[h, ..., 9] = qtab[h, ..., 9] = 1.0
+    elif kind == "screen":
+        stab[h, ..., 9] = qtab[h, ..., 9] = 1.0
+        phi = rng.uniform(-np.pi, np.pi, qtab.shape[1:3])
+        qtab[h, ..., 7], qtab[h, ..., 8] = np.cos(phi), np.sin(phi)
+    elif kind == "indiv":
+        qtab[h, :, ::2, 0] *= 3.0
+        qtab[h, :, 1::3, 11] = 0.0
+    elif kind == "negative slots":
+        s["nei_level"][::3] = -1
+        s["nei_seq"][::4] = -7
+        t["nei_seq"][::5] = -2
+        s["nei_bit"][::6] = -1
+        t["nei_bit"][::7] = 300
+    elif kind == "odd indices":
+        J = stab.shape[2]
+        return 9, J + 4, -3, True
+    return lev, ss, st, hv
+
+
+def cascade_edge_world(seed: int, kinds=CASCADE_KINDS, L: int = 6,
+                       A: int = 6, M: int = 40, J: int = 10, L12: int = 4):
+    """Hint rows made to take each edge of the cascade, as numpy: (store,
+    query, hints), store and query {leaf: (H, ...)} of the five neighbour
+    tables (H, L, A, M) and tab12 (H, L12, J, 12), hint h reading store
+    scan h against query scan h (tgt_q = h) under path kinds[h]: no close
+    pair (n_pot 0), no valid slot, more close pairs than any p_pot, a window
+    longer than 63, angles across the +-pi wrap, equal angles (ties in the
+    stable sort), hint_valid false, no shaft pick, a degenerate target shaft,
+    the orientation screen and check 3 removing pairs, negative levels, seqs
+    and bits, out-of-range indices; hints {gidx, level, seq_src, seq_tgt,
+    hv} (H,)."""
+    rng = np.random.default_rng(seed)
+    H = len(kinds)
+    rot, shift = 0.3, (2.0, -1.0)
+    stab, qtab = _cascade_tables(rng, H, L12, J, rot, shift)
+    src, tgt = _cascade_nei(rng, (H, L, A, M), J, rot)
+    rows = [_cascade_edge(rng, kind, src, tgt, stab, qtab, h,
+                          int(rng.integers(1, 4)), int(rng.integers(0, A)),
+                          int(rng.integers(0, A)))
+            for h, kind in enumerate(kinds)]
+    level, seq_src, seq_tgt, hv = (np.array(x) for x in zip(*rows))
+    hints = dict(gidx=np.arange(H, dtype=np.int32),
+                 level=level.astype(np.int32),
+                 seq_src=seq_src.astype(np.int32),
+                 seq_tgt=seq_tgt.astype(np.int32), hv=hv.astype(bool))
+    return dict(src, tab12=stab), dict(tgt, tab12=qtab), hints
+
+
+def cascade_edge_rows(seeds=(3, 4)):
+    """`cascade_edge_world` of each seed, concatenated (hint h still reads
+    store scan h against query scan h): (store, query, hints)."""
+    worlds = [cascade_edge_world(s) for s in seeds]
+    store, query, hints = (
+        {k: np.concatenate([w[i][k] for w in worlds]) for k in worlds[0][i]}
+        for i in range(3))
+    hints["gidx"] = np.arange(len(hints["gidx"]), dtype=np.int32)
+    return store, query, hints
+
+
+def cascade_edge_case(dev, seeds=(3, 4)):
+    """`cascade_edge_rows` as tensors on `dev`: (store, query, tgt_q,
+    hints (gidx, level, seq_src, seq_tgt, hv)), store and query namespaces
+    of the six tables."""
+    from types import SimpleNamespace
+
+    store, query, hints = cascade_edge_rows(seeds)
+
+    def t(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+    store, query = (SimpleNamespace(**{k: t(v) for k, v in d.items()})
+                    for d in (store, query))
+    hints = tuple(t(hints[k]) for k in ("gidx", "level", "seq_src",
+                                        "seq_tgt", "hv"))
+    return store, query, t(np.arange(len(hints[0]))), hints
+
+
+def _same_bits(a, b) -> bool:
+    if a.dtype.is_floating_point:
+        nan = torch.isnan(b)
+        return torch.equal(torch.isnan(a), nan) and torch.equal(
+            a.view(torch.int32)[~nan], b.view(torch.int32)[~nan])
+    return torch.equal(a, b)
+
+
+def _hold(out_k, out_p, what: str) -> float:
+    err = 0.0
+    for field, a, b in zip(out_k._fields, out_k, out_p):
+        if a.dtype.is_floating_point and a.numel():
+            err = max(err, float((a - b).abs().nan_to_num(0.0).max()))
+        assert _same_bits(a, b), \
+            f"cascade {field} differs from the plain twin ({what})"
+    return err
+
+
+def hold_cascade(store, query, tgt_q, hints, cfg: PipelineConfig, what: str,
+                 p_pot="cfg") -> float:
+    """One `db.gather_and_cascade` call on the card (one cascade launch) on
+    the flat hint rows against its plain twin run on the card on the same
+    inputs: raises unless every field is bit-equal (NaN where the twin has
+    NaN), returns the largest absolute float difference (0.0 then)."""
+    from contour_context_tpu_torch import db as tdb
+
+    pot = cfg.db.p_pot if p_pot == "cfg" else p_pot
+    n = kernels.cascade.launches
+    out_k = tdb.gather_and_cascade(store, query, tgt_q, *hints, cfg.thres_lb,
+                                   cfg.db.cont_sim, pot)
+    assert kernels.cascade.launches == n + 1, "no cascade launch"
+    out_p = tdb.gather_and_cascade_plain(store, query, tgt_q, *hints,
+                                         cfg.thres_lb, cfg.db.cont_sim, pot)
+    return _hold(out_k, out_p, what)
+
+
+def hold_cascade_chunked(store, descs, rows, cfg: PipelineConfig,
+                         what: str) -> float:
+    """One `db.cascade_chunked` call on the card (one cascade launch) on
+    (B, HC) hint rows and n_valid (`rows`: the first six fields of
+    `db.CascadeRows`) against `db.cascade_chunked_plain` run on the card:
+    raises unless bit-equal, idle columns' zeros included."""
+    from contour_context_tpu_torch import db as tdb
+
+    args = (store, descs, *rows[:6], cfg.thres_lb, cfg.db.cont_sim,
+            cfg.db.cascade_chunk, cfg.db.p_pot)
+    n = kernels.cascade.launches
+    out_k = tdb.cascade_chunked(*args)
+    assert kernels.cascade.launches == n + 1, "no cascade launch"
+    return _hold(out_k, tdb.cascade_chunked_plain(*args), what)
+
+
+def cascade_close_counts(store, descs, rows) -> torch.Tensor:
+    """(B, HC) int64: the close pairs (|bit_s - bit_t| <= 1, both valid) of
+    each hint row of `rows` (`db.CascadeRows`), 0 for the columns past each
+    query's own chunks, which the kernel does not compute."""
+    gidx, level, seq_src, seq_tgt, hv = rows[:5]
+    B, HC = gidx.shape
+    L, A = store.nei_valid.shape[1:3]
+    gi = torch.where(hv, gidx, 0).long()
+    lvl = level.clamp(0, L - 1).long()
+    ss, st = seq_src.clamp(0, A - 1).long(), seq_tgt.clamp(0, A - 1).long()
+    b = torch.arange(B, device=gidx.device)[:, None]
+    sv, sb = store.nei_valid[gi, lvl, ss], store.nei_bit[gi, lvl, ss].int()
+    tv, tb = descs.nei_valid[b, lvl, st], descs.nei_bit[b, lvl, st].int()
+    close = ((sb[..., :, None] - tb[..., None, :]).abs() <= 1) & \
+        sv[..., :, None] & tv[..., None, :]
+    return close.flatten(-2).sum(-1)
+
+
+def cascade_bound(store, descs, rows, cfg: PipelineConfig, clk_hz: float):
+    """(bound us, bound_by, bytes, ops, chain us, computed rows, close
+    pairs) of one cascade call on `rows` (`db.CascadeRows`): each computed
+    row reads its five hint values, its two neighbour rows (9 bytes a slot)
+    and the two tab12 tables its slots index, once, and every row writes
+    its outputs once; the operations the function needs (the M*M pair
+    tests, 6 for each close pair's angle, a sort of the close pairs at n
+    log2 n compares and two binary searches for each kept pair, ~40 for
+    each of the 64 constellation slots); the chain of CASCADE_CHAIN_STEPS
+    dependent steps at the card's maximum SM clock."""
+    W = cfg.db.cascade_chunk
+    gidx = rows[0]
+    B, HC = gidx.shape
+    M = store.nei_valid.shape[-1]
+    L12, J = store.tab12.shape[1:3]
+    own = (rows[5].long() + W - 1) // W * W if 0 < W < HC else \
+        torch.full((B,), HC, device=gidx.device)
+    live = torch.arange(HC, device=gidx.device)[None] < own[:, None]
+    nc = torch.where(live, cascade_close_counts(store, descs, rows), 0)
+    pot = P_POT if cfg.db.p_pot is None else cfg.db.p_pot
+    kept = nc.clamp(max=min(pot, M * M)).double()
+    n_rows = int(live.sum())
+    n_bytes = n_rows * (17 + 2 * 9 * M + 2 * L12 * J * 48) \
+        + B * HC * (25 + 64 * 17 + 12)
+    log2 = torch.log2(torch.clamp(nc.double(), min=2))
+    ops = float(n_rows * (3 * M * M + 64 * 40) + (6 * nc).sum()
+                + (nc * log2).sum() + (2 * kept * log2).sum())
+    chain_us = 1e6 * CASCADE_CHAIN_STEPS / clk_hz
+    b_us, b_by = _bound(n_bytes, ops / FP32_FLOPS)
+    if chain_us > b_us:
+        b_us, b_by = chain_us, "chain"
+    return b_us, b_by, n_bytes, ops, chain_us, n_rows, int(nc.sum())
+
+
+def measure_cascade(db, points_b, cfg: PipelineConfig, label: str,
+                    reps: int = 200) -> dict:
+    """The cascade kernel's row on the clouds' hint rows (`cascade_inputs`
+    on `db`): held bit-equal to its twin, then timed (device us warm and
+    cold, call ms), beside the twin's call ms (`plain_ms`); its bound
+    `cascade_bound`; and `cascade_case`'s device ops and busy ms of the
+    call (every column; the twin's beside it)."""
+    from contour_context_tpu_torch import db as tdb
+    from contour_context_tpu_torch.profile_step import device_ops
+
+    descs, rows = cascade_inputs(db, points_b, cfg)
+    err = hold_cascade_chunked(db.store, descs, rows, cfg, label)
+    b_us, b_by, n_bytes, ops, chain_us, n_rows, n_close = cascade_bound(
+        db.store, descs, rows, cfg, max_sm_clock_hz())
+    args = (db.store, descs, *rows[:6], cfg.thres_lb, cfg.db.cont_sim,
+            cfg.db.cascade_chunk, cfg.db.p_pot)
+    B, HC = rows[0].shape
+    row = dict(
+        name="cascade", route="cuda", source=CASCADE_SOURCE,
+        replaces=CASCADE_REPLACES, shape=f"rows ({B}, {HC}) ({label})",
+        rows_computed=n_rows, close_pairs=n_close,
+        n_run=rows[5].tolist(), max_abs_err=err, bound_us=b_us,
+        bound_by=b_by, bytes=n_bytes, ops=ops, chain_bound_us=chain_us,
+        library_ms=None,
+        **_measure(lambda: tdb.cascade_chunked(*args),
+                   lambda: tdb.cascade_chunked_plain(*args),
+                   "cascade_kernel", reps))
+    row["device_ops"], row["busy_ms"] = device_ops(
+        lambda: tdb.cascade_chunked(*args))
+    row["plain_device_ops"], row["plain_busy_ms"] = device_ops(
+        lambda: tdb.cascade_chunked_plain(*args))
+    return _shares(row)
+
+
+def cascade_rows_of(dev, cfg: PipelineConfig, reps: int = 200,
+                    db_clouds=None) -> list:
+    """The cascade kernel at the edges (`cascade_edge_case` at p_pot 8,
+    128 and None; bit-equal to the twin) and on the smoke stream's DB
+    (`stream_case`) at the stream's shape (one revisit query: B 1, 256
+    rows) and the serving shape (16 revisit queries: B 16, 4,096 rows),
+    each held and timed (`measure_cascade`)."""
+    store, query, tgt_q, hints = cascade_edge_case(dev)
+    for pot in (8, 128, None):
+        hold_cascade(store, query, tgt_q, hints, cfg, f"edges, p_pot {pot}",
+                     pot)
+    db, clouds = db_clouds or stream_case(dev, cfg)
+    rev0 = 2 * LANE_SCANS
+    one = torch.from_numpy(clouds[rev0 + 10]).to(dev)[None]
+    revs16 = torch.from_numpy(np.stack(clouds[rev0 + 16:rev0 + 32])).to(dev)
+    return [measure_cascade(db, pts, cfg, label, reps)
             for label, pts in (("a revisit query, B 1", one),
                                ("16 revisit queries, B 16", revs16))]
 
@@ -1924,12 +2294,13 @@ def main(argv: Optional[Sequence[str]] = None) -> list:
                     help="time the scaling, CC, merge and dynamic scan rows "
                     "of the checkouts at ROOT ... too, in turns (each ROOT, "
                     "this, this, each ROOT again)")
-    ap.add_argument("--only", choices=["cc_merge", "dyn", "lm"],
+    ap.add_argument("--only", choices=["cc_merge", "dyn", "lm", "cascade"],
                     help="cc_merge: only the CC and merge rows (with their "
                     "phase split), in turns with --compare; dyn: only the "
                     "two dynamic scans' rows (phase 9's inputs and the "
                     "worst-case rows, with their phase split and rounds), "
-                    "the same way; lm: only the LM kernel's rows")
+                    "the same way; lm: only the LM kernel's rows; cascade: "
+                    "only the cascade kernel's rows")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available")
@@ -1942,6 +2313,15 @@ def main(argv: Optional[Sequence[str]] = None) -> list:
         other.build()
     order = others + [kernels, kernels] + others[::-1] if others \
         else [kernels]
+    if args.only == "cascade":
+        casc = cascade_rows_of(dev, cfg, args.reps)
+        for r in casc:
+            print(json.dumps(r), flush=True)
+        print(f"card: {smi}", flush=True)
+        if args.out:
+            with open(args.out, "w") as f:
+                json.dump({"card": smi, "cascade": casc}, f, indent=1)
+        return casc
     if args.only == "lm":
         lm = lm_rows(dev, cfg, args.reps)
         for r in lm:
@@ -1980,7 +2360,8 @@ def main(argv: Optional[Sequence[str]] = None) -> list:
         print(json.dumps(r), flush=True)
     dyn = dyn_rows(dev, cfg, order, args.reps)
     lm = lm_rows(dev, cfg, args.reps)
-    for r in dyn + lm:
+    casc = cascade_rows_of(dev, cfg, args.reps)
+    for r in dyn + lm + casc:
         print(json.dumps(r), flush=True)
     scaling = []
     for turn, kmod in enumerate(order):
@@ -1995,6 +2376,7 @@ def main(argv: Optional[Sequence[str]] = None) -> list:
         with open(args.out, "w") as f:
             json.dump({"card": smi, "rows": rows, "scaling": scaling,
                        "cc_merge": cc_merge, "dyn": dyn, "lm": lm,
+                       "cascade": casc,
                        "launch_floor_us": floor}, f, indent=1)
     return rows
 

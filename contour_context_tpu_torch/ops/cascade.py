@@ -5,6 +5,11 @@ one query or of a batch of queries, each hint row knowing its query), check 1 (a
 constellation consensus, contour_mng.h:288-388), check 3 (pairwise similarity
 + orientation, contour_mng.h:1124-1242) and the closed-form 2-D Umeyama
 transform (contour_mng.h:1251-1277). Early exits are masks.
+
+`run_cascade` is the plain twin of the cascade kernel (csrc/cascade.cu,
+`kernels.cascade`): the CPU path takes it, and on the card the kernel
+equals it bit for bit. Its Umeyama sums over the constellation slots run
+in the kernel's order (`_slot_sum`).
 """
 
 from __future__ import annotations
@@ -42,6 +47,22 @@ class CascadeResult(NamedTuple):
     T_delta: torch.Tensor      # (H, 3) f32
     pot_overflow: torch.Tensor  # (H,) bool
     win_overflow: torch.Tensor  # (H,) bool
+
+
+def empty_result(lead: tuple, device, zeros: bool = False) -> CascadeResult:
+    """A CascadeResult of `lead` hint rows, each field of its trailing shape
+    and dtype: uninitialised, or zeros."""
+    b, i32, f32 = torch.bool, torch.int32, torch.float32
+    tails = dict(pair_valid=((P_MAX,), b), pair_level=((P_MAX,), i32),
+                 pair_seq_src=((P_MAX,), i32), pair_seq_tgt=((P_MAX,), i32),
+                 pair_area_perc=((P_MAX,), f32), T_delta=((3,), f32),
+                 ovlp_sum=((), i32), ovlp_max_one=((), i32),
+                 in_ang_rng=((), i32), i_indiv_sim=((), i32),
+                 i_orie_sim=((), i32))
+    make = torch.zeros if zeros else torch.empty
+    return CascadeResult(*[make(tuple(lead) + tails.get(f, ((), b))[0],
+                                dtype=tails.get(f, ((), b))[1], device=device)
+                           for f in CascadeResult._fields])
 
 
 def check_sim_batched(cnt_s, eig_s, h_s, comr_s, cnt_t, eig_t, h_t, comr_t,
@@ -88,6 +109,17 @@ def unpack12(g):
     return dict(cnt=g[..., 0], eig=g[..., 1:3], h=g[..., 3], comr=g[..., 4],
                 mean=g[..., 5:7], vec1=g[..., 7:9], ecc=g[..., 9] > 0.5,
                 perc=g[..., 10], ok=g[..., 11] > 0.5)
+
+
+def _slot_sum(x):
+    """Sum over the P_MAX constellation slots (dim 1) in the order of
+    csrc/cascade.cu: slot p plus slot p + P_MAX / 2, then the halves again
+    down to one (its shuffle tree), then + 0.0: a sum of -0.0 terms is
+    +0.0, as from a sum that starts at 0 (torch's and XLA's reductions)."""
+    while x.shape[1] > 1:
+        h = x.shape[1] // 2
+        x = x[:, :h] + x[:, h:]
+    return x[:, 0] + 0.0
 
 
 def run_cascade(src_anchor, src_nei, src_tab12, tgt_anchor, tgt_nei,
@@ -240,11 +272,11 @@ def run_cascade(src_anchor, src_nei, src_tab12, tgt_anchor, tgt_nei,
     # Umeyama SE(2) (contour_mng.h:1251-1277)
     wm = cstl2.to(torch.float32)
     n = torch.clamp(wm.sum(dim=1, keepdim=True), min=1.0)
-    mu_s = (mean_s * wm[..., None]).sum(dim=1) / n
-    mu_t = (mean_t * wm[..., None]).sum(dim=1) / n
+    mu_s = _slot_sum(mean_s * wm[..., None]) / n
+    mu_t = _slot_sum(mean_t * wm[..., None]) / n
     dt = (mean_t - mu_t[:, None]) * wm[..., None]
     ds = mean_s - mu_s[:, None]
-    Cm = (dt[:, :, :, None] * ds[:, :, None, :]).sum(dim=1)
+    Cm = _slot_sum(dt[:, :, :, None] * ds[:, :, None, :])
     theta = torch.atan2(Cm[:, 1, 0] - Cm[:, 0, 1], Cm[:, 0, 0] + Cm[:, 1, 1])
     cth, sth = torch.cos(theta), torch.sin(theta)
     tx = mu_t[:, 0] - (cth * mu_s[:, 0] - sth * mu_s[:, 1])

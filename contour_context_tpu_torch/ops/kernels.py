@@ -38,6 +38,14 @@ package's device-side while-loops and scans off the host:
   twin `gmm.optimize_correlation_plain` is the torch chain of ~3,550 small
   ops a call, its sums in the kernel's order; `gmm.optimize_correlation`
   is its wrapper).
+- `cascade` (csrc/cascade.cu): checks 1-3 and the Umeyama fit of every
+  hint row of every query of a call in one launch, a CTA a row, reading
+  the neighbour and tab12 rows of the store and the queries itself (the
+  JAX `ops/cascade.run_cascade` and the per-hint gathers and chunk loop of
+  `db._gather_and_cascade_impl` / `db._cascade_chunked`; its plain twin
+  `cascade.run_cascade` is the torch body of ~800 small ops a stream step
+  it replaced, its Umeyama sums in the kernel's order;
+  `db.gather_and_cascade` and `db.cascade_chunked` are its wrappers).
 
 Each wrapper takes its plain twin for CPU tensors only; a CUDA tensor launches
 the kernel or raises. The kernels are compiled at first use with nvcc into one
@@ -62,7 +70,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from contour_context_tpu_torch.ops.cascade import clamp_ang
+from contour_context_tpu_torch.ops.cascade import (P_POT, clamp_ang,
+                                                  empty_result)
 from contour_context_tpu_torch.types import device_const
 
 MAX_DIST_SQ = 1e6        # contour_db.h:30, the masked-distance sentinel
@@ -74,7 +83,8 @@ INV_SQRT_2PI = 1.0 / math.sqrt(2.0 * math.pi)
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _SOURCES = ("ring_key.cu", "search_tilemin.cu", "cc_labels.cu",
-            "merge_hints.cu", "dyn_thres.cu", "gmm_lm.cu", "stage_mark.cu")
+            "merge_hints.cu", "dyn_thres.cu", "gmm_lm.cu", "cascade.cu",
+            "stage_mark.cu")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 _lib = None
 
@@ -139,6 +149,8 @@ def build() -> ctypes.CDLL:
     lib.cc_dyn_post_scan.argtypes = [vp] * 5 + [ci, ci] + [cf] * 6 + [vp]
     lib.cc_gmm_lm.restype = ci
     lib.cc_gmm_lm.argtypes = [vp] * 12 + [ci] * 5 + [cf] * 4 + [vp]
+    lib.cc_cascade.restype = ci
+    lib.cc_cascade.argtypes = [vp, vp, vp, vp]
     lib.cc_stage_mark.restype = ci
     lib.cc_stage_mark.argtypes = [ci, vp]
     _lib = lib
@@ -890,12 +902,114 @@ gmm_lm.launches = 0
 
 
 # ---------------------------------------------------------------------------
+# the check cascade
+# ---------------------------------------------------------------------------
+
+CASCADE_MAX_M = 40        # kMaxM of csrc/cascade.cu: 4 bins x dist_firsts
+CASCADE_MAX_POT = 512     # kPotMax there, cascade.P_POT
+_NEI = ("nei_valid", "nei_level", "nei_seq", "nei_bit", "nei_theta", "tab12")
+_NEI_DTYPES = (torch.bool, torch.int8, torch.int8, torch.int16,
+               torch.float32, torch.float32)
+
+
+def cascade(store, query, gidx, level, seq_src, seq_tgt, hint_valid,
+            thres_lb, cont_sim, p_pot=None, tgt_q=None, n_valid=None,
+            chunk: int = 0):
+    """One launch of csrc/cascade.cu: the check cascade of every hint row
+    (`cascade.run_cascade` after the gathers of `db.gather_and_cascade`,
+    which is its plain twin; bit-equal on the card). `store` and `query`
+    are stacked ScanDescs (N and B rows); the hint arrays gidx, level,
+    seq_src, seq_tgt (int32) and hint_valid (bool) are (H,) with `tgt_q`
+    (H,) naming each row's query, or (B, HC) with row (b, c) query b's; then
+    with `n_valid` (B,) int32 and chunk W < HC, each query's columns past
+    ceil(n_valid / W) * W are written as zeros without being computed
+    (`db.cascade_chunked`). Returns a CascadeResult shaped like the hint
+    arrays. CUDA tensors only."""
+    dev = gidx.device
+    if dev.type != "cuda":
+        raise ValueError(f"cascade: unsupported device {dev}")
+    lead = tuple(gidx.shape)
+    pot = P_POT if p_pot is None else int(p_pot)
+    tabs = []
+    for scan, name in ((store, "store"), (query, "query")):
+        for leaf, dtype in zip(_NEI, _NEI_DTYPES):
+            x = getattr(scan, leaf).contiguous()
+            _check(f"{name}.{leaf}", x, dtype)
+            if x.device != dev:
+                raise ValueError(f"cascade: {name}.{leaf} on {x.device}")
+            tabs.append(x)
+    N, L, A, M = tabs[0].shape
+    Bq = tabs[6].shape[0]
+    L12, J = tabs[5].shape[1:3]
+    if any(tuple(x.shape[1:]) != tuple(y.shape[1:])
+           for x, y in zip(tabs[:6], tabs[6:])) or \
+            tuple(tabs[5].shape[3:]) != (12,) or \
+            any(tuple(x.shape[1:]) != (L, A, M) for x in tabs[1:5]):
+        raise ValueError("cascade: store and query tables differ in shape")
+    if not 0 < M <= CASCADE_MAX_M or not 0 < pot <= CASCADE_MAX_POT \
+            or N < 1 or Bq < 1:
+        raise ValueError(f"cascade: unsupported M={M} p_pot={pot} N={N} "
+                         f"B={Bq}")
+    rows = [x.to(torch.int32).contiguous()
+            for x in (gidx, level, seq_src, seq_tgt)]
+    rows.append(hint_valid.to(torch.bool).contiguous())
+    for x in rows:
+        if tuple(x.shape) != lead or x.device != dev:
+            raise ValueError("cascade: hint arrays differ in shape or device")
+    R = math.prod(lead)
+    if tgt_q is not None:
+        if len(lead) != 1 or n_valid is not None:
+            raise ValueError("cascade: tgt_q takes (H,) rows and no n_valid")
+        tgt_q = tgt_q.to(torch.int64).contiguous()
+        _check("tgt_q", tgt_q, torch.int64, lead)
+        cols = max(R, 1)
+    elif len(lead) == 2 and lead[0] <= Bq:
+        cols = lead[1]
+    else:
+        raise ValueError(f"cascade: rows {lead} without tgt_q")
+    W = 0
+    if n_valid is not None:
+        W = int(chunk)
+        n_valid = n_valid.to(torch.int32).contiguous()
+        _check("n_valid", n_valid, torch.int32, lead[:1])
+        if W < 1:
+            raise ValueError(f"cascade: chunk {W} with n_valid")
+    if R >= 1 << 31:
+        raise ValueError(f"cascade: {R} rows")
+    out = empty_result(lead, dev)
+    if R == 0:
+        return out
+    lib = build()
+    ptrs = [x.data_ptr() for x in tabs + rows]
+    ptrs += [0 if tgt_q is None else tgt_q.data_ptr(),
+             0 if n_valid is None else n_valid.data_ptr()]
+    ptrs += [x.data_ptr() for x in out]
+    sc, sp = thres_lb.sim_constell, thres_lb.sim_pair
+    dims = [N, Bq, L, A, M, L12, J, R, cols, W, pot, sc.i_ovlp_sum,
+            sc.i_ovlp_max_one, sc.i_in_ang_rng, sp.i_indiv_sim,
+            sp.i_orie_sim]
+    th = [cont_sim.ta_cell_cnt, cont_sim.tp_cell_cnt, cont_sim.tp_eigval,
+          cont_sim.ta_h_bar, cont_sim.ta_rcom, cont_sim.tp_rcom]
+    arrays = ((ctypes.c_void_p * len(ptrs))(*ptrs),
+              (ctypes.c_int * len(dims))(*[int(d) for d in dims]),
+              (ctypes.c_float * len(th))(*th))
+    rc = lib.cc_cascade(*[ctypes.cast(a, ctypes.c_void_p) for a in arrays],
+                        _stream(dev))
+    _raise_on(rc, "cascade")
+    add_launches({"cascade": 1})
+    return out
+
+
+cascade.launches = 0
+
+
+# ---------------------------------------------------------------------------
 # launch counts
 # ---------------------------------------------------------------------------
 
 WRAPPERS = (ring_key_divs, ring_key_divs_batch, search_tilemin,
             search_tilemin_batch, cc_labels, merge_hints, dyn_pass_scan,
-            dyn_post_scan, gmm_lm)
+            dyn_post_scan, gmm_lm, cascade)
 
 
 def launch_counts() -> dict:

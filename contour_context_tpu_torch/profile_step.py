@@ -28,7 +28,8 @@ up to the revisits, then on revisit scans 4.. it reports:
   device-busy ms and kernel launches per scan (the profiler records the
   kernels inside a graph replay), the top operators, and each CUDA kernel
   of the step (`ring_key_divs_kernel`, `search_tilemin_kernel`,
-  `cc_labels_kernel`, `merge_hints_kernel`, and with `--dynamic` the
+  `cc_labels_kernel`, `merge_hints_kernel`, `cascade_kernel`, and with
+  `--dynamic` the
   `dyn_pass_scan_kernel` and `dyn_post_scan_kernel`) with its launches and
   mean device time per launch, beside the window's searchable_n (CUDA
   only);
@@ -243,7 +244,8 @@ def _kernel_us(prof, n_scans: int, dynamic: bool = False) -> dict:
     wrappers = {"ring_key_divs_kernel": kernels.ring_key_divs,
                 "search_tilemin_kernel": kernels.search_tilemin,
                 "cc_labels_kernel": kernels.cc_labels,
-                "merge_hints_kernel": kernels.merge_hints}
+                "merge_hints_kernel": kernels.merge_hints,
+                "cascade_kernel": kernels.cascade}
     if dynamic:
         wrappers["dyn_pass_scan_kernel"] = kernels.dyn_pass_scan
         wrappers["dyn_post_scan_kernel"] = kernels.dyn_post_scan

@@ -17,8 +17,9 @@ The marks, where each is launched, and the stage it begins:
 - `desc`: `ops/descriptor.build_descriptors`; the descriptor build.
 - `search`: `db.query_step` / `db.query_step_batch`; the key search.
 - `check1`: `db.cascade_rows`; the hint cap and the check-1 prefilter.
-- `cascade`: `db.stages_from_hits`, before `cascade_chunked`; the chunked
-  cascade (and the dynamic pass scan).
+- `cascade`: `db.stages_from_hits`, before `cascade_chunked`; the cascade
+  (on a CUDA device one `cascade` kernel over every hint row) and the
+  dynamic pass scan.
 - `merge`: `db.stages_from_hits`, before `merge_proposals`; the merge.
 - `init`: `db.refine_from_hits`, after `stages_from_hits`; the tidy
   screens, the GMM init correlation, the best F candidates.

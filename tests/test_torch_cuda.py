@@ -88,6 +88,13 @@ This file imports no jax, so it runs where only torch is installed:
   NCCL sharded serving, the query step and two block steps through one
   graph as replays with no host sync (sync debug mode "error"), bit-equal
   to their eager bodies and to the single-device f32 path.
+- the check cascade as one kernel launch: bit-equal to its plain twin (run
+  on the card) on the rows made to take each edge at p_pot 8, 128 and
+  None, on the hint rows of B = 1, 4, 5 and 16 revisit queries at the
+  default caps and of B = 5 at the squeezed caps (HC 96, W 40: a clamped
+  last chunk), idle columns' zeros included; one launch a step and a
+  serving chunk (counted with every kernel in the launch tests above); a
+  refused launch raises.
 """
 
 import numpy as np
@@ -1045,6 +1052,88 @@ def test_gmm_lm_graphed_replay_equals_eager_on_card(cuda):
     assert kernels.gmm_lm.launches == 3
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("p_pot", [8, 128, None])
+def test_cascade_kernel_matches_plain_at_the_edges_on_card(cuda, p_pot):
+    """The cascade kernel bit-equal to its plain twin (run on the card) on
+    the flat hint rows made to take each edge of the cascade
+    (`kernel_times.cascade_edge_world`: no close pair, more close pairs
+    than p_pot, a window longer than 63, the +-pi wrap, equal angles,
+    hint_valid false, no shaft, a degenerate target shaft, the orientation
+    screen, negative and out-of-range indices); one launch a call."""
+    cfg = PipelineConfig()
+    store, query, tgt_q, hints = kt.cascade_edge_case(cuda)
+    kernels.reset_launches()
+    assert kt.hold_cascade(store, query, tgt_q, hints, cfg,
+                           f"edges, p_pot {p_pot}", p_pot) == 0.0
+    assert kernels.cascade.launches == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,caps", [(1, "default"), (4, "default"),
+                                    (5, "default"), (16, "default"),
+                                    (5, "squeezed")])
+def test_cascade_kernel_matches_plain_on_card(cuda, B, caps):
+    """The cascade kernel bit-equal to its plain twin (run on the card) on
+    the hint rows the query path gives it (`kernel_times.cascade_inputs`:
+    B revisit queries against a card DB of the revisit world, after the
+    hint cap and check 1): the stream's B = 1, the serving chunks of 4, 5
+    and 16, and the squeezed caps (HC 96 in chunks of 40, the last chunk's
+    start clamped), each query's idle columns zero; one launch a call."""
+    cfg, clouds = _revisit_clouds()
+    if caps == "squeezed":
+        cfg = PipelineConfig(cm=cfg.cm, db=ContourDBConfig(
+            max_check_cands=96, cascade_chunk=40, max_pass_hints=16,
+            max_cand_poses=2, p_pot=8))
+    db = tdb.ContourDB(cfg, capacity=16, device="cuda")
+    for i in range(8):
+        db.step_async(clouds[i], i, 6.0 * i)
+    pts = torch.from_numpy(np.concatenate([clouds[8:]] * 4)[:B]).to(cuda)
+    descs, rows = kt.cascade_inputs(db, pts, cfg)
+    assert int(rows.n_run.max()) > 0
+    kernels.reset_launches()
+    assert kt.hold_cascade_chunked(db.store, descs, rows, cfg,
+                                   f"B {B}, {caps}") == 0.0
+    assert kernels.cascade.launches == 1
+
+
+@pytest.mark.cuda
+def test_cascade_refused_launch_raises_on_card(cuda, monkeypatch):
+    """A launch the library refuses raises: the C entry returns
+    cudaErrorInvalidValue for M > 40 and launches nothing, and the wrapper
+    raises on a non-zero return; shapes it cannot take raise before."""
+    import ctypes
+
+    cfg = PipelineConfig()
+    store, query, tgt_q, hints = kt.cascade_edge_case(cuda)
+    lib = kernels.build()
+    dims = (ctypes.c_int * 16)(1, 1, 6, 6, 41, 4, 10, 1, 1, 0, 128, 3, 3, 3,
+                               3, 4)
+    ptrs = (ctypes.c_void_p * 35)(*([hints[0].data_ptr()] * 35))
+    th = (ctypes.c_float * 6)(6.0, 0.2, 0.2, 0.3, 0.4, 0.25)
+    rc = lib.cc_cascade(*[ctypes.cast(a, ctypes.c_void_p)
+                          for a in (ptrs, dims, th)], kernels._stream(cuda))
+    assert rc != 0
+    with pytest.raises(RuntimeError, match="cascade: CUDA launch failed"):
+        kernels._raise_on(rc, "cascade")
+    torch.cuda.synchronize()
+
+    class Refusing:
+        @staticmethod
+        def cc_cascade(*args):
+            return 9            # cudaErrorInvalidConfiguration
+
+    monkeypatch.setattr(kernels, "build", lambda: Refusing)
+    n = kernels.cascade.launches
+    with pytest.raises(RuntimeError, match="cascade: CUDA launch failed"):
+        tdb.gather_and_cascade(store, query, tgt_q, *hints, cfg.thres_lb,
+                               cfg.db.cont_sim, 128)
+    assert kernels.cascade.launches == n
+    with pytest.raises(ValueError, match="p_pot"):
+        kernels.cascade(store, query, *hints, cfg.thres_lb, cfg.db.cont_sim,
+                        1024, tgt_q=tgt_q)
+
+
 def _stream_db(cfg, clouds, graphed, n, q16=False, capacity=8):
     """n steps of the revisit world (6 s apart) into a card DB of
     `capacity` (it grows past it), graphed or through the eager body."""
@@ -1087,7 +1176,7 @@ def test_graphed_stream_equals_eager_body_on_card(cuda, payload):
     g = _stream_db(cfg, clouds, True, 20, q16)
     counts = kernels.launch_counts()
     for name in ("ring_key_divs", "search_tilemin", "cc_labels",
-                 "merge_hints", "gmm_lm"):
+                 "merge_hints", "gmm_lm", "cascade"):
         assert counts[name] == 20, counts
     assert counts["ring_key_divs_batch"] == counts["search_tilemin_batch"] \
         == 0
@@ -1113,7 +1202,7 @@ def test_graphed_stream_and_chain_make_no_host_sync_on_card(cuda):
     assert delta == {"ring_key_divs": 20, "ring_key_divs_batch": 0,
                      "search_tilemin": 20, "search_tilemin_batch": 0,
                      "cc_labels": 20, "merge_hints": 20, "dyn_pass_scan": 0,
-                     "dyn_post_scan": 0, "gmm_lm": 20}, delta
+                     "dyn_post_scan": 0, "gmm_lm": 20, "cascade": 20}, delta
     buf = np.concatenate([clouds, clouds[:4]])
     ts = [6.0 * i for i in range(21, 37)]
     h = _no_syncs(lambda: db.step_chain_dyn_async(buf, list(range(21, 37)),
@@ -1152,7 +1241,7 @@ def test_graphed_block_and_serving_equal_eager_on_card(cuda):
     assert delta == {"ring_key_divs": 0, "ring_key_divs_batch": 1,
                      "search_tilemin": 0, "search_tilemin_batch": 1,
                      "cc_labels": 1, "merge_hints": 1, "dyn_pass_scan": 0,
-                     "dyn_post_scan": 0, "gmm_lm": 1}, delta
+                     "dyn_post_scan": 0, "gmm_lm": 1, "cascade": 1}, delta
     step(e)
     _assert_same_db(g, e, 16)
     assert int((g.recs_store[8:16, 0] > 0.5).sum()) >= 2
@@ -1164,6 +1253,7 @@ def test_graphed_block_and_serving_equal_eager_on_card(cuda):
         lambda: g.localize_block_async(pts[2:12], chunk=4)))
     assert delta["ring_key_divs_batch"] == delta["search_tilemin_batch"] \
         == delta["cc_labels"] == delta["merge_hints"] == delta["gmm_lm"] \
+        == delta["cascade"] \
         == 3, delta
     a, b = (recs[k].recs for k in (True, False))
     assert a.shape == (10, 18) and torch.equal(a.view(torch.int32),
@@ -1274,7 +1364,8 @@ def test_serving_sized_to_the_request_on_card(cuda):
     delta = _launch_delta(lambda: db.localize_block_async(pts[3:8]))
     for names in (("ring_key_divs", "ring_key_divs_batch"),
                   ("search_tilemin", "search_tilemin_batch"),
-                  ("cc_labels",), ("merge_hints",), ("gmm_lm",)):
+                  ("cc_labels",), ("merge_hints",), ("gmm_lm",),
+                  ("cascade",)):
         assert sum(delta[k] for k in names) == 2, (names, delta)
     stats = db.graph_stats()
     assert set(stats["captures"].values()) == {1}, stats["captures"]
